@@ -1,0 +1,74 @@
+"""The port stands alone: no source of virgo_plus_tpu_torch/ or
+chip_smoke.py imports JAX or the JAX package, the package imports with JAX
+blocked, and an entry point called with the default device (CUDA) raises
+when there is no CUDA instead of running on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from virgo_plus_tpu_torch import device, driver, kernels
+from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "virgo_plus_tpu_torch"
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "virgo_plus_tpu")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'jaxlib', 'virgo_plus_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import virgo_plus_tpu_torch as p\n"
+        "for info in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in\n"
+        "               sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = randomize(2, 6, seed=3)
+    subset_init(c)
+    before = dict(kernels.PLAIN_CALLS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.compile_prover(c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.prove(c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.run(circuit=c)
+    assert kernels.PLAIN_CALLS == before      # nothing ran on the CPU
+    assert device.resolve("cpu") == torch.device("cpu")

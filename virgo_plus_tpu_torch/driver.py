@@ -1,0 +1,243 @@
+"""End-to-end Virgo++ proving and verification on PyTorch.
+
+Counterpart of ``virgo_plus_tpu/driver.py`` in its glibc-stream mode
+(reference src/main.cpp:145-159, verifier.cpp:134-189):
+
+  * ``prove``   -> a standalone serialized proof (proof_io.FullProof)
+  * ``verify``  -> consumes only the circuit + proof + challenge stream
+  * ``run``     -> both
+
+Challenges come from the reference's exact glibc stream, so transcripts are
+bit-identical to the JAX package's and the reference's.  Every entry point
+takes ``device=None``, which means the CUDA card, and raises without one.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field as dc_field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import device as _device
+from . import proof_io
+from .config import ProtocolConfig
+from .field import gf
+from .utils import metrics
+from .utils.glibc_rand import GlibcRandom
+from .circuits.pws import parse_pws
+from .circuits.layered import dag_to_layered, subset_init, LayeredCircuit
+from .circuits.compile import compile_circuit, evaluate, input_buffer
+from .gkr import protocol
+
+
+@dataclass
+class Report:
+    ok: bool
+    gkr_ok: bool
+    pc_ok: bool
+    input_size: int
+    gkr_proof_size: int        # bytes
+    pc_proof_size: int         # bytes
+    prove_time: float = 0.0
+    verify_time: float = 0.0
+    # reference fast/slow verifier split (verifier.cpp:180, verifier.h:45-46):
+    # slow = the O(#gates) wiring-predicate sweeps, fast = everything else
+    verify_time_fast: float = 0.0
+    verify_time_slow: float = 0.0
+    details: dict = dc_field(default_factory=dict)
+
+
+def _check_asserts(cc, values) -> None:
+    """prover.cpp:14-25: refuse to prove when an assert gate is nonzero."""
+    for i in range(1, cc.depth):
+        L = cc.layers[i]
+        if not L.has_assert:
+            continue
+        off = int(cc.value_off[i])
+        block = gf.to_numpy(values[:, off:off + L.size])
+        bad = (block != 0).any(axis=0) & L.is_assert
+        if bad.any():
+            g = int(np.argmax(bad))
+            raise ValueError(
+                f"assert gate failed: layer {i} gate {g} is nonzero")
+
+
+def gkr_proof_size_bytes(cc) -> int:
+    """Reference accounting: 48B per round poly (prover.cpp:451), 16B per
+    claim (500, 512)."""
+    total = 0
+    for i in range(cc.depth - 1, 0, -1):
+        bl_prev = cc.layers[i - 1].bit_length
+        total += 48 * bl_prev + 16            # phase 1 + claim_u
+        if cc.layers[i].max_dad_bit_length >= 0:
+            total += 48 * cc.layers[i].max_dad_bit_length
+            total += 16 * i                   # one claim per source layer
+        total += 48 * bl_prev                 # Liu
+    return total
+
+
+@dataclass
+class CompiledProver:
+    cc: object
+    plans: object
+    arrs: dict           # prover index/coefficient tensors on the device
+    verifier: object
+    pc: object           # pc.interface.VirgoPC
+    pc_fns: dict
+    device: torch.device
+
+
+def load_circuit(pws_path: str, bug_compat: bool = True,
+                 config: Optional[ProtocolConfig] = None) -> LayeredCircuit:
+    """Parse + layer + subset-init (the Python frontend)."""
+    if config is not None:
+        bug_compat = config.bug_compat
+    c = dag_to_layered(parse_pws(pws_path), bug_compat=bug_compat)
+    subset_init(c)
+    return c
+
+
+def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
+                   device=None) -> CompiledProver:
+    """Compile the circuit and move its tables to the device.  pc defaults
+    to the Virgo VPD (the reference's USE_VIRGO branch)."""
+    from .pc.interface import DEFAULT_PC
+
+    dev = _device.resolve(device)
+    cc = compile_circuit(c)
+    plans = protocol.build_plans(cc)
+    pc = pc or DEFAULT_PC
+    return CompiledProver(
+        cc=cc, plans=plans, arrs=protocol.circuit_arrays(cc, plans, dev),
+        verifier=protocol.make_verifier(cc, dev),
+        pc=pc, pc_fns=pc.compile(cc.layers[0].bit_length, dev), device=dev)
+
+
+def _compiled(circuit, compiled, device) -> CompiledProver:
+    return compiled or compile_prover(circuit, device=device)
+
+
+def _layer_proof_arrays(lp: protocol.LayerProof) -> dict:
+    n = lambda t: None if t is None else gf.to_numpy(t)
+    return dict(p1_polys=n(lp.p1_polys), claim_u=n(lp.claim_u),
+                p2_polys=n(lp.p2_polys), claims_v=n(lp.claims_v),
+                liu_polys=n(lp.liu_polys), liu_claim=n(lp.liu_claim))
+
+
+def _layer_proof_from(arrs: dict, device) -> protocol.LayerProof:
+    t = lambda k: (None if arrs.get(k) is None
+                   else gf.tensor(arrs[k], device))
+    return protocol.LayerProof(
+        p1_polys=t("p1_polys"), claim_u=t("claim_u"), p2_polys=t("p2_polys"),
+        claims_v=t("claims_v"), liu_polys=t("liu_polys"),
+        liu_claim=t("liu_claim"))
+
+
+def prove(circuit: LayeredCircuit, compiled: Optional[CompiledProver] = None,
+          seed: int = 3396, witness: Optional[np.ndarray] = None,
+          device=None):
+    """Produce a standalone proof.  Returns (FullProof, info dict)."""
+    cp = _compiled(circuit, compiled, device)
+    cc = cp.cc
+    bl0 = cc.layers[0].bit_length
+    t0 = time.time()
+
+    inputs = input_buffer(cc, witness, cp.device)
+    values = evaluate(cc, inputs, cp.arrs)
+    _check_asserts(cc, values)
+    rng = GlibcRandom(seed)
+
+    pc_state, root_l = cp.pc.commit_private(cp.pc_fns, inputs)
+    ch = protocol.make_challenges(cc, rng, cp.device)
+    proof = protocol.prove(cc, cp.plans, values, ch, cp.arrs)
+    final_point = ch.layers[1].r_liu[:, :bl0]
+
+    fields, pc_proof_size, flags = cp.pc.open(cp.pc_fns, pc_state,
+                                              final_point, rng)
+    full = proof_io.FullProof(
+        vres=gf.to_numpy(proof.vres),
+        layers=[None] + [_layer_proof_arrays(proof.layers[i])
+                         for i in range(1, cc.depth)],
+        root_l=root_l,
+        meta=dict(seed=seed, bl0=bl0, depth=cc.depth),
+        **fields)
+
+    info = dict(prove_time=time.time() - t0,
+                gkr_proof_size=gkr_proof_size_bytes(cc),
+                pc_proof_size=pc_proof_size, **flags)
+    return full, info
+
+
+def verify(circuit: LayeredCircuit, full: proof_io.FullProof,
+           compiled: Optional[CompiledProver] = None,
+           seed: int = 3396, output_values=None, device=None) -> Report:
+    """Standalone verification: uses only circuit + proof + the shared
+    challenge stream.  output_values: optional (2, 2^bl_last) claimed
+    public-output block; when given, vres is checked against its MLE fold."""
+    cp = _compiled(circuit, compiled, device)
+    cc = cp.cc
+    dev = cp.device
+    t0 = time.time()
+
+    pt = metrics.PhaseTimer()
+    pt.start("challenges")
+    rng = GlibcRandom(seed)
+    ch = protocol.make_challenges(cc, rng, dev)
+    proof = protocol.Proof(
+        vres=gf.tensor(full.vres, dev),
+        layers=[None] + [_layer_proof_from(full.layers[i], dev)
+                         for i in range(1, cc.depth)])
+    pt.stop("challenges")
+
+    # the verifier never re-evaluates the circuit: vres is the claimed
+    # output-MLE value, bound to the committed input by the layer walk and
+    # the PC opening
+    pt.start("gkr_walk")
+    gkr_ok, previous_sum, final_point = cp.verifier(
+        proof, ch,
+        None if output_values is None else gf.tensor(output_values, dev))
+    pt.stop("gkr_walk")
+
+    pt.start("pc_opening")
+    pc_ok, pc_details = cp.pc.verify_opening(cp.pc_fns, full, final_point,
+                                             previous_sum, rng)
+    pt.stop("pc_opening")
+    vt = time.time() - t0
+    slow = cp.verifier.last_split[1]
+    return Report(
+        ok=gkr_ok and pc_ok, gkr_ok=gkr_ok, pc_ok=pc_ok,
+        input_size=cc.n_inputs,
+        gkr_proof_size=gkr_proof_size_bytes(cc),
+        pc_proof_size=0,
+        verify_time=vt, verify_time_fast=vt - slow, verify_time_slow=slow,
+        details=dict(pc_details, phases=pt.report()))
+
+
+def run(pws_path: Optional[str] = None,
+        circuit: Optional[LayeredCircuit] = None,
+        compiled: Optional[CompiledProver] = None,
+        bug_compat: bool = True, seed: int = 3396,
+        config: Optional[ProtocolConfig] = None, device=None) -> Report:
+    """Prove + verify in one go (glibc transcript, one device)."""
+    if config is None:
+        config = ProtocolConfig(seed=seed, bug_compat=bug_compat)
+    if config.transcript != "glibc" or config.mesh is not None:
+        raise NotImplementedError(
+            "the PyTorch port runs the glibc transcript on one device; the "
+            "Fiat-Shamir mode and sharded proving are not ported yet")
+    if circuit is None:
+        circuit = load_circuit(pws_path, config.bug_compat)
+    cp = _compiled(circuit, compiled, device)
+    full, info = prove(circuit, cp, config.seed)
+    rep = verify(circuit, full, cp, config.seed)
+    rep.pc_proof_size = info["pc_proof_size"]
+    rep.prove_time = info["prove_time"]
+    ops = metrics.protocol_op_counts(cp.cc)
+    rep.details.update(
+        root_l=[int(x) for x in full.root_l],
+        root_h=[int(x) for x in full.root_h],
+        op_counts=(ops.mult, ops.add))
+    return rep

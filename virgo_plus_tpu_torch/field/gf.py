@@ -1,0 +1,247 @@
+"""GF((2^61-1)^2) batched arithmetic on int64 tensors.
+
+Counterpart of ``virgo_plus_tpu/field/gf.py``.  An array of N field elements
+is an ``int64[2, N]`` tensor: plane 0 real parts, plane 1 imaginary parts,
+each canonical in ``[0, 2^61-1)``.  The planes hold the same bit patterns as
+the JAX package's ``uint64`` planes; PyTorch has almost no ``uint64``
+arithmetic, so three rules keep int64 exact:
+
+* right shifts are logical: an arithmetic ``>>`` followed by a mask (``_srl``);
+* int64 ``*``, ``+`` and ``<<`` wrap modulo 2^64 exactly like u64, which the
+  four-partial product ``_mymult`` relies on;
+* only values below 2^63 are ever compared.  ``_mymult`` of two inputs below
+  2^62 (the Karatsuba ``all_prod``) and the lazy ``t_img`` sum can reach 2^63
+  and read as negative; they go through the Mersenne fold before any
+  comparison.
+
+Multiplication is the reference's 3-mult Karatsuba over four 32x32->64
+partials (fieldElement.cpp:49-78, 466-487), so canonical outputs are
+bit-identical to the JAX package and to the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MOD = (1 << 61) - 1  # the Mersenne prime 2^61-1
+MAX_ORDER = 62  # multiplicative group of GF(p^2) has order p^2-1 = 2^62*m
+
+# Generator of the order-2^62 subgroup (fieldElement.cpp:237-249).
+ROU_MAX_REAL = 2147483648
+ROU_MAX_IMG = 1033321771269002680
+
+_LO32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Construction / conversion
+# ---------------------------------------------------------------------------
+
+def zeros(shape=(), device="cpu"):
+    return torch.zeros((2,) + tuple(shape), dtype=torch.int64, device=device)
+
+
+def ones(shape=(), device="cpu"):
+    o = zeros(shape, device)
+    o[0] = 1
+    return o
+
+
+def full(shape, real, img=0, device="cpu"):
+    e = zeros(shape, device)
+    e[0] = real
+    e[1] = img
+    return e
+
+
+def tensor(x, device="cpu"):
+    """numpy uint64 (or any integer array of canonical values) -> int64."""
+    a = np.ascontiguousarray(np.asarray(x, dtype=np.uint64))
+    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+
+
+def from_u64(real, img=None, device="cpu"):
+    real = np.asarray(real, dtype=np.uint64)
+    if img is None:
+        img = np.zeros_like(real)
+    return tensor(np.stack([real, np.asarray(img, dtype=np.uint64)]), device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """int64 tensor -> numpy uint64 with the same bit patterns."""
+    return x.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def to_u64(x):
+    x = to_numpy(x)
+    return x[0], x[1]
+
+
+def from_int(x, img=0, device="cpu"):
+    if x < 0:
+        x = MOD + x
+    if img < 0:
+        img = MOD + img
+    return full((), x, img, device)
+
+
+# ---------------------------------------------------------------------------
+# Base-field primitives on int64 planes
+# ---------------------------------------------------------------------------
+
+def _srl(x, s: int):
+    """Logical right shift of the u64 bit pattern by a constant 0 < s < 64."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _cond_sub_p(x):
+    # x must be below 2^63 (non-negative as int64)
+    return torch.where(x >= MOD, x - MOD, x)
+
+
+def _mymult(x, y):
+    """floor(x*y / 2^61) + (x*y & p) for x, y < 2^62, as a u64 bit pattern
+    (< 2^63 + 2^61, so it may read negative).  Exact 128-bit product from
+    four 32x32->64 partials (fieldElement.cpp:466-487)."""
+    xl = x & _LO32
+    xh = x >> 32          # x < 2^62: arithmetic == logical
+    yl = y & _LO32
+    yh = y >> 32
+    bd = xl * yl          # < 2^64, wraps into the sign bit
+    ac = xh * yh
+    ad_bc = xh * yl + xl * yh   # < 2^63
+    hi = ac + ((ad_bc + _srl(bd, 32)) >> 32)
+    lo = bd + (ad_bc << 32)
+    return ((hi << 3) | _srl(lo, 61)) + (lo & MOD)
+
+
+def _base_neg(x):
+    # x ^ p == p - x for canonical x (fieldElement.cpp:86-87)
+    return x ^ MOD
+
+
+# ---------------------------------------------------------------------------
+# Extension-field public ops
+# ---------------------------------------------------------------------------
+
+def add(x, y):
+    return _cond_sub_p(x + y)
+
+
+def reduce_lazy(x):
+    """Reduce a lazy sum of up to 8 canonical elements (< 2^64 as u64, so
+    possibly negative as int64) to canonical [0, p): Mersenne fold with a
+    logical shift, then one conditional subtract."""
+    return _cond_sub_p(_srl(x, 61) + (x & MOD))
+
+
+def sub(x, y):
+    return _cond_sub_p(x + (y ^ MOD))
+
+
+def neg(x):
+    return _cond_sub_p(x ^ MOD)
+
+
+def mul(x, y):
+    """(a+bi)(c+di): 3-mult Karatsuba (fieldElement.cpp:49-78)."""
+    a, b = x[0], x[1]
+    c, d = y[0], y[1]
+    all_prod = _mymult(a + b, c + d)        # may read negative
+    ac = _mymult(a, c)                      # < 2p
+    bd = _mymult(b, d)                      # < 2p
+    nac = _base_neg(_cond_sub_p(ac))
+    nbd = _base_neg(_cond_sub_p(bd))
+    t_img = all_prod + nac + nbd            # < 8p as u64
+    t_img = _cond_sub_p(_srl(t_img, 61) + (t_img & MOD))
+    t_real = _cond_sub_p(_cond_sub_p(ac + nbd))
+    return torch.stack([t_real, t_img])
+
+
+def eq(x, y):
+    return torch.all(x == y, dim=0)
+
+
+def is_zero(x):
+    return torch.all(x == 0, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Powers / inverses (static python-int exponents)
+# ---------------------------------------------------------------------------
+
+def pow_static(x, e: int):
+    acc = None
+    base = x
+    while e:
+        if e & 1:
+            acc = base if acc is None else mul(acc, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    if acc is None:
+        return ones(x.shape[1:], x.device)
+    return acc
+
+
+_INV_EXP = MOD * MOD - 2
+
+
+def inv(x):
+    """x^(p^2-2), batched square-and-multiply over the 122 exponent bits."""
+    acc = ones(x.shape[1:], x.device)
+    base = x
+    e = _INV_EXP
+    while e:
+        if e & 1:
+            acc = mul(acc, base)
+        base = mul(base, base)
+        e >>= 1
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Roots of unity (host-side python-int computation)
+# ---------------------------------------------------------------------------
+
+def _py_mul(x, y):
+    a, b = x
+    c, d = y
+    ac = a * c % MOD
+    bd = b * d % MOD
+    ad_bc = ((a + b) * (c + d) - ac - bd) % MOD
+    return ((ac - bd) % MOD, ad_bc)
+
+
+def _py_pow(x, e):
+    r = (1, 0)
+    while e:
+        if e & 1:
+            r = _py_mul(r, x)
+        x = _py_mul(x, x)
+        e >>= 1
+    return r
+
+
+def root_of_unity_int(log_order: int):
+    """(real, img) ints of the canonical 2^log_order root of unity
+    (fieldElement.cpp:237-249)."""
+    assert log_order <= 61
+    rou = (ROU_MAX_REAL, ROU_MAX_IMG)
+    for _ in range(MAX_ORDER - log_order):
+        rou = _py_mul(rou, rou)
+    return rou
+
+
+def root_of_unity(log_order: int, device="cpu"):
+    r, i = root_of_unity_int(log_order)
+    return full((), r, i, device)
+
+
+def inv_int(x):
+    return _py_pow(x, MOD * MOD - 2)
+
+
+def pow_int(x, e: int):
+    return _py_pow(x, e)
