@@ -10,18 +10,27 @@ package.  Phases, one line each, any failure exits non-zero:
 2. K1 (sumcheck fold) against its plain twin, bit for bit;
 3. K2 (SHA3-256 of 64-byte blocks) against its plain twin and hashlib;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
-   Merkle roots and proof sizes; the port's verify accepts;
+   Merkle roots and proof sizes; the port's verify accepts.  A card proof
+   of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
 5. full width, ``randomize(14, 13, seed=0)``: prove and verify through the
-   driver with the launch counters reset just before and read just after;
-   a tampered proof is rejected; steady-state times of the timed prove
-   (fused.prove_e2e + the fft_gkr tape) and of verify; K1 and K2 timed at
-   the main path's shapes beside their plain twins and their bounds.
+   driver with the launch counters reset just before and read just after,
+   while every kernel call's inputs and outputs are recorded; each
+   recorded call is then held against its plain twin on the same inputs.
+   A tampered proof is rejected.  The timed prove (fused.prove_e2e + the
+   fft_gkr tape) must launch the kernels too.  Wall times of the timed
+   prove, verify and driver prove, every run listed; K1 and K2 timed at
+   every shape the main path gave them, beside their plain twins and
+   bounds;
+6. where the time goes: synchronised prove spans, verify spans, and a
+   profile of one timed prove.
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import hashlib
+import io
 import json
 import statistics
 import subprocess
@@ -46,6 +55,13 @@ INT32_OPS_PER_CLK_SM = 64    # 32-bit IMAD / LOP3 / SHF issue rate, cc 9.0
 KECCAK_INT32_OPS = 4320      # one Keccak-f[1600] with 3-input LOP3 fusing
 K1_PRODUCTS_PER_PAIR = 21    # 7 GF(p^2) products x 3 base products
 IMAD_PER_PRODUCT = 4         # 64x64->128 from four 32x32->64 partials
+
+# device-kernel names of each source, as the profiler reports them
+KERNEL_NAMES = {"sumcheck_fold": ("fold_round", "reduce_partials"),
+                "keccak": ("sha3_256_x64",)}
+
+TIMED_RUNS = 10              # wall-clock runs of the timed prove
+VERIFY_RUNS = 5              # ... of driver.verify and driver.prove
 
 
 def fail(msg):
@@ -94,6 +110,15 @@ def transcript_hash(cc, full):
     return h
 
 
+def proof_arrays(proof_io, np, full):
+    """Every field of a FullProof as named arrays (the .npz layout)."""
+    buf = io.BytesIO()
+    proof_io.save(buf, full)
+    buf.seek(0)
+    with np.load(buf) as d:
+        return {k: d[k] for k in d.files}
+
+
 def event_ms(torch, fn, reps):
     """Device time of one call, from CUDA events around `reps` calls."""
     fn()
@@ -108,9 +133,9 @@ def event_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def wall_median(torch, fn, runs):
-    """Median host wall time (s) of fn, synchronised around each call,
-    after one warm-up call."""
+def wall_ms(torch, fn, runs):
+    """Host wall times (ms) of `runs` calls of fn, synchronised around each
+    call, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -119,8 +144,13 @@ def wall_median(torch, fn, runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-    return statistics.median(ts)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def spread(ts):
+    return (f"median {statistics.median(ts):.3f} ms, min {min(ts):.3f}, max "
+            f"{max(ts):.3f}, runs [{', '.join(f'{t:.3f}' for t in ts)}]")
 
 
 def max_abs_err(torch, xs, ys):
@@ -137,6 +167,47 @@ def max_abs_err(torch, xs, ys):
     return float(err)
 
 
+class Recorder:
+    """While active, every call of the two kernel wrappers keeps a copy of
+    its inputs and outputs, so that each call can be held against its plain
+    twin afterwards.  The wrappers' own launch counts are untouched."""
+
+    def __init__(self, sumcheck, keccak):
+        self.sumcheck, self.keccak = sumcheck, keccak
+        self.calls = []
+
+    def __enter__(self):
+        fold, sha = self.sumcheck.fold_cuda, self.keccak.sha3_256_x64_cuda
+        self.saved = (fold, sha)
+
+        def fold_rec(v, a, m, rs):
+            ins = tuple(t.clone() for t in (v, a, m, rs))
+            polys, bound = fold(v, a, m, rs)
+            outs = (polys.clone(),) + tuple(b.clone() for b in bound)
+            self.calls.append(("sumcheck_fold", ins, outs))
+            return polys, bound
+
+        def sha_rec(words):
+            ins = (words.clone(),)
+            out = sha(words)
+            self.calls.append(("keccak", ins, (out.clone(),)))
+            return out
+
+        self.sumcheck.fold_cuda = fold_rec
+        self.keccak.sha3_256_x64_cuda = sha_rec
+        return self
+
+    def __exit__(self, *exc):
+        self.sumcheck.fold_cuda, self.keccak.sha3_256_x64_cuda = self.saved
+
+
+def shape_of(name, ins):
+    """(bl, K) of a K1 call, (N,) of a K2 call."""
+    if name == "sumcheck_fold":
+        return (ins[3].shape[2], ins[0].shape[1])
+    return (ins[0].shape[1],)
+
+
 def main():
     try:
         import torch
@@ -148,7 +219,7 @@ def main():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from virgo_plus_tpu_torch import driver, fused, kernels
+    from virgo_plus_tpu_torch import driver, fused, kernels, proof_io
     from virgo_plus_tpu_torch.circuits.compile import input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import gf
@@ -176,7 +247,7 @@ def main():
 
     rng = np.random.default_rng(2024)
     M = gf.MOD
-    k1_err = 0.0
+    err = {"sumcheck_fold": 0.0, "keccak": 0.0}
 
     # ---- phase 2: K1 against its plain twin -------------------------------
     for bl in (1, 3, 7, 13, 17):
@@ -193,22 +264,18 @@ def main():
             e = max_abs_err(torch, (p1,) + tuple(b1), (p0,) + tuple(b0))
             if e != 0.0:
                 fail(f"K1 differs from its plain twin at bl={bl} K={k}")
-            k1_err = max(k1_err, e)
     say("phase 2 ok: K1 == plain twin bit for bit, bl in {1,3,7,13,17} x "
         "K in {1,3,26}")
 
     # ---- phase 3: K2 against its plain twin and hashlib -------------------
-    k2_err = 0.0
-    for n in (1, 1000, 4096, 65536):
+    for n in (1, 1000, 4096, 6128, 65536):
         w = rng.integers(0, 2 ** 64, size=(8, n), dtype=np.uint64)
         wt = gf.tensor(w, dev)
         o1 = keccak.sha3_256_x64_cuda(wt)
         o0 = keccak.sha3_256_x64_plain(wt)
         torch.cuda.synchronize()
-        e = max_abs_err(torch, (o1,), (o0,))
-        if e != 0.0:
+        if max_abs_err(torch, (o1,), (o0,)) != 0.0:
             fail(f"K2 differs from its plain twin at N={n}")
-        k2_err = max(k2_err, e)
         o = gf.to_numpy(o1)
         wc = np.ascontiguousarray(w.T)
         oc = np.ascontiguousarray(o.T)
@@ -216,9 +283,9 @@ def main():
             if hashlib.sha3_256(wc[i].tobytes()).digest() != oc[i].tobytes():
                 fail(f"K2 differs from hashlib.sha3_256 at N={n}, message {i}")
     say("phase 3 ok: K2 == plain twin == hashlib.sha3_256, "
-        "N in {1,1000,4096,65536}")
+        "N in {1,1000,4096,6128,65536}")
 
-    # ---- phase 4: small1200 pins on the card ------------------------------
+    # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     c = driver.load_circuit(str(FIXTURE))
     cp = driver.compile_prover(c)
     full, info = driver.prove(c, cp)
@@ -238,28 +305,71 @@ def main():
         f"{info['gkr_proof_size'] / 1024} KB, PC {info['pc_proof_size'] / 1024}"
         f" KB match the reference; verify accepts")
 
+    c = randomize(3, 7, seed=21)
+    subset_init(c)
+    card_full, _ = driver.prove(c, device=dev)
+    cpu_full, _ = driver.prove(c, device="cpu")
+    got = proof_arrays(proof_io, np, card_full)
+    want = proof_arrays(proof_io, np, cpu_full)
+    differ = sorted(k for k in set(got) | set(want)
+                    if k not in got or k not in want
+                    or got[k].dtype != want[k].dtype
+                    or not np.array_equal(got[k], want[k]))
+    if differ:
+        fail(f"randomize(3, 7): card proof differs from the CPU proof in "
+             f"{differ}")
+    if not driver.verify(c, card_full, device=dev).ok:
+        fail("randomize(3, 7): the card proof is rejected")
+    say(f"phase 4 ok: randomize(3, 7) card proof == CPU proof in all "
+        f"{len(got)} arrays; verify accepts")
+
     # ---- phase 5: full width ----------------------------------------------
     c = randomize(14, 13, seed=0)
     subset_init(c)
     cp = driver.compile_prover(c)
     cc = cp.cc
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    full, info = driver.prove(c, cp)
-    torch.cuda.synchronize()
-    t_prove_first = time.perf_counter() - t0
-    rep = driver.verify(c, full, cp)
-    launches = dict(kernels.LAUNCHES)
-    plain = dict(kernels.PLAIN_CALLS)
+    with Recorder(sumcheck, keccak) as rec:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        full, info = driver.prove(c, cp)
+        torch.cuda.synchronize()
+        t_prove_first = time.perf_counter() - t0
+        rep = driver.verify(c, full, cp)
+        launches = dict(kernels.LAUNCHES)
+        plain = dict(kernels.PLAIN_CALLS)
     if not rep.ok:
         fail(f"full-width proof rejected: {rep}")
     if min(launches.values()) == 0 or max(plain.values()) != 0:
         fail(f"main path did not run through the kernels: launches "
              f"{launches}, plain twin calls {plain}")
     say(f"phase 5 main path ok: randomize(14, 13) proved and verified "
-        f"(first prove {t_prove_first:.3f} s); kernel launches {launches}, "
+        f"(first prove {t_prove_first:.3f} s); device launches {launches}, "
         f"plain twin calls {plain}; transcript hash "
         f"{transcript_hash(cc, full)}")
+
+    # every recorded kernel call against its plain twin on the same inputs
+    shapes = {"sumcheck_fold": collections.Counter(),
+              "keccak": collections.Counter()}
+    example = {}
+    for kname, ins, outs in rec.calls:
+        if kname == "sumcheck_fold":
+            p, b = sumcheck.fold_plain(*ins)
+            ref = (p,) + tuple(b)
+        else:
+            ref = (keccak.sha3_256_x64_plain(*ins),)
+        e = max_abs_err(torch, outs, ref)
+        shp = shape_of(kname, ins)
+        if e != 0.0:
+            fail(f"{kname} differs from its plain twin on the main path's "
+                 f"call at shape {shp}")
+        err[kname] = max(err[kname], e)
+        shapes[kname][shp] += 1
+        example.setdefault((kname, shp), ins)
+    rec.calls.clear()
+    say(f"phase 5 recorded calls ok: every kernel call of the main path == "
+        f"its plain twin on the same inputs; K1 (bl, K): calls "
+        f"{dict(sorted(shapes['sumcheck_fold'].items()))}; K2 N: calls "
+        f"{dict(sorted(shapes['keccak'].items()))}")
 
     lp = full.layers[cc.depth - 1]
     saved = lp["p1_polys"].copy()
@@ -270,7 +380,7 @@ def main():
     say("phase 5 tamper ok: a proof with one p1_polys coefficient changed "
         "is rejected")
 
-    # steady-state timed prove: fused.prove_e2e + the fft_gkr tape
+    # the timed prove: fused.prove_e2e + the fft_gkr tape
     bl0 = cc.layers[0].bit_length
     n_folds = bl0 - virgo_pc.LOG_SLICE
     grng = GlibcRandom(3396)
@@ -284,48 +394,68 @@ def main():
     inputs = input_buffer(cc, None, dev)
 
     def timed_prove():
-        fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands, cp.arrs)
+        out = fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands, cp.arrs)
         fused.fg_tape(n_folds, sched, dev)
+        return out
 
-    out = fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands, cp.arrs)
+    kernels.reset_counts()
+    out = timed_prove()
+    torch.cuda.synchronize()
+    timed_launches = dict(kernels.LAUNCHES)
+    timed_plain = dict(kernels.PLAIN_CALLS)
+    if min(timed_launches.values()) == 0 or max(timed_plain.values()) != 0:
+        fail(f"the timed prove did not run through the kernels: launches "
+             f"{timed_launches}, plain twin calls {timed_plain}")
     root_l_fused = [int(x) for x in gf.to_numpy(out[1].tree[:, 1])]
     if root_l_fused != [int(x) for x in full.root_l]:
         fail("fused.prove_e2e's l-oracle root differs from driver.prove's")
-    t_e2e = wall_median(torch, timed_prove, 5)
-    t_verify = wall_median(torch, lambda: driver.verify(c, full, cp), 3)
-    t_driver = wall_median(torch, lambda: driver.prove(c, cp), 3)
-    say(f"phase 5 timing: fused.prove_e2e + fft_gkr tape {t_e2e * 1e3:.2f} ms,"
-        f" driver.verify {t_verify * 1e3:.2f} ms, driver.prove "
-        f"{t_driver * 1e3:.2f} ms (medians; {card})")
+    say(f"phase 5 timed prove ok: device launches {timed_launches}, plain "
+        f"twin calls {timed_plain}; l-oracle root == driver.prove's")
 
-    # kernels at the main path's shapes
-    kk, kbl = 2 * (cc.depth - 1), cc.layers[0].bit_length  # p1 + Liu tables
-    kn = 1 << kbl
-    ins = [gf.tensor(rng.integers(0, M, size=(2, kk, kn), dtype=np.uint64),
-                     dev) for _ in range(3)]
-    rs = gf.tensor(rng.integers(0, M, size=(2, kk, kbl), dtype=np.uint64),
-                   dev)
-    k1_ms = event_ms(torch, lambda: sumcheck.fold_cuda(*ins, rs), 50)
-    k1_plain_ms = event_ms(torch, lambda: sumcheck.fold_plain(*ins, rs), 5)
-    k1_bytes = (3 * 16 * kk * kn + 16 * kk * kbl + 48 * kbl * kk
-                + 48 * kk)
-    k1_ops = K1_PRODUCTS_PER_PAIR * kk * (kn - 1) * IMAD_PER_PRODUCT
-    k1_bound = max(k1_bytes / HBM_BYTES_S, k1_ops / int32_rate) * 1e3
+    t_e2e = wall_ms(torch, timed_prove, TIMED_RUNS)
+    t_verify = wall_ms(torch, lambda: driver.verify(c, full, cp), VERIFY_RUNS)
+    t_driver = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
+    say(f"phase 5 timing ({card}): timed prove {spread(t_e2e)}; "
+        f"driver.verify {spread(t_verify)}; driver.prove {spread(t_driver)}")
 
-    # one leaf-chain step hashes every leaf of l, h and each fold level
-    half0 = 1 << (bl0 + virgo_pc.RATE - virgo_pc.LOG_SLICE - 1)
-    n2 = 2 * half0 + sum(half0 >> (j + 1) for j in range(n_folds))
-    words = gf.tensor(rng.integers(0, 2 ** 64, size=(8, n2),
-                                   dtype=np.uint64), dev)
-    k2_ms = event_ms(torch, lambda: keccak.sha3_256_x64_cuda(words), 200)
-    k2_plain_ms = event_ms(torch, lambda: keccak.sha3_256_x64_plain(words), 5)
-    k2_bytes = 96 * n2
-    k2_ops = KECCAK_INT32_OPS * n2
-    k2_bound = max(k2_bytes / HBM_BYTES_S, k2_ops / int32_rate) * 1e3
-    say(f"phase 5 kernels: K1 (bl={kbl}, K={kk}) {k1_ms:.4f} ms vs plain "
-        f"{k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms; K2 (N={n2}) "
-        f"{k2_ms:.4f} ms vs plain {k2_plain_ms:.3f} ms, bound "
-        f"{k2_bound:.5f} ms")
+    # kernels at every shape the main path gave them
+    def k1_cost(bl, k):
+        n = 1 << bl
+        nbytes = 3 * 16 * k * n + 16 * k * bl + 48 * bl * k + 48 * k
+        ops = K1_PRODUCTS_PER_PAIR * k * (n - 1) * IMAD_PER_PRODUCT
+        return nbytes, ops
+
+    def k2_cost(n):
+        return 96 * n, KECCAK_INT32_OPS * n
+
+    plan = {"sumcheck_fold": (sumcheck.fold_cuda, sumcheck.fold_plain,
+                              lambda s: k1_cost(*s), 20),
+            "keccak": (keccak.sha3_256_x64_cuda, keccak.sha3_256_x64_plain,
+                       lambda s: k2_cost(*s), 100)}
+    rows = {}
+    for kname, (cuda_fn, plain_fn, cost, reps) in plan.items():
+        per = {}
+        for shp, count in sorted(shapes[kname].items()):
+            ins = example[(kname, shp)]
+            ms = event_ms(torch, lambda: cuda_fn(*ins), reps)
+            nbytes, ops = cost(shp)
+            bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
+            per[shp] = (count, ms, bound, nbytes / HBM_BYTES_S >= ops / int32_rate)
+        total_ms = sum(cnt * ms for cnt, ms, _, _ in per.values())
+        total_bound = sum(cnt * bd for cnt, _, bd, _ in per.values())
+        # the shape that takes the most kernel time in one prove
+        top = max(per, key=lambda s: per[s][0] * per[s][1])
+        ins = example[(kname, top)]
+        plain_ms = event_ms(torch, lambda: plain_fn(*ins), 3)
+        rows[kname] = dict(top=top, per=per, total_ms=total_ms,
+                           total_bound=total_bound, plain_ms=plain_ms)
+        say(f"phase 5 kernel {kname}: per shape (calls, ms, bound ms) "
+            + "; ".join(f"{s}: {cnt}, {ms:.4f}, {bd:.5f}"
+                        for s, (cnt, ms, bd, _) in per.items())
+            + f"; all calls of one prove {total_ms:.3f} ms (bound "
+            f"{total_bound:.4f}); top shape {top}: {per[top][1]:.4f} ms vs "
+            f"plain {plain_ms:.3f} ms")
+    example.clear()
 
     # ---- phase 6: where the time goes ------------------------------------
     from virgo_plus_tpu_torch.utils.metrics import PhaseTimer
@@ -349,44 +479,59 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         timed_prove()
         torch.cuda.synchronize()
-    rows = []
+    prof_rows = []
     for e in prof.key_averages():
         us = (getattr(e, "self_device_time_total", 0)
               or getattr(e, "self_cuda_time_total", 0))
         if "CUDA" in str(getattr(e, "device_type", "")) and us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    n_kern = sum(r[1] for r in rows)
+            prof_rows.append((us, e.count, e.key))
+    prof_rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in prof_rows) / 1e3
+    n_kern = sum(r[1] for r in prof_rows)
+    profiled = {kname: [0.0, 0] for kname in KERNEL_NAMES}
+    idle = None
     if busy_ms > 0:
+        med = statistics.median(t_e2e)
+        idle = 1 - busy_ms / med
         say(f"phase 6 profile of one timed prove: {n_kern} kernel launches, "
-            f"device busy {busy_ms:.3f} ms of {t_e2e * 1e3:.3f} ms wall "
-            f"(idle share {1 - busy_ms / (t_e2e * 1e3):.4f})")
-        for us, cnt, key in rows[:8]:
+            f"device busy {busy_ms:.3f} ms; idle share {idle:.4f} of the "
+            f"median wall {med:.1f} ms ({1 - busy_ms / max(t_e2e):.4f} of "
+            f"the slowest run, {1 - busy_ms / min(t_e2e):.4f} of the fastest)")
+        for us, cnt, key in prof_rows[:8]:
             say(f"phase 6   {us / 1e3:9.3f} ms  x{cnt:6d}  {key[:90]}")
+        for kname, pats in KERNEL_NAMES.items():
+            for us, cnt, key in prof_rows:
+                if any(p in key for p in pats):
+                    profiled[kname][0] += us / 1e3
+                    profiled[kname][1] += cnt
+        say(f"phase 6 profile, the port's kernels in that prove (device ms, "
+            f"launches): {profiled}")
     else:
         say("phase 6 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
+    def entry(kname, source, replaces):
+        row = rows[kname]
+        _cnt, ms, bound, by_bytes = row["per"][row["top"]]
+        return {"name": kname if kname != "keccak" else "sha3_256_x64",
+                "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[kname], "max_abs_err": err[kname],
+                "ms": ms, "plain_ms": row["plain_ms"], "bound_ms": bound,
+                "bound_by": "bytes" if by_bytes else "operations",
+                "library_ms": None, "shape": list(row["top"]),
+                "prove_total_ms": row["total_ms"],
+                "prove_total_bound_ms": row["total_bound"],
+                "timed_prove_launches": timed_launches[kname],
+                "profiled_device_ms": profiled[kname][0]}
+
     report = {"kernels": [
-        {"name": "sumcheck_fold", "route": "cuda",
-         "source": "virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
-         "replaces": "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118",
-         "launches": launches["sumcheck_fold"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": ("bytes" if k1_bytes / HBM_BYTES_S >= k1_ops / int32_rate
-                      else "operations"),
-         "library_ms": None},
-        {"name": "sha3_256_x64", "route": "cuda",
-         "source": "virgo_plus_tpu_torch/csrc/keccak.cu",
-         "replaces": "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100",
-         "launches": launches["keccak"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": ("bytes" if k2_bytes / HBM_BYTES_S >= k2_ops / int32_rate
-                      else "operations"),
-         "library_ms": None},
-    ], "prove_e2e_ms": t_e2e * 1e3, "verify_ms": t_verify * 1e3,
-        "driver_prove_ms": t_driver * 1e3}
+        entry("sumcheck_fold", "virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
+              "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118"),
+        entry("keccak", "virgo_plus_tpu_torch/csrc/keccak.cu",
+              "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100"),
+    ], "timed_prove_ms": t_e2e, "verify_ms": t_verify,
+        "driver_prove_ms": t_driver, "device_busy_ms": busy_ms or None,
+        "idle_share_of_median": idle}
     say(f"card: {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

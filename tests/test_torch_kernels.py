@@ -5,8 +5,8 @@ for small tables, the bit-reversed fold (the Pallas kernel in interpret
 mode is in test_torch_fold_pallas.py).  K2 (SHA3-256 of 64-byte blocks):
 the plain twin against the JAX XLA keccak and hashlib.  Inputs come from numpy with a seed; tolerance 0.
 
-The CUDA kernels themselves run only on a card: test_torch_cuda.py holds
-them against the plain twins there."""
+The CUDA kernels themselves run only on a card: chip_smoke.py holds them
+against the plain twins there, at every shape the main path gives them."""
 
 import hashlib
 

@@ -133,7 +133,8 @@ def test_fft_gkr_replay_accepts_recorded_tape():
     lg = 3
     fg = fft_gkr.run(lg, GlibcRandom(12), device="cpu")
     assert fg.ok and fg.proof_size == fft_gkr.fft_gkr_proof_size(lg)
-    assert fft_gkr.run(lg, GlibcRandom(12), replay=fg.messages).ok
+    assert fft_gkr.run(lg, GlibcRandom(12), replay=fg.messages,
+                       device="cpu").ok
     bad = [m.copy() for m in fg.messages]
     bad[2].flat[0] = (int(bad[2].flat[0]) + 1) % M
-    assert not fft_gkr.run(lg, GlibcRandom(12), replay=bad).ok
+    assert not fft_gkr.run(lg, GlibcRandom(12), replay=bad, device="cpu").ok

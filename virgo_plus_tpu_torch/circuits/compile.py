@@ -151,8 +151,8 @@ def compile_circuit(c: LayeredCircuit) -> CompiledCircuit:
         input_bl=c.layers[0].bit_length, source=c)
 
 
-def input_buffer(cc: CompiledCircuit, witness: Optional[np.ndarray] = None,
-                 device="cpu"):
+def input_buffer(cc: CompiledCircuit, witness: Optional[np.ndarray],
+                 device):
     """(2, 2^input_bl) int64 padded input-layer values on the device."""
     if witness is None:
         witness = cc.source.input_values

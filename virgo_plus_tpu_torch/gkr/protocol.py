@@ -59,8 +59,8 @@ def _draw(rng: GlibcRandom, n: int) -> np.ndarray:
     return vals
 
 
-def make_challenges(cc: CompiledCircuit, rng: Optional[GlibcRandom] = None,
-                    device="cpu") -> Challenges:
+def make_challenges(cc: CompiledCircuit, rng: Optional[GlibcRandom],
+                    device) -> Challenges:
     """Draw order: r_out (bl_last); per layer top..1: r_u (max_bl),
     assert_random (1), r_v (maxDadBl, only if layer has dads), sig (depth),
     r_liu (max_bl).  Matches verifier.cpp:144,196,202,236,278-279."""

@@ -153,7 +153,8 @@ def fold_cuda(v, a, m, rs):
     work = torch.empty((2, 3 * k * n), dtype=torch.int64, device=dev)
     n_blocks = -(-(n // 2) // FOLD_THREADS)
     partials = torch.empty((k * n_blocks * 6,), dtype=torch.int64, device=dev)
-    kernels.launch("sumcheck_fold", v.data_ptr(), a.data_ptr(), m.data_ptr(),
+    kernels.launch("sumcheck_fold", 2 * bl,
+                   v.data_ptr(), a.data_ptr(), m.data_ptr(),
                    rs.data_ptr(), polys.data_ptr(), bound.data_ptr(),
                    work[0].data_ptr(), work[1].data_ptr(),
                    partials.data_ptr(), k, bl, kernels.stream_ptr())

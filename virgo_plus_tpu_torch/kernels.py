@@ -6,9 +6,10 @@ Each source under ``csrc/`` is a plain-C-interface CUDA file compiled by
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The library name
 carries a hash of the source, so an edited source is rebuilt.
 
-Every kernel wrapper adds one to ``LAUNCHES[name]`` where it calls its C
-entry, and its plain PyTorch twin adds one to ``PLAIN_CALLS[name]`` when it
-runs instead (CPU tensors only).  ``reset_counts`` zeroes both.
+Every kernel wrapper adds to ``LAUNCHES[name]`` the number of device
+launches its C entry makes (K1: two per round, K2: one), and its plain
+PyTorch twin adds one to ``PLAIN_CALLS[name]`` when it runs instead (CPU
+tensors only).  ``reset_counts`` zeroes both.
 """
 
 from __future__ import annotations
@@ -110,12 +111,13 @@ def lib(name: str):
     return _LIBS[name]
 
 
-def launch(name: str, *args):
-    """Call a kernel's C entry and raise on a CUDA error; counts the launch."""
+def launch(name: str, n_launches: int, *args):
+    """Call a kernel's C entry, which makes ``n_launches`` device launches,
+    and raise on a CUDA error; counts the launches."""
     err = lib(name)(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += n_launches
 
 
 def check_cuda(name: str, tensors, shapes):

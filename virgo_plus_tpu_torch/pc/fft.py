@@ -14,7 +14,7 @@ import torch
 from ..field import gf
 
 
-def powers(base_int, n: int, device="cpu"):
+def powers(base_int, n: int, device):
     """base: python-int pair -> (2, n) [1, base, base^2, ...] by doubling."""
     out = gf.ones((1,), device)
     cur = base_int

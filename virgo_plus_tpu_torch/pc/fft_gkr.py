@@ -273,10 +273,11 @@ def fft_gkr_proof_size(lg: int) -> int:
     return ps
 
 
-def run(lg: int, rng, replay=None, device="cpu") -> FFTGKRResult:
+def run(lg: int, rng, replay=None, *, device) -> FFTGKRResult:
     """The whole fft_gkr interaction.  Prove mode (replay=None): device
     sumchecks record the message transcript.  Verify mode: messages are
-    replayed and only the host checks run (no circuit evaluation).
+    replayed and only the checks run (no circuit evaluation; the beta
+    tables still build on ``device``).
     rng: the shared transcript stream (same draws in both modes)."""
     ok = True
     proof_size = 0

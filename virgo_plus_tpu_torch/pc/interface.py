@@ -87,7 +87,8 @@ class VirgoPC:
         _q_values, q_coefs = self.q_prepare(fns, final_point)
 
         n_folds = bl0 - virgo_pc.LOG_SLICE
-        fg = fft_gkr.run(n_folds, rng, replay=full.fft_gkr_messages)
+        fg = fft_gkr.run(n_folds, rng, replay=full.fft_gkr_messages,
+                         device=fns["device"])
 
         rand_fq2 = []
         for _ in range(n_folds):

@@ -93,8 +93,9 @@ def sha3_256_x64_cuda(words):
     n = words.shape[1]
     kernels.check_cuda("keccak", (words,), [(8, n)])
     out = torch.empty((4, n), dtype=torch.int64, device=words.device)
-    kernels.launch("keccak", words.data_ptr(), out.data_ptr(), n,
-                   kernels.stream_ptr())
+    if n:
+        kernels.launch("keccak", 1, words.data_ptr(), out.data_ptr(), n,
+                       kernels.stream_ptr())
     return out
 
 
