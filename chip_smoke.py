@@ -7,25 +7,33 @@ package.  Phases, one line each, any failure exits non-zero:
 
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
    source, started together) into ``build/torch_kernels/``;
-2. K1 (sumcheck fold) against its plain twin, bit for bit;
-3. K2 (SHA3-256 of 64-byte blocks) against its plain twin and hashlib;
+2. K1 (sumcheck fold) against its plain twin, bit for bit, on either side
+   of the shared-memory boundary; each call's device launches equal
+   ``sumcheck.fold_launches(bl)``;
+3. K2's three entries against their plain twins: single SHA3-256 hashes
+   (also against hashlib), the fused 65-step leaf chain at the main path's
+   widths, and the Merkle forest on the main path's forest, on one tree of
+   8192 leaves (many subtree blocks under one top) and on other mixes, each
+   forest in one launch;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
 5. full width, ``randomize(14, 13, seed=0)``: prove and verify through the
    driver with the launch counters reset just before and read just after,
-   while every kernel call's inputs and outputs are recorded; each
-   recorded call is then held against its plain twin on the same inputs.
-   A tampered proof is rejected.  The timed prove (fused.prove_e2e + the
-   fft_gkr tape) must launch the kernels too.  Wall times of the timed
-   prove, verify and driver prove, every run listed; K1 and K2 timed at
-   every shape the main path gave them, beside their plain twins and
-   bounds;
+   while every kernel call's inputs, outputs and launches are recorded;
+   each recorded call is then held against its plain twin on the same
+   inputs.  A tampered proof is rejected.  The timed prove (fused.prove_e2e
+   + the fft_gkr tape) is recorded and held the same way, and must launch
+   K1 and K2's chain and forest kernels (these once each) with no plain
+   twin call.  Wall times of the timed prove, verify and driver prove,
+   every run listed; each kernel's device time per call at every shape the
+   main path gave it, from the profiler, beside its bound and its plain
+   twin;
 6. where the time goes: synchronised prove spans, verify spans, and a
    profile of one timed prove.
 
-The last lines are the card line, one JSON object with every kernel's
-numbers, and ``{"ok": true, "device": {...}}``.
+The last lines are the card line, one JSON object with every kernel
+entry's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -56,9 +64,28 @@ KECCAK_INT32_OPS = 4320      # one Keccak-f[1600] with 3-input LOP3 fusing
 K1_PRODUCTS_PER_PAIR = 21    # 7 GF(p^2) products x 3 base products
 IMAD_PER_PRODUCT = 4         # 64x64->128 from four 32x32->64 partials
 
-# device-kernel names of each source, as the profiler reports them
-KERNEL_NAMES = {"sumcheck_fold": ("fold_round", "reduce_partials"),
-                "keccak": ("sha3_256_x64",)}
+# each kernel entry's device kernels, as the profiler names them
+KERNEL_NAMES = {"sumcheck_fold": ("fold_round", "fold_tail"),
+                "sha3_256_x64": ("sha3_256_x64",),
+                "sha3_chain_x64": ("sha3_chain_x64",),
+                "merkle_forest": ("merkle_forest",)}
+# the entries every prove must launch (sha3_256_x64 is off the main path)
+PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest")
+_K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
+       "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
+_K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
+       "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100")
+SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
+                       "sha3_chain_x64": _K2, "merkle_forest": _K2}
+# profiled calls per shape
+PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
+                "sha3_chain_x64": 5, "merkle_forest": 20}
+# the forest's subtree sizes (log2 leaves a block) compared on the main
+# path's forests; 11 is one block per tree of up to 2048 leaves
+FOREST_SUB_LOGS = (5, 6, 7, 8, 11)
+# the timed prove's forest: the l and h trees and the 7 FRI level trees
+MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
+CHAIN_STEPS = 65
 
 TIMED_RUNS = 10              # wall-clock runs of the timed prove
 VERIFY_RUNS = 5              # ... of driver.verify and driver.prove
@@ -167,45 +194,109 @@ def max_abs_err(torch, xs, ys):
     return float(err)
 
 
-class Recorder:
-    """While active, every call of the two kernel wrappers keeps a copy of
-    its inputs and outputs, so that each call can be held against its plain
-    twin afterwards.  The wrappers' own launch counts are untouched."""
+def device_us(e):
+    """A profiler row's own device time in microseconds."""
+    return (getattr(e, "self_device_time_total", 0)
+            or getattr(e, "self_cuda_time_total", 0))
 
-    def __init__(self, sumcheck, keccak):
-        self.sumcheck, self.keccak = sumcheck, keccak
+
+def is_device_row(e):
+    return "CUDA" in str(getattr(e, "device_type", "")) and device_us(e) > 0
+
+
+def profiled_ms(torch, fn, reps, names, tries=3):
+    """Device time (ms) and device launches per call of the kernels whose
+    names contain one of `names`, from torch.profiler over `reps` calls
+    after one warm-up call.  A session that recorded none of them (it
+    happens now and then) is repeated; (None, 0) after `tries` of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = count = 0
+        for e in prof.key_averages():
+            if is_device_row(e) and any(n in e.key for n in names):
+                us += device_us(e)
+                count += e.count
+        if count:
+            return us / 1e3 / reps, count / reps
+    return None, 0
+
+
+def flatten(x):
+    """A wrapper's output (tensor, tuple or list of them) as a tuple."""
+    if isinstance(x, (tuple, list)):
+        return tuple(t for part in x for t in flatten(part))
+    return (x,)
+
+
+def shape_of(entry, ins):
+    """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
+    chain call; the tree sizes of a forest call."""
+    if entry == "sumcheck_fold":
+        return (ins[3].shape[2], ins[0].shape[1])
+    if entry == "sha3_256_x64":
+        return (ins[0].shape[1],)
+    if entry == "sha3_chain_x64":
+        return (ins[0].shape[0], ins[0].shape[2])
+    return tuple(ins[1])
+
+
+def cost(entry, shp):
+    """(bytes, 32-bit integer operations) one call needs: each input read
+    once, each output written once."""
+    if entry == "sumcheck_fold":
+        bl, k = shp
+        n = 1 << bl
+        return (3 * 16 * k * n + 16 * k * bl + 48 * bl * k + 48 * k,
+                K1_PRODUCTS_PER_PAIR * k * (n - 1) * IMAD_PER_PRODUCT)
+    if entry == "sha3_256_x64":
+        return 96 * shp[0], KECCAK_INT32_OPS * shp[0]
+    if entry == "sha3_chain_x64":
+        steps, n = shp
+        return 32 * steps * n + 32 * n, KECCAK_INT32_OPS * steps * n
+    leaves = sum(shp)        # leaves in, heaps (2N nodes) out, 40 B a tree
+    return (32 * leaves + 64 * leaves + 40 * len(shp),
+            KECCAK_INT32_OPS * (leaves - len(shp)))
+
+
+class Recorder:
+    """While active, every call of the four kernel wrappers keeps a copy of
+    its inputs and outputs and the device launches it made, so that each
+    call can be held against its plain twin afterwards.  The wrappers' own
+    launch counts are untouched."""
+
+    def __init__(self, kernels, wrappers):
+        self.kernels = kernels
+        self.wrappers = wrappers     # entry -> (module, attribute name)
         self.calls = []
 
-    def __enter__(self):
-        fold, sha = self.sumcheck.fold_cuda, self.keccak.sha3_256_x64_cuda
-        self.saved = (fold, sha)
-
-        def fold_rec(v, a, m, rs):
-            ins = tuple(t.clone() for t in (v, a, m, rs))
-            polys, bound = fold(v, a, m, rs)
-            outs = (polys.clone(),) + tuple(b.clone() for b in bound)
-            self.calls.append(("sumcheck_fold", ins, outs))
-            return polys, bound
-
-        def sha_rec(words):
-            ins = (words.clone(),)
-            out = sha(words)
-            self.calls.append(("keccak", ins, (out.clone(),)))
+    def _record(self, entry, fn):
+        def rec(*args):
+            ins = tuple(a.clone() if hasattr(a, "clone") else list(a)
+                        for a in args)
+            before = self.kernels.LAUNCHES[entry]
+            out = fn(*args)
+            self.calls.append((entry, ins,
+                               tuple(t.clone() for t in flatten(out)),
+                               self.kernels.LAUNCHES[entry] - before))
             return out
+        return rec
 
-        self.sumcheck.fold_cuda = fold_rec
-        self.keccak.sha3_256_x64_cuda = sha_rec
+    def __enter__(self):
+        self.saved = {e: getattr(m, a) for e, (m, a) in self.wrappers.items()}
+        for e, (m, a) in self.wrappers.items():
+            setattr(m, a, self._record(e, self.saved[e]))
         return self
 
     def __exit__(self, *exc):
-        self.sumcheck.fold_cuda, self.keccak.sha3_256_x64_cuda = self.saved
-
-
-def shape_of(name, ins):
-    """(bl, K) of a K1 call, (N,) of a K2 call."""
-    if name == "sumcheck_fold":
-        return (ins[3].shape[2], ins[0].shape[1])
-    return (ins[0].shape[1],)
+        for e, (m, a) in self.wrappers.items():
+            setattr(m, a, self.saved[e])
 
 
 def main():
@@ -225,8 +316,24 @@ def main():
     from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import protocol
     from virgo_plus_tpu_torch.gkr import sumcheck
-    from virgo_plus_tpu_torch.pc import fft_gkr, keccak, virgo_pc
+    from virgo_plus_tpu_torch.pc import fft_gkr, keccak, merkle, virgo_pc
     from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
+
+    wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
+                "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
+                "sha3_chain_x64": (keccak, "sha3_chain_x64_cuda"),
+                "merkle_forest": (merkle, "forest_cuda")}
+    cuda_fn = {e: getattr(m, a) for e, (m, a) in wrappers.items()}
+    twin = {"sumcheck_fold": sumcheck.fold_plain,
+            "sha3_256_x64": keccak.sha3_256_x64_plain,
+            "sha3_chain_x64": keccak.sha3_chain_x64_plain,
+            "merkle_forest": merkle.forest_plain}
+
+    def expected_launches(entry, ins):
+        if entry == "sumcheck_fold":
+            return sumcheck.fold_launches(ins[3].shape[2])
+        n = ins[0].shape[-1]
+        return 1 if n else 0
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -241,16 +348,35 @@ def main():
     t0 = time.perf_counter()
     logs = kernels.build()
     for src, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
         say(f"phase 1 build {src}: {'; '.join(regs) or log.strip()}")
     say(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(2024)
     M = gf.MOD
-    err = {"sumcheck_fold": 0.0, "keccak": 0.0}
+    err = {e: 0.0 for e in KERNEL_NAMES}
+
+    def held(entry, ins, what):
+        """Run one kernel call and its twin on the same inputs; fail unless
+        equal bit for bit and the call made its expected launches."""
+        before = kernels.LAUNCHES[entry]
+        got = flatten(cuda_fn[entry](*ins))
+        launched = kernels.LAUNCHES[entry] - before
+        want = flatten(twin[entry](*ins))
+        torch.cuda.synchronize()
+        e = max_abs_err(torch, got, want)
+        err[entry] = max(err[entry], e)
+        if e != 0.0:
+            fail(f"{entry} differs from its plain twin at {what}")
+        if launched != expected_launches(entry, ins):
+            fail(f"{entry} made {launched} launches at {what}, expected "
+                 f"{expected_launches(entry, ins)}")
+        return got
 
     # ---- phase 2: K1 against its plain twin -------------------------------
-    for bl in (1, 3, 7, 13, 17):
+    k1_sizes = (1, 3, 7, 12, 13, 14, 17)
+    for bl in k1_sizes:
         for k in (1, 3, 26):
             n = 1 << bl
             ins = [gf.tensor(rng.integers(0, M, size=(2, k, n),
@@ -258,32 +384,45 @@ def main():
                    for _ in range(3)]
             rs = gf.tensor(rng.integers(0, M, size=(2, k, bl),
                                         dtype=np.uint64), dev)
-            p1, b1 = sumcheck.fold_cuda(*ins, rs)
-            p0, b0 = sumcheck.fold_plain(*ins, rs)
-            torch.cuda.synchronize()
-            e = max_abs_err(torch, (p1,) + tuple(b1), (p0,) + tuple(b0))
-            if e != 0.0:
-                fail(f"K1 differs from its plain twin at bl={bl} K={k}")
-    say("phase 2 ok: K1 == plain twin bit for bit, bl in {1,3,7,13,17} x "
-        "K in {1,3,26}")
+            held("sumcheck_fold", (*ins, rs), f"bl={bl} K={k}")
+    say(f"phase 2 ok: K1 == plain twin bit for bit, bl in {k1_sizes} x K in "
+        f"(1, 3, 26); launches per call == fold_launches(bl) "
+        f"{[sumcheck.fold_launches(b) for b in k1_sizes]}")
 
-    # ---- phase 3: K2 against its plain twin and hashlib -------------------
+    # ---- phase 3: K2's entries against their plain twins ------------------
+    sha3_example = None
     for n in (1, 1000, 4096, 6128, 65536):
         w = rng.integers(0, 2 ** 64, size=(8, n), dtype=np.uint64)
         wt = gf.tensor(w, dev)
-        o1 = keccak.sha3_256_x64_cuda(wt)
-        o0 = keccak.sha3_256_x64_plain(wt)
-        torch.cuda.synchronize()
-        if max_abs_err(torch, (o1,), (o0,)) != 0.0:
-            fail(f"K2 differs from its plain twin at N={n}")
-        o = gf.to_numpy(o1)
+        o = gf.to_numpy(held("sha3_256_x64", (wt,), f"N={n}")[0])
         wc = np.ascontiguousarray(w.T)
         oc = np.ascontiguousarray(o.T)
         for i in range(n):
             if hashlib.sha3_256(wc[i].tobytes()).digest() != oc[i].tobytes():
                 fail(f"K2 differs from hashlib.sha3_256 at N={n}, message {i}")
-    say("phase 3 ok: K2 == plain twin == hashlib.sha3_256, "
-        "N in {1,1000,4096,6128,65536}")
+        if n == 6128:
+            sha3_example = (wt,)
+    chain_widths = (1, 1000, 2048, 6128)
+    for n in chain_widths:
+        xs = gf.tensor(rng.integers(0, 2 ** 64, size=(CHAIN_STEPS, 4, n),
+                                    dtype=np.uint64), dev)
+        held("sha3_chain_x64", (xs,), f"steps={CHAIN_STEPS} leaves={n}")
+    forests = [MAIN_FOREST, [2048], [8192], [1, 2, 4, 1], [65536, 16]]
+    for sizes in forests:
+        leaves = gf.tensor(rng.integers(0, 2 ** 64, size=(4, sum(sizes)),
+                                        dtype=np.uint64), dev)
+        held("merkle_forest", (leaves, sizes), f"trees {sizes}")
+        twin_heaps = merkle.forest_plain(leaves, sizes)
+        for sub_log in (0, 2) + FOREST_SUB_LOGS:
+            got = merkle.forest_cuda(leaves, sizes, sub_log=sub_log)
+            if max_abs_err(torch, got, twin_heaps) != 0.0:
+                fail(f"merkle_forest differs from its plain twin at trees "
+                     f"{sizes}, sub_log {sub_log}")
+    say(f"phase 3 ok: sha3_256_x64 == plain twin == hashlib.sha3_256, N in "
+        f"(1, 1000, 4096, 6128, 65536); sha3_chain_x64 == plain twin, "
+        f"{CHAIN_STEPS} steps x leaves {chain_widths}; merkle_forest == plain "
+        f"twin in one launch, trees {forests}, also with subtree blocks of "
+        f"2^s leaves, s in {(0, 2) + FOREST_SUB_LOGS}")
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     c = driver.load_circuit(str(FIXTURE))
@@ -324,11 +463,43 @@ def main():
         f"{len(got)} arrays; verify accepts")
 
     # ---- phase 5: full width ----------------------------------------------
+    example = {("sha3_256_x64", (6128,)): sha3_example}
+
+    def check_path(what, launches, plain):
+        missing = [e for e in PATH_ENTRIES if launches[e] == 0]
+        if missing or any(plain.values()):
+            fail(f"{what} did not run through the kernels: launches "
+                 f"{launches}, plain twin calls {plain}")
+
+    def check_calls(calls, what):
+        """Hold every recorded call against its twin on the same inputs
+        and its launches against the rule; count calls per shape."""
+        shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+        for entry, ins, outs, launched in calls:
+            shp = shape_of(entry, ins)
+            e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
+            if e != 0.0:
+                fail(f"{entry} differs from its plain twin on the {what}'s "
+                     f"call at shape {shp}")
+            if launched != expected_launches(entry, ins):
+                fail(f"{entry} made {launched} launches on the {what}'s call "
+                     f"at shape {shp}, expected "
+                     f"{expected_launches(entry, ins)}")
+            err[entry] = max(err[entry], e)
+            shapes[entry][shp] += 1
+            example.setdefault((entry, shp), ins)
+        calls.clear()
+        return shapes
+
+    def listing(shapes):
+        return "; ".join(f"{e} {dict(sorted(shapes[e].items()))}"
+                         for e in KERNEL_NAMES if shapes[e])
+
     c = randomize(14, 13, seed=0)
     subset_init(c)
     cp = driver.compile_prover(c)
     cc = cp.cc
-    with Recorder(sumcheck, keccak) as rec:
+    with Recorder(kernels, wrappers) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
         full, info = driver.prove(c, cp)
@@ -339,37 +510,15 @@ def main():
         plain = dict(kernels.PLAIN_CALLS)
     if not rep.ok:
         fail(f"full-width proof rejected: {rep}")
-    if min(launches.values()) == 0 or max(plain.values()) != 0:
-        fail(f"main path did not run through the kernels: launches "
-             f"{launches}, plain twin calls {plain}")
+    check_path("the main path", launches, plain)
     say(f"phase 5 main path ok: randomize(14, 13) proved and verified "
         f"(first prove {t_prove_first:.3f} s); device launches {launches}, "
         f"plain twin calls {plain}; transcript hash "
         f"{transcript_hash(cc, full)}")
-
-    # every recorded kernel call against its plain twin on the same inputs
-    shapes = {"sumcheck_fold": collections.Counter(),
-              "keccak": collections.Counter()}
-    example = {}
-    for kname, ins, outs in rec.calls:
-        if kname == "sumcheck_fold":
-            p, b = sumcheck.fold_plain(*ins)
-            ref = (p,) + tuple(b)
-        else:
-            ref = (keccak.sha3_256_x64_plain(*ins),)
-        e = max_abs_err(torch, outs, ref)
-        shp = shape_of(kname, ins)
-        if e != 0.0:
-            fail(f"{kname} differs from its plain twin on the main path's "
-                 f"call at shape {shp}")
-        err[kname] = max(err[kname], e)
-        shapes[kname][shp] += 1
-        example.setdefault((kname, shp), ins)
-    rec.calls.clear()
-    say(f"phase 5 recorded calls ok: every kernel call of the main path == "
-        f"its plain twin on the same inputs; K1 (bl, K): calls "
-        f"{dict(sorted(shapes['sumcheck_fold'].items()))}; K2 N: calls "
-        f"{dict(sorted(shapes['keccak'].items()))}")
+    driver_shapes = check_calls(rec.calls, "driver prove")
+    say(f"phase 5 recorded calls ok: every kernel call of the driver prove "
+        f"== its plain twin on the same inputs, launches as the rule says; "
+        f"calls per shape: {listing(driver_shapes)}")
 
     lp = full.layers[cc.depth - 1]
     saved = lp["p1_polys"].copy()
@@ -398,19 +547,23 @@ def main():
         fused.fg_tape(n_folds, sched, dev)
         return out
 
-    kernels.reset_counts()
-    out = timed_prove()
-    torch.cuda.synchronize()
-    timed_launches = dict(kernels.LAUNCHES)
-    timed_plain = dict(kernels.PLAIN_CALLS)
-    if min(timed_launches.values()) == 0 or max(timed_plain.values()) != 0:
-        fail(f"the timed prove did not run through the kernels: launches "
-             f"{timed_launches}, plain twin calls {timed_plain}")
+    with Recorder(kernels, wrappers) as rec:
+        kernels.reset_counts()
+        out = timed_prove()
+        torch.cuda.synchronize()
+        timed_launches = dict(kernels.LAUNCHES)
+        timed_plain = dict(kernels.PLAIN_CALLS)
+    check_path("the timed prove", timed_launches, timed_plain)
+    if timed_launches["sha3_chain_x64"] + timed_launches["merkle_forest"] != 2:
+        fail(f"the timed prove's leaf chains and trees took "
+             f"{timed_launches} launches, not one each")
+    timed_shapes = check_calls(rec.calls, "timed prove")
     root_l_fused = [int(x) for x in gf.to_numpy(out[1].tree[:, 1])]
     if root_l_fused != [int(x) for x in full.root_l]:
         fail("fused.prove_e2e's l-oracle root differs from driver.prove's")
     say(f"phase 5 timed prove ok: device launches {timed_launches}, plain "
-        f"twin calls {timed_plain}; l-oracle root == driver.prove's")
+        f"twin calls {timed_plain}; every call == its plain twin; calls per "
+        f"shape: {listing(timed_shapes)}; l-oracle root == driver.prove's")
 
     t_e2e = wall_ms(torch, timed_prove, TIMED_RUNS)
     t_verify = wall_ms(torch, lambda: driver.verify(c, full, cp), VERIFY_RUNS)
@@ -418,43 +571,58 @@ def main():
     say(f"phase 5 timing ({card}): timed prove {spread(t_e2e)}; "
         f"driver.verify {spread(t_verify)}; driver.prove {spread(t_driver)}")
 
-    # kernels at every shape the main path gave them
-    def k1_cost(bl, k):
-        n = 1 << bl
-        nbytes = 3 * 16 * k * n + 16 * k * bl + 48 * bl * k + 48 * k
-        ops = K1_PRODUCTS_PER_PAIR * k * (n - 1) * IMAD_PER_PRODUCT
-        return nbytes, ops
-
-    def k2_cost(n):
-        return 96 * n, KECCAK_INT32_OPS * n
-
-    plan = {"sumcheck_fold": (sumcheck.fold_cuda, sumcheck.fold_plain,
-                              lambda s: k1_cost(*s), 20),
-            "keccak": (keccak.sha3_256_x64_cuda, keccak.sha3_256_x64_plain,
-                       lambda s: k2_cost(*s), 100)}
+    # each kernel entry at every shape the main path gave it, profiled
     rows = {}
-    for kname, (cuda_fn, plain_fn, cost, reps) in plan.items():
+    for entry, names in KERNEL_NAMES.items():
         per = {}
-        for shp, count in sorted(shapes[kname].items()):
-            ins = example[(kname, shp)]
-            ms = event_ms(torch, lambda: cuda_fn(*ins), reps)
-            nbytes, ops = cost(shp)
-            bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
-            per[shp] = (count, ms, bound, nbytes / HBM_BYTES_S >= ops / int32_rate)
-        total_ms = sum(cnt * ms for cnt, ms, _, _ in per.values())
-        total_bound = sum(cnt * bd for cnt, _, bd, _ in per.values())
-        # the shape that takes the most kernel time in one prove
-        top = max(per, key=lambda s: per[s][0] * per[s][1])
-        ins = example[(kname, top)]
-        plain_ms = event_ms(torch, lambda: plain_fn(*ins), 3)
-        rows[kname] = dict(top=top, per=per, total_ms=total_ms,
-                           total_bound=total_bound, plain_ms=plain_ms)
-        say(f"phase 5 kernel {kname}: per shape (calls, ms, bound ms) "
-            + "; ".join(f"{s}: {cnt}, {ms:.4f}, {bd:.5f}"
-                        for s, (cnt, ms, bd, _) in per.items())
-            + f"; all calls of one prove {total_ms:.3f} ms (bound "
-            f"{total_bound:.4f}); top shape {top}: {per[top][1]:.4f} ms vs "
-            f"plain {plain_ms:.3f} ms")
+        found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
+                 or {(6128,)})      # sha3_256_x64 is off the main path
+        for shp in sorted(found):
+            ins = example[(entry, shp)]
+            ms, nl = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
+                                 PROFILE_REPS[entry], names)
+            if ms is None:          # the profiler saw nothing: events instead
+                say(f"phase 5 kernel {entry} at {list(shp)}: no profiled "
+                    f"launch; timed with CUDA events (host issue rate bound)")
+                ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
+                              PROFILE_REPS[entry])
+                nl = expected_launches(entry, ins)
+            nbytes, ops = cost(entry, shp)
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = ops / int32_rate * 1e3
+            per[shp] = dict(driver=driver_shapes[entry][shp],
+                            timed=timed_shapes[entry][shp], ms=ms,
+                            launches=nl, bound=max(t_bytes, t_ops),
+                            by="bytes" if t_bytes >= t_ops else "operations")
+        # the shape that takes the most kernel time in one timed prove
+        top = max(per, key=lambda s: (per[s]["timed"] * per[s]["ms"],
+                                      per[s]["driver"] * per[s]["ms"]))
+        plain_ms = event_ms(torch, lambda: twin[entry](*example[(entry, top)]),
+                            3)
+        rows[entry] = dict(
+            per=per, top=top, plain_ms=plain_ms,
+            timed_ms=sum(r["timed"] * r["ms"] for r in per.values()),
+            timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
+            driver_ms=sum(r["driver"] * r["ms"] for r in per.values()))
+        say(f"phase 5 kernel {entry} (profiled device time; calls in the "
+            f"driver prove / timed prove, ms per call, launches per call, "
+            f"bound ms): " + "; ".join(
+                f"{list(s)}: {r['driver']}/{r['timed']}, {r['ms']:.5f}, "
+                f"{r['launches']:g}, {r['bound']:.5f} {r['by']}"
+                for s, r in per.items())
+            + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
+            f"{rows[entry]['timed_bound']:.5f}), one driver prove "
+            f"{rows[entry]['driver_ms']:.4f} ms; top shape {list(top)}: plain "
+            f"twin {plain_ms:.3f} ms")
+    for sizes in (MAIN_FOREST, [2048]):
+        leaves = example[("merkle_forest", tuple(sizes))][0]
+        alt = {sub_log: profiled_ms(
+            torch, lambda: merkle.forest_cuda(leaves, sizes, sub_log),
+            PROFILE_REPS["merkle_forest"], KERNEL_NAMES["merkle_forest"])[0]
+            for sub_log in FOREST_SUB_LOGS}
+        say(f"phase 5 forest design, trees {sizes} (device ms per call by "
+            f"log2 leaves a block; {merkle.FOREST_SUB_LOG} is the default): "
+            f"{alt}")
     example.clear()
 
     # ---- phase 6: where the time goes ------------------------------------
@@ -479,16 +647,12 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         timed_prove()
         torch.cuda.synchronize()
-    prof_rows = []
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "self_cuda_time_total", 0))
-        if "CUDA" in str(getattr(e, "device_type", "")) and us > 0:
-            prof_rows.append((us, e.count, e.key))
-    prof_rows.sort(reverse=True)
+    prof_rows = sorted(((device_us(e), e.count, e.key)
+                        for e in prof.key_averages() if is_device_row(e)),
+                       reverse=True)
     busy_ms = sum(r[0] for r in prof_rows) / 1e3
     n_kern = sum(r[1] for r in prof_rows)
-    profiled = {kname: [0.0, 0] for kname in KERNEL_NAMES}
+    profiled = {e: [0.0, 0] for e in KERNEL_NAMES}
     idle = None
     if busy_ms > 0:
         med = statistics.median(t_e2e)
@@ -499,39 +663,36 @@ def main():
             f"the slowest run, {1 - busy_ms / min(t_e2e):.4f} of the fastest)")
         for us, cnt, key in prof_rows[:8]:
             say(f"phase 6   {us / 1e3:9.3f} ms  x{cnt:6d}  {key[:90]}")
-        for kname, pats in KERNEL_NAMES.items():
+        for entry, names in KERNEL_NAMES.items():
             for us, cnt, key in prof_rows:
-                if any(p in key for p in pats):
-                    profiled[kname][0] += us / 1e3
-                    profiled[kname][1] += cnt
+                if any(n in key for n in names):
+                    profiled[entry][0] += us / 1e3
+                    profiled[entry][1] += cnt
         say(f"phase 6 profile, the port's kernels in that prove (device ms, "
             f"launches): {profiled}")
     else:
         say("phase 6 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
-    def entry(kname, source, replaces):
-        row = rows[kname]
-        _cnt, ms, bound, by_bytes = row["per"][row["top"]]
-        return {"name": kname if kname != "keccak" else "sha3_256_x64",
-                "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[kname], "max_abs_err": err[kname],
-                "ms": ms, "plain_ms": row["plain_ms"], "bound_ms": bound,
-                "bound_by": "bytes" if by_bytes else "operations",
-                "library_ms": None, "shape": list(row["top"]),
-                "prove_total_ms": row["total_ms"],
-                "prove_total_bound_ms": row["total_bound"],
-                "timed_prove_launches": timed_launches[kname],
-                "profiled_device_ms": profiled[kname][0]}
+    def entry_json(entry):
+        row = rows[entry]
+        top = row["per"][row["top"]]
+        source, replaces = SOURCE_AND_REPLACES[entry]
+        return {"name": entry, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[entry],
+                "max_abs_err": err[entry], "ms": top["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": top["bound"],
+                "bound_by": top["by"], "library_ms": None,
+                "shape": list(row["top"]),
+                "timed_prove_launches": timed_launches[entry],
+                "timed_prove_kernel_ms": row["timed_ms"],
+                "timed_prove_bound_ms": row["timed_bound"],
+                "profiled_device_ms": profiled[entry][0]}
 
-    report = {"kernels": [
-        entry("sumcheck_fold", "virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
-              "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118"),
-        entry("keccak", "virgo_plus_tpu_torch/csrc/keccak.cu",
-              "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100"),
-    ], "timed_prove_ms": t_e2e, "verify_ms": t_verify,
-        "driver_prove_ms": t_driver, "device_busy_ms": busy_ms or None,
-        "idle_share_of_median": idle}
+    report = {"kernels": [entry_json(e) for e in KERNEL_NAMES],
+              "timed_prove_ms": t_e2e, "verify_ms": t_verify,
+              "driver_prove_ms": t_driver, "device_busy_ms": busy_ms or None,
+              "idle_share_of_median": idle}
     say(f"card: {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

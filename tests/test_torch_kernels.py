@@ -3,7 +3,9 @@
 K1 (sumcheck fold): the plain twin against the JAX masked-scan fold and,
 for small tables, the bit-reversed fold (the Pallas kernel in interpret
 mode is in test_torch_fold_pallas.py).  K2 (SHA3-256 of 64-byte blocks):
-the plain twin against the JAX XLA keccak and hashlib.  Inputs come from numpy with a seed; tolerance 0.
+the plain twin against the JAX XLA keccak and hashlib; the fused leaf
+chain's twin against the JAX leaf_chain_hash and the Merkle forest's twin
+against the JAX create_tree.  Inputs come from numpy with a seed; tolerance 0.
 
 The CUDA kernels themselves run only on a card: chip_smoke.py holds them
 against the plain twins there, at every shape the main path gives them."""
@@ -13,15 +15,18 @@ import hashlib
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from virgo_plus_tpu.gkr.sumcheck import (scan_sumcheck_batched,
                                          scan_sumcheck_batched_br)
+from virgo_plus_tpu.pc import merkle as jmerkle
+from virgo_plus_tpu.pc import virgo_pc as jvpc
 from virgo_plus_tpu.pc.keccak import sha3_256_x64_xla
 from virgo_plus_tpu_torch import kernels
 from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import sumcheck
-from virgo_plus_tpu_torch.pc import keccak
+from virgo_plus_tpu_torch.pc import keccak, merkle, virgo_pc
 
 M = gf.MOD
 
@@ -95,7 +100,48 @@ def test_sha3_matches_jax_xla_and_hashlib(n):
         assert np.ascontiguousarray(got[:, i]).tobytes() == want.digest()
 
 
-def test_unknown_device_raises():
+@pytest.mark.parametrize("bl,launches", [(0, 0), (1, 1), (7, 1), (12, 1),
+                                         (13, 2), (17, 6)])
+def test_fold_launches(bl, launches):
+    assert sumcheck.fold_launches(bl) == launches
+
+
+def test_chain_matches_jax_leaf_chain_hash():
+    rng = np.random.default_rng(65)
+    cw = rng.integers(0, M, size=(2, 65, 64), dtype=np.uint64)
+    want = np.asarray(jax.jit(jvpc.leaf_chain_hash)(cw))
+    before = dict(kernels.PLAIN_CALLS)
+    got = virgo_pc.leaf_chain_hash(gf.tensor(cw))
+    assert np.array_equal(gf.to_numpy(got), want)
+    assert (kernels.PLAIN_CALLS["sha3_chain_x64"]
+            == before["sha3_chain_x64"] + 1)
+    xs = virgo_pc._chain_inputs(gf.tensor(cw))
+    assert np.array_equal(gf.to_numpy(keccak.sha3_chain_x64_plain(xs)), want)
+
+
+def test_forest_matches_jax_create_tree():
+    rng = np.random.default_rng(11)
+    sizes = [4096, 1, 16, 2]          # one tree above 2048 leaves
+    leaves = [rng.integers(0, 2 ** 64, size=(4, n), dtype=np.uint64)
+              for n in sizes]
+    before = dict(kernels.PLAIN_CALLS)
+    got = merkle.forest(gf.tensor(np.concatenate(leaves, axis=1)), sizes)
+    assert (kernels.PLAIN_CALLS["merkle_forest"]
+            == before["merkle_forest"] + 1)
+    assert len(got) == len(sizes)
+    for lv, tree in zip(leaves, got):
+        want = np.asarray(jax.jit(jmerkle.create_tree)(lv))
+        assert np.array_equal(gf.to_numpy(tree), want)
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: keccak.sha3_256_x64(t[:8]),
+    lambda t: keccak.sha3_chain_x64(t.reshape(2, 4, 4)),
+    lambda t: merkle.forest(t[:4], [4]),
+    lambda t: sumcheck.scan_sumcheck_batched(t[:2, None], t[2:4, None],
+                                             t[4:6, None], t[6:8, None, :2]),
+], ids=["sha3_256_x64", "sha3_chain_x64", "merkle_forest", "sumcheck_fold"])
+def test_unknown_device_raises(call):
     t = torch.zeros((8, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
-        keccak.sha3_256_x64(t)
+        call(t)

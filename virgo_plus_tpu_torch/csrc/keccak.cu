@@ -1,8 +1,11 @@
-// K2: SHA3-256 of N independent 64-byte messages on Hopper (sm_90a).
+// K2: SHA3-256 of 64-byte messages on Hopper (sm_90a): single hashes, the
+// fused leaf chain, and the Merkle forest.
 //
 // Replaces the TPU kernel virgo_plus_tpu/pallas_kernels/keccak_chain.py
 // (_call :100, body _kernel :85 with _keccak_f :55, entry
-// sha3_256_x64_pallas :116).  Same function as the plain twin
+// sha3_256_x64_pallas :116), which hashes one step per call: every step of
+// the 65-hash leaf chains (virgo_pc.py:120-124) and every Merkle level is a
+// call of its own there.  Every hash is the function of the plain twin
 // virgo_plus_tpu_torch/pc/keccak.py:sha3_256_x64_plain: absorb the 8
 // little-endian message words, pad 0x06 at byte 64 and 0x80 at byte 135,
 // run one Keccak-f[1600], squeeze 4 words.
@@ -13,12 +16,25 @@
 // uint64_t, the 24 rounds are unrolled, and every rotate has a compile-time
 // amount.
 //
-// Bound on the H100: 96 bytes of memory traffic per message (8 words in, 4
-// out, each coalesced across the warp: word w of message i sits at w*N + i)
-// against about 24 * 160 64-bit logical operations, so the kernel is bound by
-// the integer/logic issue rate, not by memory.  At the main path's widths
-// (a few thousand messages per call) one launch fills only part of the card;
-// fusing the 65-step leaf chain into one launch is the planned redesign.
+// What bounds it on the H100: 96 bytes of memory traffic per hash against
+// about 4320 32-bit logic and shift operations, so operations bound it, not
+// memory.  At the main path's widths (about 6000 leaves) one thread per
+// hash fills less than half a warp per scheduler, so a single chain or tree
+// level is bound by the latency of one Keccak-f, and a launch per step made
+// the launches the cost.  Three entries share keccak_f:
+// - sha3_256_x64: N independent messages, one launch (the TPU kernel's
+//   direct counterpart);
+// - sha3_chain_x64: all S steps of every leaf chain in one launch, one
+//   thread per leaf, the chain state in registers between steps
+//   (state <- H(xs[s] || state) from zero); the next step's words are loaded
+//   before the current permutation runs;
+// - merkle_forest: every level of every tree of a forest in one launch.  A
+//   block builds a subtree of up to 2^sub_log leaves level by level,
+//   straight in the tree's heap, with a barrier between levels; the last
+//   block of a tree to finish its subtree (a device-scope fence, then an
+//   atomic ticket) builds the levels above the subtree roots.  Small
+//   subtrees spread the wide bottom levels over many SMs; only the top
+//   levels, a few hashes each, run in one block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +113,15 @@ __device__ __forceinline__ void keccak_f(u64 s[25]) {
     }
 }
 
+// s[0..7] hold the message; pads and permutes, the digest is s[0..3]
+__device__ __forceinline__ void sha3_64(u64 s[25]) {
+    s[8] = 0x06ull;
+#pragma unroll
+    for (int w = 9; w < 25; ++w) s[w] = 0ull;
+    s[16] = 0x8000000000000000ull;
+    keccak_f(s);
+}
+
 // in: (8, n) message words; out: (4, n) digest words
 __global__ void sha3_256_x64(const u64* __restrict__ in, u64* __restrict__ out, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -104,13 +129,107 @@ __global__ void sha3_256_x64(const u64* __restrict__ in, u64* __restrict__ out, 
     u64 s[25];
 #pragma unroll
     for (int w = 0; w < 8; ++w) s[w] = in[(size_t)w * n + i];
-    s[8] = 0x06ull;
-#pragma unroll
-    for (int w = 9; w < 25; ++w) s[w] = 0ull;
-    s[16] = 0x8000000000000000ull;
-    keccak_f(s);
+    sha3_64(s);
 #pragma unroll
     for (int w = 0; w < 4; ++w) out[(size_t)w * n + i] = s[w];
+}
+
+// xs: (steps, 4, n) slice words; out: (4, n) final chain states
+__global__ void sha3_chain_x64(const u64* __restrict__ xs, u64* __restrict__ out,
+                               int steps, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const size_t step = 4 * (size_t)n;
+    u64 st[4] = {0ull, 0ull, 0ull, 0ull};
+    u64 nxt[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) nxt[w] = steps > 0 ? xs[(size_t)w * n + i] : 0ull;
+#pragma unroll 1
+    for (int t = 0; t < steps; ++t) {
+        u64 s[25];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+            s[w] = nxt[w];
+            s[4 + w] = st[w];
+        }
+        if (t + 1 < steps) {
+            const u64* src = xs + (size_t)(t + 1) * step + i;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) nxt[w] = src[(size_t)w * n];
+        }
+        sha3_64(s);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) st[w] = s[w];
+    }
+#pragma unroll
+    for (int w = 0; w < 4; ++w) out[(size_t)w * n + i] = st[w];
+}
+
+constexpr int FOREST_THREADS = 128;
+constexpr int TREE_FIELDS = 5;  // per tree: leaf offset, log2 leaves, heap address,
+                                // first block, ticket (zero on entry)
+
+// heap (4, stride) word-major: node p = H(node 2p || node 2p+1).  Reads go
+// through L2 (ld.global.cg): the children may come from another block.
+__device__ __forceinline__ void hash_node(u64* heap, size_t stride, size_t p) {
+    u64 s[25];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        s[w] = __ldcg(heap + (size_t)w * stride + 2 * p);
+        s[4 + w] = __ldcg(heap + (size_t)w * stride + 2 * p + 1);
+    }
+    sha3_64(s);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) heap[(size_t)w * stride + p] = s[w];
+}
+
+// leaves: (4, total) leaf digests of all trees side by side; trees:
+// (n_trees, TREE_FIELDS).  Tree t of n = 2^lg leaves gets its heap (4, 2n):
+// node 0 = 0, root at 1, leaves at [n, 2n).
+__global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
+        const u64* __restrict__ leaves, long long total, long long* trees, int n_trees,
+        int sub_log) {
+    __shared__ int last;
+    int t = 0;
+    while (t + 1 < n_trees && trees[(t + 1) * TREE_FIELDS + 3] <= blockIdx.x) ++t;
+    long long* row = trees + t * TREE_FIELDS;
+    const int lg = (int)row[1];
+    const int slg = lg < sub_log ? lg : sub_log;
+    const size_t n = (size_t)1 << lg;
+    const size_t S = (size_t)1 << slg;         // leaves of this block's subtree
+    const size_t nsub = n >> slg;
+    const size_t sb = blockIdx.x - (size_t)row[3];
+    u64* heap = reinterpret_cast<u64*>(row[2]);
+    const size_t stride = 2 * n;
+
+    const u64* src = leaves + row[0] + sb * S;
+    for (size_t i = threadIdx.x; i < S; i += FOREST_THREADS) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) heap[w * stride + n + sb * S + i] = src[w * total + i];
+    }
+    if (sb == 0 && threadIdx.x < 4) heap[threadIdx.x * stride] = 0ull;
+    __syncthreads();
+    for (int h = 1; h <= slg; ++h) {
+        const size_t cnt = S >> h;
+        const size_t first = (n >> h) + sb * cnt;
+        for (size_t i = threadIdx.x; i < cnt; i += FOREST_THREADS)
+            hash_node(heap, stride, first + i);
+        __syncthreads();
+    }
+    if (nsub == 1) return;
+
+    __threadfence();  // this subtree's root before the ticket
+    if (threadIdx.x == 0)
+        last = atomicAdd(reinterpret_cast<unsigned long long*>(row + 4), 1ull) == nsub - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int h = slg + 1; h <= lg; ++h) {
+        const size_t cnt = n >> h;  // nodes of this level, heap [cnt, 2 cnt)
+        for (size_t i = threadIdx.x; i < cnt; i += FOREST_THREADS)
+            hash_node(heap, stride, cnt + i);
+        __syncthreads();
+    }
 }
 
 }  // namespace
@@ -120,5 +239,27 @@ extern "C" int vpt_sha3_256_x64(const u64* in, u64* out, int n, void* stream_ptr
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
     constexpr int T = 128;
     sha3_256_x64<<<(n + T - 1) / T, T, 0, stream>>>(in, out, n);
+    return (int)cudaGetLastError();
+}
+
+// One launch; 64 threads a block, so that the few warps of a main-path call
+// spread over the SMs.
+extern "C" int vpt_sha3_chain_x64(const u64* xs, u64* out, int steps, int n,
+                                  void* stream_ptr) {
+    if (n <= 0) return 0;
+    cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    constexpr int T = 64;
+    sha3_chain_x64<<<(n + T - 1) / T, T, 0, stream>>>(xs, out, steps, n);
+    return (int)cudaGetLastError();
+}
+
+// One launch of n_blocks = sum over trees of 2^(lg - min(lg, sub_log)) blocks.
+extern "C" int vpt_merkle_forest(const u64* leaves, long long total, long long* trees,
+                                 int n_trees, int n_blocks, int sub_log,
+                                 void* stream_ptr) {
+    if (n_blocks <= 0) return 0;
+    cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    merkle_forest<<<n_blocks, FOREST_THREADS, 0, stream>>>(leaves, total, trees, n_trees,
+                                                           sub_log);
     return (int)cudaGetLastError();
 }

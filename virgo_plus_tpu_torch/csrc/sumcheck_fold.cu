@@ -14,22 +14,32 @@
 // sums and the bit-reversal gather, which exist because Mosaic has no 64-bit
 // integers.  Here the field is native uint64_t (field.cuh).
 //
-// Design (simple first): one launch per round over (pairs x K), one thread
-// per pair.  The thread writes its bound values into a ping-pong buffer and
-// its six coefficient words go through a warp-shuffle + shared-memory tree
-// reduction; a second small launch sums the block partials of each table.
-// Every addition reduces mod p, so the sums are canonical and the order of
-// the reduction does not change a bit (no 64-bit atomicAdd, which would
-// wrap mod 2^64).  2 * bl launches per call.
+// What bounds it on the H100: each round reads the live half of three
+// tables and writes a quarter; seven extension products per pair per round
+// (21 64x64->128-bit products) put it near the balance of memory and the
+// integer-multiply rate, and bytes bound it at every main-path shape.  At
+// those shapes (2^7 to 2^13 entries, K up to 63) the work per call is a few
+// microseconds, so a schedule of one launch per round is bound by launches.
 //
-// Bound on the H100: each round reads the live half of three tables and
-// writes a quarter; over all rounds the data is read about twice
-// (3 tables * 16 B * 2^bl * K in, bound out).  Seven extension products per
-// pair per round (21 64x64->128-bit products) make it close to balanced
-// between memory and the integer-multiply rate; at the main path's shapes
-// (2^13 entries, up to 26 tables) the 2*bl launches dominate.  A
-// shared-memory-resident tail that finishes the small rounds in one block
-// is the planned redesign.
+// Design: the whole call in 1 + max(0, bl - TAIL_LOG) launches.
+// - fold_tail: one block per table runs every remaining round of that table
+//   in dynamic shared memory (six u64 planes, v/a/m x re/im; 3 * 2^12 * 16 B
+//   = 196,608 B at TAIL_LOG = 12), its challenges preloaded.  Each pair is
+//   bound in place, with a barrier between a round's (or chunk's) reads and
+//   its writes.  A round of more than SPLIT_PAIRS pairs is bound by the
+//   multiply rate: each thread takes whole pairs, in chunks of one per
+//   thread (a later chunk's reads lie above every earlier chunk's writes),
+//   and the six sums go through warp shuffles and shared memory.  A smaller
+//   round is bound by latency, and one thread's seven extension products in
+//   a row took about 2.6 us: there LANES lanes share a pair, one product
+//   each, so a round costs one product's latency.
+// - fold_round: only while a table is larger than 2^TAIL_LOG, one grid-wide
+//   launch per round, one thread per pair, ping-pong buffers in device
+//   memory, one block partial of the six sums per block.  fold_tail sums
+//   those partials for its own table and writes those rounds' polys too.
+// Every addition reduces mod p, so the sums are canonical and the order of
+// the reduction does not change a bit (no 64-bit atomicAdd, which would wrap
+// mod 2^64).
 #include <cuda_runtime.h>
 #include "field.cuh"
 
@@ -38,9 +48,17 @@ using vpt::u64;
 
 namespace {
 
-constexpr int THREADS = 256;  // the wrapper sizes `partials` from it (FOLD_THREADS)
+constexpr int THREADS = 256;       // fold_round; the wrapper sizes `partials` from it
+constexpr int TAIL_THREADS = 512;  // fold_tail
+constexpr int TAIL_LOG = 12;       // largest table (log2) fold_tail holds; FOLD_TAIL_LOG
+constexpr int LANES = 8;           // lanes that share one pair in a small round
+constexpr int SPLIT_PAIRS = TAIL_THREADS / LANES;  // largest small round (pairs)
+constexpr int MAX_BL = 32;
 
-__device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[THREADS / 32]) {
+// Sum six words over the block; the result is in thread 0.  Ends with a
+// barrier, so `sh` may be reused right after.
+template <int T>
+__device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[T / 32]) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -56,7 +74,7 @@ __device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[THREADS / 32
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
-        for (int t = 0; t < 6; ++t) acc[t] = lane < THREADS / 32 ? sh[t][lane] : 0ull;
+        for (int t = 0; t < 6; ++t) acc[t] = lane < T / 32 ? sh[t][lane] : 0ull;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
@@ -64,6 +82,7 @@ __device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[THREADS / 32
                 acc[t] = vpt::addp(acc[t], __shfl_down_sync(0xffffffffu, acc[t], off));
         }
     }
+    __syncthreads();
 }
 
 __device__ __forceinline__ void load_pair(const u64* __restrict__ src, size_t plane,
@@ -74,12 +93,40 @@ __device__ __forceinline__ void load_pair(const u64* __restrict__ src, size_t pl
     x1 = {re.y, im.y};
 }
 
+// One pair: the six round-sum terms into acc, the bound values out.
+__device__ __forceinline__ void fold_pair(F2 v0, F2 v1, F2 a0, F2 a1, F2 m0, F2 m1, F2 r,
+                                          u64 acc[6], F2& nv, F2& na, F2& nm) {
+    const F2 dvv = vpt::sub2(v1, v0);
+    const F2 daa = vpt::sub2(a1, a0);
+    const F2 dmm = vpt::sub2(m1, m0);
+    const F2 pa = vpt::mul2(dmm, dvv);
+    const F2 pb = vpt::add2(vpt::add2(vpt::mul2(dmm, v0), vpt::mul2(m0, dvv)), daa);
+    const F2 pc = vpt::add2(vpt::mul2(m0, v0), a0);
+    acc[0] = vpt::addp(acc[0], pa.re); acc[1] = vpt::addp(acc[1], pa.im);
+    acc[2] = vpt::addp(acc[2], pb.re); acc[3] = vpt::addp(acc[3], pb.im);
+    acc[4] = vpt::addp(acc[4], pc.re); acc[5] = vpt::addp(acc[5], pc.im);
+    nv = vpt::add2(v0, vpt::mul2(dvv, r));
+    na = vpt::add2(a0, vpt::mul2(daa, r));
+    nm = vpt::add2(m0, vpt::mul2(dmm, r));
+}
+
+// polys (bl, K, 2, 3): [coef a/b/c] per plane
+__device__ __forceinline__ void write_poly(u64* __restrict__ polys, int K, int k, int j,
+                                           const u64 acc[6]) {
+    u64* out = polys + ((size_t)j * K + k) * 6;
+#pragma unroll
+    for (int coef = 0; coef < 3; ++coef) {
+        out[coef] = acc[2 * coef];          // real plane
+        out[3 + coef] = acc[2 * coef + 1];  // imaginary plane
+    }
+}
+
 // src tables: (2, K, n); dst tables: (2, K, n/2); partials: (K, gridDim.x, 6)
-__global__ void fold_round(const u64* __restrict__ sv, const u64* __restrict__ sa,
-                           const u64* __restrict__ sm, u64* __restrict__ dv,
-                           u64* __restrict__ da, u64* __restrict__ dm,
-                           const u64* __restrict__ rs, int bl, int j,
-                           u64* __restrict__ partials, int K, size_t n) {
+__global__ void __launch_bounds__(THREADS) fold_round(
+        const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
+        u64* __restrict__ dv, u64* __restrict__ da, u64* __restrict__ dm,
+        const u64* __restrict__ rs, int bl, int j, u64* __restrict__ partials, int K,
+        size_t n) {
     __shared__ u64 sh[6][THREADS / 32];
     const int k = blockIdx.y;
     const size_t half = n >> 1;
@@ -88,20 +135,12 @@ __global__ void fold_round(const u64* __restrict__ sv, const u64* __restrict__ s
     if (i < half) {
         const size_t plane = (size_t)K * n;
         const size_t off = (size_t)k * n + 2 * i;
-        F2 v0, v1, a0, a1, m0, m1;
+        F2 v0, v1, a0, a1, m0, m1, nv, na, nm;
         load_pair(sv, plane, off, v0, v1);
         load_pair(sa, plane, off, a0, a1);
         load_pair(sm, plane, off, m0, m1);
-        const F2 dvv = vpt::sub2(v1, v0);
-        const F2 daa = vpt::sub2(a1, a0);
-        const F2 dmm = vpt::sub2(m1, m0);
-        const F2 pa = vpt::mul2(dmm, dvv);
-        const F2 pb = vpt::add2(vpt::add2(vpt::mul2(dmm, v0), vpt::mul2(m0, dvv)), daa);
-        const F2 pc = vpt::add2(vpt::mul2(m0, v0), a0);
         const F2 r = {rs[(size_t)k * bl + j], rs[(size_t)K * bl + (size_t)k * bl + j]};
-        const F2 nv = vpt::add2(v0, vpt::mul2(dvv, r));
-        const F2 na = vpt::add2(a0, vpt::mul2(daa, r));
-        const F2 nm = vpt::add2(m0, vpt::mul2(dmm, r));
+        fold_pair(v0, v1, a0, a1, m0, m1, r, acc, nv, na, nm);
         const size_t dplane = (size_t)K * half;
         const size_t d0 = (size_t)k * half + i;
         dv[d0] = nv.re;
@@ -110,11 +149,8 @@ __global__ void fold_round(const u64* __restrict__ sv, const u64* __restrict__ s
         da[dplane + d0] = na.im;
         dm[d0] = nm.re;
         dm[dplane + d0] = nm.im;
-        acc[0] = pa.re; acc[1] = pa.im;
-        acc[2] = pb.re; acc[3] = pb.im;
-        acc[4] = pc.re; acc[5] = pc.im;
     }
-    block_reduce6(acc, sh);
+    block_reduce6<THREADS>(acc, sh);
     if (threadIdx.x == 0) {
         u64* out = partials + ((size_t)k * gridDim.x + blockIdx.x) * 6;
 #pragma unroll
@@ -122,24 +158,167 @@ __global__ void fold_round(const u64* __restrict__ sv, const u64* __restrict__ s
     }
 }
 
-// partials (K, nb, 6) -> polys[j] of (bl, K, 2, 3): [coef a/b/c] per plane
-__global__ void reduce_partials(const u64* __restrict__ partials, int nb,
-                                u64* __restrict__ polys, int K, int j) {
-    __shared__ u64 sh[6][THREADS / 32];
-    const int k = blockIdx.x;
-    u64 acc[6] = {0, 0, 0, 0, 0, 0};
-    for (int b = threadIdx.x; b < nb; b += THREADS) {
-        const u64* p = partials + ((size_t)k * nb + b) * 6;
-#pragma unroll
-        for (int t = 0; t < 6; ++t) acc[t] = vpt::addp(acc[t], p[t]);
+// c ? a : b by masks, so that lanes of different roles never branch apart
+__device__ __forceinline__ F2 pick(bool c, F2 a, F2 b) {
+    const u64 m = 0ull - (u64)c;
+    return {(a.re & m) | (b.re & ~m), (a.im & m) | (b.im & ~m)};
+}
+
+// A small round (half <= SPLIT_PAIRS): pair i = tid / LANES, and each of its
+// LANES lanes computes one of the seven extension products, so a round
+// costs one product's latency instead of seven.  Role q: 0 pa = dm*dv,
+// 1 dm*v0 + da, 2 m0*dv (1 and 2 sum to pb), 3 pc = m0*v0 + a0, 4..6 the
+// bound v, a, m = x0 + dx*r; 7 idle.
+__device__ __forceinline__ void small_round(u64* tab, size_t n, size_t half, F2 r,
+                                            u64 (*sh2)[TAIL_THREADS / 32][2],
+                                            u64* __restrict__ out) {
+    const int q = threadIdx.x % LANES;
+    const size_t i = threadIdx.x / LANES;
+    const bool on = i < half && q < 7;
+    F2 res = {0ull, 0ull};
+    if (on) {
+        F2 v0, v1, a0, a1, m0, m1;
+        load_pair(tab, n, 2 * i, v0, v1);
+        load_pair(tab + 2 * n, n, 2 * i, a0, a1);
+        load_pair(tab + 4 * n, n, 2 * i, m0, m1);
+        const F2 dv = vpt::sub2(v1, v0);
+        const F2 da = vpt::sub2(a1, a0);
+        const F2 dm = vpt::sub2(m1, m0);
+        const F2 zero = {0ull, 0ull};
+        const F2 x = pick(q == 4, dv, pick(q == 5, da, pick(q == 2 || q == 3, m0, dm)));
+        const F2 y = pick(q >= 4, r, pick(q == 0 || q == 2, dv, v0));
+        const F2 z = pick(q == 1, da, pick(q == 3 || q == 5, a0,
+                                           pick(q == 4, v0, pick(q == 6, m0, zero))));
+        res = vpt::add2(vpt::mul2(x, y), z);
     }
-    block_reduce6(acc, sh);
-    if (threadIdx.x == 0) {
-        u64* out = polys + ((size_t)j * K + k) * 6;
+    __syncthreads();  // every read of this round before the bound values land
+    if (on && q >= 4) {
+        const int t = 2 * (q - 4);
+        tab[t * n + i] = res.re;
+        tab[(t + 1) * n + i] = res.im;
+    }
+    // sum roles 0..3 over the pairs: within the warp (4 pairs), then across
+    u64 re = (on && q < 4) ? res.re : 0ull;
+    u64 im = (on && q < 4) ? res.im : 0ull;
 #pragma unroll
-        for (int coef = 0; coef < 3; ++coef) {
-            out[coef] = acc[2 * coef];          // real plane
-            out[3 + coef] = acc[2 * coef + 1];  // imaginary plane
+    for (int off = 16; off >= LANES; off >>= 1) {
+        re = vpt::addp(re, __shfl_down_sync(0xffffffffu, re, off));
+        im = vpt::addp(im, __shfl_down_sync(0xffffffffu, im, off));
+    }
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane < 4) {
+        sh2[lane][warp][0] = re;
+        sh2[lane][warp][1] = im;
+    }
+    __syncthreads();  // also publishes the bound values to the next round
+    if (warp == 0) {
+        const int warps = (int)((half * LANES + 31) / 32);
+        re = im = 0ull;
+        if (lane < 4) {
+            for (int w = 0; w < warps; ++w) {
+                re = vpt::addp(re, sh2[lane][w][0]);
+                im = vpt::addp(im, sh2[lane][w][1]);
+            }
+        }
+        const u64 re2 = __shfl_down_sync(0xffffffffu, re, 1);
+        const u64 im2 = __shfl_down_sync(0xffffffffu, im, 1);
+        // polys[j] row: coef a, b, c real, then imaginary
+        if (lane == 0 || lane == 1 || lane == 3) {
+            const int coef = lane == 3 ? 2 : lane;
+            out[coef] = lane == 1 ? vpt::addp(re, re2) : re;
+            out[3 + coef] = lane == 1 ? vpt::addp(im, im2) : im;
+        }
+    }
+}
+
+// One block per table k.  Writes polys[j] of the j0 grid rounds from their
+// block partials (laid out round after round, (K, nb_j, 6) each), then runs
+// rounds j0..bl-1 on the (2, K, 2^(bl-j0)) tables sv/sa/sm in shared memory
+// and writes the bound values (3, 2, K).  Rounds of more than SPLIT_PAIRS
+// pairs give each thread whole pairs; smaller rounds go to small_round.
+__global__ void __launch_bounds__(TAIL_THREADS) fold_tail(
+        const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
+        const u64* __restrict__ rs, const u64* __restrict__ partials,
+        u64* __restrict__ polys, u64* __restrict__ bound, int K, int bl, int j0) {
+    extern __shared__ __align__(16) u64 tab[];  // planes v.re, v.im, a.re, a.im, m.re, m.im
+                                                 // of n words each
+    __shared__ u64 sh[6][TAIL_THREADS / 32];
+    __shared__ u64 sh2[4][TAIL_THREADS / 32][2];
+    __shared__ u64 sr[2][MAX_BL];  // this table's challenges
+    const int k = blockIdx.x;
+    if (threadIdx.x < bl) {
+        sr[0][threadIdx.x] = rs[(size_t)k * bl + threadIdx.x];
+        sr[1][threadIdx.x] = rs[(size_t)K * bl + (size_t)k * bl + threadIdx.x];
+    }
+
+    const u64* part = partials;
+    for (int j = 0; j < j0; ++j) {
+        const size_t half = (size_t)1 << (bl - j - 1);
+        const int nb = (int)((half + THREADS - 1) / THREADS);
+        u64 acc[6] = {0, 0, 0, 0, 0, 0};
+        for (int b = threadIdx.x; b < nb; b += TAIL_THREADS) {
+            const u64* p = part + ((size_t)k * nb + b) * 6;
+#pragma unroll
+            for (int t = 0; t < 6; ++t) acc[t] = vpt::addp(acc[t], p[t]);
+        }
+        block_reduce6<TAIL_THREADS>(acc, sh);
+        if (threadIdx.x == 0) write_poly(polys, K, k, j, acc);
+        part += (size_t)K * nb * 6;
+    }
+
+    const size_t n = (size_t)1 << (bl - j0);
+    const size_t plane = (size_t)K * n;
+#pragma unroll 4
+    for (size_t i = threadIdx.x; i < n; i += TAIL_THREADS) {
+        const size_t g = (size_t)k * n + i;
+        tab[i] = sv[g];
+        tab[n + i] = sv[plane + g];
+        tab[2 * n + i] = sa[g];
+        tab[3 * n + i] = sa[plane + g];
+        tab[4 * n + i] = sm[g];
+        tab[5 * n + i] = sm[plane + g];
+    }
+    __syncthreads();
+
+    size_t live = n;
+    for (int j = j0; j < bl; ++j) {
+        const size_t half = live >> 1;
+        const F2 r = {sr[0][j], sr[1][j]};
+        live = half;
+        if (half <= SPLIT_PAIRS) {
+            small_round(tab, n, half, r, sh2, polys + ((size_t)j * K + k) * 6);
+            continue;
+        }
+        u64 acc[6] = {0, 0, 0, 0, 0, 0};
+        for (size_t base = 0; base < half; base += TAIL_THREADS) {
+            const size_t i = base + threadIdx.x;
+            F2 nv, na, nm;
+            if (i < half) {
+                F2 v0, v1, a0, a1, m0, m1;
+                load_pair(tab, n, 2 * i, v0, v1);
+                load_pair(tab + 2 * n, n, 2 * i, a0, a1);
+                load_pair(tab + 4 * n, n, 2 * i, m0, m1);
+                fold_pair(v0, v1, a0, a1, m0, m1, r, acc, nv, na, nm);
+            }
+            __syncthreads();  // this chunk's reads before its writes
+            if (i < half) {
+                tab[i] = nv.re;
+                tab[n + i] = nv.im;
+                tab[2 * n + i] = na.re;
+                tab[3 * n + i] = na.im;
+                tab[4 * n + i] = nm.re;
+                tab[5 * n + i] = nm.im;
+            }
+        }
+        block_reduce6<TAIL_THREADS>(acc, sh);  // its barriers also publish the writes
+        if (threadIdx.x == 0) write_poly(polys, K, k, j, acc);
+    }
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+            bound[(size_t)(2 * q) * K + k] = tab[(2 * q) * n];
+            bound[(size_t)(2 * q + 1) * K + k] = tab[(2 * q + 1) * n];
         }
     }
 }
@@ -147,33 +326,43 @@ __global__ void reduce_partials(const u64* __restrict__ partials, int nb,
 }  // namespace
 
 // v, a, m: (2, K, 2^bl); rs: (2, K, bl); polys: (bl, K, 2, 3);
-// bound: (3, 2, K) = bound v, a, m; work0, work1: 3 * 2 * K * 2^(bl-1)
-// words each; partials: K * ceil(2^(bl-1) / THREADS) * 6 words.  bl >= 1.
+// bound: (3, 2, K) = bound v, a, m.  With G = max(0, bl - TAIL_LOG) grid
+// rounds: work0, work1 hold 3 * 2 * K * 2^(bl-1) words each and partials
+// K * 6 * sum_{j<G} ceil(2^(bl-1-j) / THREADS) words (both unused when
+// G = 0).  bl >= 1.  Makes G + 1 launches.
 extern "C" int vpt_sumcheck_fold(const u64* v, const u64* a, const u64* m,
                                  const u64* rs, u64* polys, u64* bound,
                                  u64* work0, u64* work1, u64* partials,
                                  int K, int bl, void* stream_ptr) {
+    if (bl < 1 || bl > MAX_BL) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    const int grid_rounds = bl > TAIL_LOG ? bl - TAIL_LOG : 0;
     const u64 *sv = v, *sa = a, *sm = m;
+    u64* part = partials;
     size_t n = (size_t)1 << bl;
-    for (int j = 0; j < bl; ++j) {
+    for (int j = 0; j < grid_rounds; ++j) {
         const size_t half = n >> 1;
-        u64* dst = (j == bl - 1) ? bound : ((j & 1) ? work1 : work0);
+        u64* dst = (j & 1) ? work1 : work0;
         u64* dv = dst;
         u64* da = dst + 2 * (size_t)K * half;
         u64* dm = dst + 4 * (size_t)K * half;
         const int nb = (int)((half + THREADS - 1) / THREADS);
         fold_round<<<dim3(nb, K), THREADS, 0, stream>>>(sv, sa, sm, dv, da, dm, rs, bl,
-                                                        j, partials, K, n);
+                                                        j, part, K, n);
         cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
-        reduce_partials<<<K, THREADS, 0, stream>>>(partials, nb, polys, K, j);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
+        part += (size_t)K * nb * 6;
         sv = dv;
         sa = da;
         sm = dm;
         n = half;
     }
+    const size_t smem = 6 * sizeof(u64) * n;
+    cudaError_t err = cudaFuncSetAttribute(
+        fold_tail, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(6 * sizeof(u64)) << TAIL_LOG);
+    if (err != cudaSuccess) return (int)err;
+    fold_tail<<<K, TAIL_THREADS, smem, stream>>>(sv, sa, sm, rs, partials, polys, bound,
+                                                  K, bl, grid_rounds);
     return (int)cudaGetLastError();
 }

@@ -109,7 +109,20 @@ def concat_scatter_plans(plans, in_sizes):
 # K1: the batched sumcheck fold, kernel and plain twin
 # ---------------------------------------------------------------------------
 
-FOLD_THREADS = 256   # threads per block of csrc/sumcheck_fold.cu (THREADS)
+FOLD_THREADS = 256   # threads per grid-round block of csrc/sumcheck_fold.cu
+FOLD_TAIL_LOG = 12   # largest table (log2) K1 folds in one block (TAIL_LOG)
+
+
+def fold_grid_rounds(bl: int) -> int:
+    """Rounds K1 runs grid-wide, one launch each, before its tables fit in
+    one block's shared memory."""
+    return max(0, bl - FOLD_TAIL_LOG)
+
+
+def fold_launches(bl: int) -> int:
+    """Device launches of one K1 call on 2^bl-entry tables: the grid-wide
+    rounds plus one launch of the shared-memory tail; none for bl = 0."""
+    return 0 if bl == 0 else fold_grid_rounds(bl) + 1
 
 
 def fold_plain(v, a, m, rs):
@@ -150,10 +163,13 @@ def fold_cuda(v, a, m, rs):
     dev = v.device
     polys = torch.empty((bl, k, 2, 3), dtype=torch.int64, device=dev)
     bound = torch.empty((3, 2, k), dtype=torch.int64, device=dev)
-    work = torch.empty((2, 3 * k * n), dtype=torch.int64, device=dev)
-    n_blocks = -(-(n // 2) // FOLD_THREADS)
-    partials = torch.empty((k * n_blocks * 6,), dtype=torch.int64, device=dev)
-    kernels.launch("sumcheck_fold", 2 * bl,
+    grid = fold_grid_rounds(bl)
+    work = torch.empty((2, 3 * k * n if grid else 1), dtype=torch.int64,
+                       device=dev)
+    n_partials = sum(-(-(n >> (j + 1)) // FOLD_THREADS) for j in range(grid))
+    partials = torch.empty((max(1, 6 * k * n_partials),), dtype=torch.int64,
+                           device=dev)
+    kernels.launch("sumcheck_fold", fold_launches(bl),
                    v.data_ptr(), a.data_ptr(), m.data_ptr(),
                    rs.data_ptr(), polys.data_ptr(), bound.data_ptr(),
                    work[0].data_ptr(), work[1].data_ptr(),

@@ -6,10 +6,11 @@ Each source under ``csrc/`` is a plain-C-interface CUDA file compiled by
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The library name
 carries a hash of the source, so an edited source is rebuilt.
 
-Every kernel wrapper adds to ``LAUNCHES[name]`` the number of device
-launches its C entry makes (K1: two per round, K2: one), and its plain
-PyTorch twin adds one to ``PLAIN_CALLS[name]`` when it runs instead (CPU
-tensors only).  ``reset_counts`` zeroes both.
+A source may expose several C entries; counts are kept per entry.  Every
+kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
+its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry: one),
+and its plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs
+instead (CPU tensors only).  ``reset_counts`` zeroes both.
 """
 
 from __future__ import annotations
@@ -27,17 +28,26 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "csrc"
 BUILD = ROOT.parent / "build" / "torch_kernels"
 
-# name -> (C entry, argtypes); every entry returns its cudaError_t as int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# source (csrc/<source>.cu) -> {entry: (C symbol, argtypes)}; every C
+# entry returns its cudaError_t as int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
-    "sumcheck_fold": ("vpt_sumcheck_fold", [_P] * 9 + [_I, _I, _P]),
-    "keccak": ("vpt_sha3_256_x64", [_P, _P, _I, _P]),
+    "sumcheck_fold": {
+        "sumcheck_fold": ("vpt_sumcheck_fold", [_P] * 9 + [_I, _I, _P]),
+    },
+    "keccak": {
+        "sha3_256_x64": ("vpt_sha3_256_x64", [_P, _P, _I, _P]),
+        "sha3_chain_x64": ("vpt_sha3_chain_x64", [_P, _P, _I, _I, _P]),
+        "merkle_forest": ("vpt_merkle_forest", [_P, _L, _P, _I, _I, _I, _P]),
+    },
 }
+ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
 
-LAUNCHES = {name: 0 for name in SOURCES}
-PLAIN_CALLS = {name: 0 for name in SOURCES}
+LAUNCHES = {entry: 0 for entry in ENTRIES}
+PLAIN_CALLS = {entry: 0 for entry in ENTRIES}
 
-_LIBS = {}
+_LIBS = {}   # source -> loaded library
+_FNS = {}    # entry -> C function
 
 
 def reset_counts():
@@ -96,28 +106,30 @@ def build(names=None) -> dict:
     return logs
 
 
-def lib(name: str):
-    """The loaded library of one source, building it on first use."""
-    if name not in _LIBS:
-        out = _target(name)
-        if not out.exists():
-            build([name])
-        handle = ctypes.CDLL(str(out))
-        entry, argtypes = SOURCES[name]
-        fn = getattr(handle, entry)
+def lib(entry: str):
+    """The C function of one entry, building its source on first use."""
+    if entry not in _FNS:
+        src = ENTRIES[entry]
+        if src not in _LIBS:
+            out = _target(src)
+            if not out.exists():
+                build([src])
+            _LIBS[src] = ctypes.CDLL(str(out))
+        symbol, argtypes = SOURCES[src][entry]
+        fn = getattr(_LIBS[src], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = fn
-    return _LIBS[name]
+        _FNS[entry] = fn
+    return _FNS[entry]
 
 
-def launch(name: str, n_launches: int, *args):
+def launch(entry: str, n_launches: int, *args):
     """Call a kernel's C entry, which makes ``n_launches`` device launches,
     and raise on a CUDA error; counts the launches."""
-    err = lib(name)(*args)
+    err = lib(entry)(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
-    LAUNCHES[name] += n_launches
+        raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {err}")
+    LAUNCHES[entry] += n_launches
 
 
 def check_cuda(name: str, tensors, shapes):

@@ -3,9 +3,11 @@
 Counterpart of ``virgo_plus_tpu/pc/keccak.py``.  The reference hashes exactly
 64-byte blocks with XKCP's SHA3_256 (lib/virgo/src/my_hhash.h:27-33): absorb
 8 words, pad 0x06 at byte 64 and 0x80 at byte 135, one Keccak-f[1600],
-squeeze 4 words.  ``sha3_256_x64`` sends CUDA tensors to the hand-written
-kernel K2 (``csrc/keccak.cu``) and CPU tensors to the plain twin, which
-keeps the state as a (25, N) int64 tensor, one column per message.
+squeeze 4 words.  ``sha3_256_x64`` (one hash per message) and
+``sha3_chain_x64`` (the fused leaf chain) send CUDA tensors to the
+hand-written kernels of K2 (``csrc/keccak.cu``) and CPU tensors to their
+plain twins, which keep the state as a (25, N) int64 tensor, one column per
+message.  The Merkle forest, K2's third entry, is wrapped in ``merkle.py``.
 """
 
 from __future__ import annotations
@@ -79,7 +81,7 @@ def keccak_f(state):
 
 def sha3_256_x64_plain(words):
     """Plain twin of K2: (8, N) int64 LE words -> (4, N) digest words."""
-    kernels.PLAIN_CALLS["keccak"] += 1
+    kernels.PLAIN_CALLS["sha3_256_x64"] += 1
     n = words.shape[1]
     state = torch.zeros((25, n), dtype=torch.int64, device=words.device)
     state[:8] = words
@@ -91,19 +93,54 @@ def sha3_256_x64_plain(words):
 def sha3_256_x64_cuda(words):
     """K2 on the card: same signature and bits as sha3_256_x64_plain."""
     n = words.shape[1]
-    kernels.check_cuda("keccak", (words,), [(8, n)])
+    kernels.check_cuda("sha3_256_x64", (words,), [(8, n)])
     out = torch.empty((4, n), dtype=torch.int64, device=words.device)
     if n:
-        kernels.launch("keccak", 1, words.data_ptr(), out.data_ptr(), n,
+        kernels.launch("sha3_256_x64", 1, words.data_ptr(), out.data_ptr(), n,
                        kernels.stream_ptr())
     return out
+
+
+def sha3_chain_x64_plain(xs):
+    """Plain twin of the fused leaf chain: xs (S, 4, L) slice words ->
+    (4, L); state <- SHA3-256(xs[s] || state) for s = 0..S-1, from zero."""
+    kernels.PLAIN_CALLS["sha3_chain_x64"] += 1
+    state = torch.zeros((4, xs.shape[2]), dtype=torch.int64, device=xs.device)
+    for s in range(xs.shape[0]):
+        state = sha3_256_x64_plain(torch.cat([xs[s], state], dim=0))
+    return state
+
+
+def sha3_chain_x64_cuda(xs):
+    """The fused leaf chain on the card, one launch: same signature and
+    bits as sha3_chain_x64_plain."""
+    steps, _, n = xs.shape
+    kernels.check_cuda("sha3_chain_x64", (xs,), [(steps, 4, n)])
+    out = torch.empty((4, n), dtype=torch.int64, device=xs.device)
+    if n:
+        kernels.launch("sha3_chain_x64", 1, xs.data_ptr(), out.data_ptr(),
+                       steps, n, kernels.stream_ptr())
+    return out
+
+
+def on_cuda(x, what: str) -> bool:
+    """True for a CUDA tensor (its kernel runs), False for a CPU tensor (its
+    plain twin runs); any other device raises."""
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type == "cuda"
+    raise ValueError(f"no {what} for device {x.device}")
 
 
 def sha3_256_x64(words):
     """SHA3-256 of 64-byte messages given as (8, N) int64 words (LE).
     Returns (4, N) digest words."""
-    if words.device.type == "cuda":
+    if on_cuda(words, "SHA3 kernel"):
         return sha3_256_x64_cuda(words.contiguous())
-    if words.device.type == "cpu":
-        return sha3_256_x64_plain(words)
-    raise ValueError(f"no SHA3 kernel for device {words.device}")
+    return sha3_256_x64_plain(words)
+
+
+def sha3_chain_x64(xs):
+    """The SHA3 chain of every leaf: xs (S, 4, L) -> (4, L) digests."""
+    if on_cuda(xs, "SHA3 chain kernel"):
+        return sha3_chain_x64_cuda(xs.contiguous())
+    return sha3_chain_x64_plain(xs)

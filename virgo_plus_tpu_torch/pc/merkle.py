@@ -1,16 +1,22 @@
-"""Merkle trees over SHA3-256 digests (every level one K2 call).
+"""Merkle trees over SHA3-256 digests (K2's forest kernel).
 
 Counterpart of ``virgo_plus_tpu/pc/merkle.py`` (reference
 lib/virgo/src/merkle_tree.cpp:7-51): heap layout in a 2N array (root at
 index 1, leaves at [N, 2N)), parent = SHA3-256 of the two 32-byte children.
-Digests are (4, N) int64 word tensors.
+Digests are (4, N) int64 word tensors.  ``forest`` builds every level of
+every tree of a forest: CUDA tensors in one launch of the forest kernel
+(``csrc/keccak.cu``), CPU tensors through the plain twin, one SHA3 call
+per level over every tree still active.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .keccak import sha3_256_x64
+from .. import kernels
+from .keccak import on_cuda, sha3_256_x64_plain
+
+FOREST_SUB_LOG = 8   # a block of the forest kernel builds 2^8-leaf subtrees
 
 
 def _heap(levels):
@@ -19,38 +25,84 @@ def _heap(levels):
     return torch.cat([z] + levels[::-1], dim=1)
 
 
-def create_tree(leaves):
-    """leaves: (4, N) digests, N a power of two -> (4, 2N) heap tree;
-    root = tree[:, 1], tree[:, 0] = 0."""
-    n = leaves.shape[1]
-    assert n & (n - 1) == 0
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[1] > 1:
-        cur = sha3_256_x64(torch.cat([cur[:, 0::2], cur[:, 1::2]], dim=0))
-        levels.append(cur)
-    return _heap(levels)
+def _split(leaves, sizes):
+    out, off = [], 0
+    for n in sizes:
+        out.append(leaves[:, off:off + n])
+        off += n
+    return out
 
 
-def create_trees_batched(leaves_list):
-    """Build many trees together: every step hashes the current level of
-    every still-active tree in ONE K2 call, so a forest costs max-depth
-    launches.  Bit-identical to create_tree per tree."""
-    levels = [[lv] for lv in leaves_list]
-    cur = list(leaves_list)
+def forest_plain(leaves, sizes):
+    """Plain twin of the forest kernel.  leaves: (4, sum(sizes)) leaf
+    digests of the trees side by side, each size a power of two ->
+    [(4, 2N)] heaps.  Every step hashes the current level of every
+    still-active tree in one sha3_256_x64_plain call."""
+    kernels.PLAIN_CALLS["merkle_forest"] += 1
+    cur = _split(leaves, sizes)
+    levels = [[lv] for lv in cur]
     while True:
         active = [t for t in range(len(cur)) if cur[t].shape[1] > 1]
         if not active:
             break
         parts = [torch.cat([cur[t][:, 0::2], cur[t][:, 1::2]], dim=0)
                  for t in active]
-        h = sha3_256_x64(torch.cat(parts, dim=1))
+        h = sha3_256_x64_plain(torch.cat(parts, dim=1))
         off = 0
         for t, p in zip(active, parts):
             cur[t] = h[:, off:off + p.shape[1]]
             levels[t].append(cur[t])
             off += p.shape[1]
     return [_heap(lv) for lv in levels]
+
+
+def forest_cuda(leaves, sizes, sub_log=FOREST_SUB_LOG):
+    """The forest kernel on the card, one launch: same arguments and bits
+    as forest_plain.  A block builds a subtree of up to 2^sub_log leaves;
+    the last block of a tree to finish builds the levels above."""
+    total = leaves.shape[1]
+    kernels.check_cuda("merkle_forest", (leaves,), [(4, total)])
+    if sum(sizes) != total or any(n < 1 or n & (n - 1) for n in sizes):
+        raise ValueError(f"merkle_forest: tree sizes {sizes} are not powers "
+                         f"of two summing to {total}")
+    dev = leaves.device
+    heaps = [torch.empty((4, 2 * n), dtype=torch.int64, device=dev)
+             for n in sizes]
+    rows, off, blocks = [], 0, 0
+    for n, heap in zip(sizes, heaps):
+        lg = n.bit_length() - 1
+        # leaf offset, log2 leaves, heap address, first block, ticket
+        rows.append([off, lg, heap.data_ptr(), blocks, 0])
+        off += n
+        blocks += n >> min(lg, sub_log)
+    if blocks:
+        trees = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+        kernels.launch("merkle_forest", 1, leaves.data_ptr(), total,
+                       trees.data_ptr(), len(sizes), blocks, sub_log,
+                       kernels.stream_ptr())
+    return heaps
+
+
+def forest(leaves, sizes):
+    """Merkle trees of many leaf sets at once: leaves (4, sum(sizes)) side
+    by side -> [(4, 2N)] heaps; root = tree[:, 1], tree[:, 0] = 0."""
+    if on_cuda(leaves, "Merkle forest kernel"):
+        return forest_cuda(leaves.contiguous(), sizes)
+    return forest_plain(leaves, sizes)
+
+
+def create_tree(leaves):
+    """leaves: (4, N) digests, N a power of two -> (4, 2N) heap tree;
+    root = tree[:, 1], tree[:, 0] = 0."""
+    return forest(leaves, [leaves.shape[1]])[0]
+
+
+def create_trees_batched(leaves_list):
+    """Build many trees together as one forest.  Bit-identical to
+    create_tree per tree."""
+    return forest(torch.cat(list(leaves_list), dim=1),
+                  [lv.shape[1] for lv in leaves_list])
 
 
 def root_of(tree):
