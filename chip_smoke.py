@@ -65,7 +65,7 @@ K1_PRODUCTS_PER_PAIR = 21    # 7 GF(p^2) products x 3 base products
 IMAD_PER_PRODUCT = 4         # 64x64->128 from four 32x32->64 partials
 
 # each kernel entry's device kernels, as the profiler names them
-KERNEL_NAMES = {"sumcheck_fold": ("fold_round", "fold_tail"),
+KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "sha3_256_x64": ("sha3_256_x64",),
                 "sha3_chain_x64": ("sha3_chain_x64",),
                 "merkle_forest": ("merkle_forest",)}

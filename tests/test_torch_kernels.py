@@ -101,9 +101,20 @@ def test_sha3_matches_jax_xla_and_hashlib(n):
 
 
 @pytest.mark.parametrize("bl,launches", [(0, 0), (1, 1), (7, 1), (12, 1),
-                                         (13, 2), (17, 6)])
+                                         (13, 1), (17, 1)])
 def test_fold_launches(bl, launches):
     assert sumcheck.fold_launches(bl) == launches
+
+
+@pytest.mark.parametrize("bl,k,c", [
+    (1, 1, 1), (7, 1, 7), (10, 63, 9), (11, 22, 9), (12, 5, 8), (13, 1, 7),
+    (13, 26, 11), (17, 2, 11), (17, 26, 12), (24, 1, 12)])
+def test_fold_chunk_log(bl, k, c):
+    """The main path's K1 shapes on 132 SMs: one block per chunk of 2^c
+    entries, at most one wave of blocks, chunks and their results within
+    one block's shared memory."""
+    assert sumcheck.fold_chunk_log(bl, k, 132) == c
+    assert c <= sumcheck.FOLD_MAX_LOG and bl - c <= sumcheck.FOLD_MAX_LOG
 
 
 def test_chain_matches_jax_leaf_chain_hash():

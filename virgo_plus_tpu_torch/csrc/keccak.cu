@@ -13,8 +13,7 @@
 // What is dropped from the TPU design: the (lo, hi) u32 pairs of every
 // 64-bit lane, which exist because Mosaic has no 64-bit integers.  Here one
 // thread hashes one message; its 25-word state stays in registers as
-// uint64_t, the 24 rounds are unrolled, and every rotate has a compile-time
-// amount.
+// uint64_t, and every rotate has a compile-time amount.
 //
 // What bounds it on the H100: 96 bytes of memory traffic per hash against
 // about 4320 32-bit logic and shift operations, so operations bound it, not
@@ -62,9 +61,11 @@ __device__ __forceinline__ u64 rotl(u64 x) {
     }
 }
 
-// state index x + 5*y, as in the SHA3 lane order
+// state index x + 5*y, as in the SHA3 lane order.  Four rounds unrolled:
+// the 24-round body (about 70 KB of code) missed the instruction cache on
+// every permutation.
 __device__ __forceinline__ void keccak_f(u64 s[25]) {
-#pragma unroll
+#pragma unroll 4
     for (int round = 0; round < 24; ++round) {
         // theta
         u64 c[5], d[5];

@@ -18,25 +18,34 @@
 // tables and writes a quarter; seven extension products per pair per round
 // (21 64x64->128-bit products) put it near the balance of memory and the
 // integer-multiply rate, and bytes bound it at every main-path shape.  At
-// those shapes (2^7 to 2^13 entries, K up to 63) the work per call is a few
-// microseconds, so a schedule of one launch per round is bound by launches.
+// those shapes (2^7 to 2^13 entries, K up to 63) a call is a few
+// microseconds of work spread over bl dependent rounds, so what it costs is
+// launches (one per round in the first port: 2.6 us each) and then the
+// latency of each round.
 //
-// Design: the whole call in 1 + max(0, bl - TAIL_LOG) launches.
-// - fold_tail: one block per table runs every remaining round of that table
-//   in dynamic shared memory (six u64 planes, v/a/m x re/im; 3 * 2^12 * 16 B
-//   = 196,608 B at TAIL_LOG = 12), its challenges preloaded.  Each pair is
-//   bound in place, with a barrier between a round's (or chunk's) reads and
-//   its writes.  A round of more than SPLIT_PAIRS pairs is bound by the
-//   multiply rate: each thread takes whole pairs, in chunks of one per
-//   thread (a later chunk's reads lie above every earlier chunk's writes),
-//   and the six sums go through warp shuffles and shared memory.  A smaller
-//   round is bound by latency, and one thread's seven extension products in
-//   a row took about 2.6 us: there LANES lanes share a pair, one product
-//   each, so a round costs one product's latency.
-// - fold_round: only while a table is larger than 2^TAIL_LOG, one grid-wide
-//   launch per round, one thread per pair, ping-pong buffers in device
-//   memory, one block partial of the six sums per block.  fold_tail sums
-//   those partials for its own table and writes those rounds' polys too.
+// Design: one launch per call, whatever bl.
+// - Natural pairs never cross a chunk of 2^c entries, and the challenges
+//   are known before the call, so a table splits into B = 2^(bl-c)
+//   contiguous chunks that fold independently for c rounds.  Block (k, b)
+//   folds chunk b of table k in dynamic shared memory (six u64 planes,
+//   v/a/m x re/im: 3 * 2^c * 16 B, 196,608 B at c = 12), writes its round
+//   sums as partial rows and its folded (v, a, m) to device memory, then
+//   takes a ticket (device-scope fence, atomicAdd).  The last block of a
+//   table sums the B partial rows of each of the c rounds, loads the B
+//   chunk results as a table of its own and folds the last bl - c rounds.
+//   The wrapper picks c (sumcheck.fold_chunk_log) so that the grid spreads
+//   over the SMs; with B = 1 the one block writes polys and bound itself.
+// - In a block, each pair is bound in place, with a barrier between a
+//   round's (or chunk's) reads and its writes.  A round of more than
+//   SPLIT_PAIRS pairs is bound by the multiply rate: each thread takes whole
+//   pairs, in chunks of one per thread (a later chunk's reads lie above
+//   every earlier chunk's writes), and the six sums go through warp
+//   shuffles and shared memory.  A smaller round is bound by latency (one
+//   thread's seven extension products in a row took about 2.6 us): there
+//   LANES lanes share a pair, one product each; the rounds ping-pong between
+//   two small buffers, so one barrier a round suffices; and the per-warp
+//   sums wait in shared memory until the last small round, when one warp
+//   per round reduces them all at once.
 // Every addition reduces mod p, so the sums are canonical and the order of
 // the reduction does not change a bit (no 64-bit atomicAdd, which would wrap
 // mod 2^64).
@@ -48,17 +57,25 @@ using vpt::u64;
 
 namespace {
 
-constexpr int THREADS = 256;       // fold_round; the wrapper sizes `partials` from it
-constexpr int TAIL_THREADS = 512;  // fold_tail
-constexpr int TAIL_LOG = 12;       // largest table (log2) fold_tail holds; FOLD_TAIL_LOG
-constexpr int LANES = 8;           // lanes that share one pair in a small round
-constexpr int SPLIT_PAIRS = TAIL_THREADS / LANES;  // largest small round (pairs)
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_LOG = 12;                   // largest table (log2) one block holds
+constexpr int LANES = 8;                      // lanes that share one pair in a small round
+constexpr int SPLIT_PAIRS = THREADS / LANES;  // largest small round (pairs)
+constexpr int SMALL_ROUNDS = 7;               // rounds of SPLIT_PAIRS, ..., 2, 1 pairs
 constexpr int MAX_BL = 32;
+
+struct __align__(16) Shared {
+    u64 sh[6][WARPS];                            // block_reduce6
+    __align__(16) u64 small[2][6][SPLIT_PAIRS];  // small-round ping-pong tables
+    u64 sums[SMALL_ROUNDS][4][WARPS][2];         // small-round per-warp sums by role
+    u64 r[2][MAX_BL];                            // this table's challenges
+    int last;
+};
 
 // Sum six words over the block; the result is in thread 0.  Ends with a
 // barrier, so `sh` may be reused right after.
-template <int T>
-__device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[T / 32]) {
+__device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[WARPS]) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -74,7 +91,7 @@ __device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[T / 32]) {
     __syncthreads();
     if (warp == 0) {
 #pragma unroll
-        for (int t = 0; t < 6; ++t) acc[t] = lane < T / 32 ? sh[t][lane] : 0ull;
+        for (int t = 0; t < 6; ++t) acc[t] = lane < WARPS ? sh[t][lane] : 0ull;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
@@ -85,8 +102,8 @@ __device__ __forceinline__ void block_reduce6(u64 acc[6], u64 (*sh)[T / 32]) {
     __syncthreads();
 }
 
-__device__ __forceinline__ void load_pair(const u64* __restrict__ src, size_t plane,
-                                          size_t off, F2& x0, F2& x1) {
+__device__ __forceinline__ void load_pair(const u64* src, size_t plane, size_t off, F2& x0,
+                                          F2& x1) {
     const ulonglong2 re = *reinterpret_cast<const ulonglong2*>(src + off);
     const ulonglong2 im = *reinterpret_cast<const ulonglong2*>(src + plane + off);
     x0 = {re.x, im.x};
@@ -110,77 +127,58 @@ __device__ __forceinline__ void fold_pair(F2 v0, F2 v1, F2 a0, F2 a1, F2 m0, F2 
     nm = vpt::add2(m0, vpt::mul2(dmm, r));
 }
 
-// polys (bl, K, 2, 3): [coef a/b/c] per plane
-__device__ __forceinline__ void write_poly(u64* __restrict__ polys, int K, int k, int j,
-                                           const u64 acc[6]) {
-    u64* out = polys + ((size_t)j * K + k) * 6;
-#pragma unroll
-    for (int coef = 0; coef < 3; ++coef) {
-        out[coef] = acc[2 * coef];          // real plane
-        out[3 + coef] = acc[2 * coef + 1];  // imaginary plane
-    }
-}
-
-// src tables: (2, K, n); dst tables: (2, K, n/2); partials: (K, gridDim.x, 6)
-__global__ void __launch_bounds__(THREADS) fold_round(
-        const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
-        u64* __restrict__ dv, u64* __restrict__ da, u64* __restrict__ dm,
-        const u64* __restrict__ rs, int bl, int j, u64* __restrict__ partials, int K,
-        size_t n) {
-    __shared__ u64 sh[6][THREADS / 32];
-    const int k = blockIdx.y;
-    const size_t half = n >> 1;
-    const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-    u64 acc[6] = {0, 0, 0, 0, 0, 0};
-    if (i < half) {
-        const size_t plane = (size_t)K * n;
-        const size_t off = (size_t)k * n + 2 * i;
-        F2 v0, v1, a0, a1, m0, m1, nv, na, nm;
-        load_pair(sv, plane, off, v0, v1);
-        load_pair(sa, plane, off, a0, a1);
-        load_pair(sm, plane, off, m0, m1);
-        const F2 r = {rs[(size_t)k * bl + j], rs[(size_t)K * bl + (size_t)k * bl + j]};
-        fold_pair(v0, v1, a0, a1, m0, m1, r, acc, nv, na, nm);
-        const size_t dplane = (size_t)K * half;
-        const size_t d0 = (size_t)k * half + i;
-        dv[d0] = nv.re;
-        dv[dplane + d0] = nv.im;
-        da[d0] = na.re;
-        da[dplane + d0] = na.im;
-        dm[d0] = nm.re;
-        dm[dplane + d0] = nm.im;
-    }
-    block_reduce6<THREADS>(acc, sh);
-    if (threadIdx.x == 0) {
-        u64* out = partials + ((size_t)k * gridDim.x + blockIdx.x) * 6;
-#pragma unroll
-        for (int t = 0; t < 6; ++t) out[t] = acc[t];
-    }
-}
-
 // c ? a : b by masks, so that lanes of different roles never branch apart
 __device__ __forceinline__ F2 pick(bool c, F2 a, F2 b) {
     const u64 m = 0ull - (u64)c;
     return {(a.re & m) | (b.re & ~m), (a.im & m) | (b.im & ~m)};
 }
 
-// A small round (half <= SPLIT_PAIRS): pair i = tid / LANES, and each of its
-// LANES lanes computes one of the seven extension products, so a round
-// costs one product's latency instead of seven.  Role q: 0 pa = dm*dv,
-// 1 dm*v0 + da, 2 m0*dv (1 and 2 sum to pb), 3 pc = m0*v0 + a0, 4..6 the
-// bound v, a, m = x0 + dx*r; 7 idle.
-__device__ __forceinline__ void small_round(u64* tab, size_t n, size_t half, F2 r,
-                                            u64 (*sh2)[TAIL_THREADS / 32][2],
-                                            u64* __restrict__ out) {
+// A wide round (half > SPLIT_PAIRS) on the table tab (6 planes of stride n),
+// in place; returns the six sums in thread 0.
+__device__ __forceinline__ void wide_round(u64* tab, size_t n, size_t half, F2 r,
+                                           u64 acc[6], u64 (*sh)[WARPS]) {
+#pragma unroll
+    for (int t = 0; t < 6; ++t) acc[t] = 0ull;
+    for (size_t base = 0; base < half; base += THREADS) {
+        const size_t i = base + threadIdx.x;
+        F2 nv, na, nm;
+        if (i < half) {
+            F2 v0, v1, a0, a1, m0, m1;
+            load_pair(tab, n, 2 * i, v0, v1);
+            load_pair(tab + 2 * n, n, 2 * i, a0, a1);
+            load_pair(tab + 4 * n, n, 2 * i, m0, m1);
+            fold_pair(v0, v1, a0, a1, m0, m1, r, acc, nv, na, nm);
+        }
+        __syncthreads();  // this chunk's reads before its writes
+        if (i < half) {
+            tab[i] = nv.re;
+            tab[n + i] = nv.im;
+            tab[2 * n + i] = na.re;
+            tab[3 * n + i] = na.im;
+            tab[4 * n + i] = nm.re;
+            tab[5 * n + i] = nm.im;
+        }
+    }
+    block_reduce6(acc, sh);  // its barriers also publish the writes
+}
+
+// A small round (half <= SPLIT_PAIRS) from src (6 planes of stride sn) into
+// dst (6 planes of stride SPLIT_PAIRS): pair i = tid / LANES, and each of
+// its LANES lanes computes one of the seven extension products.  Role q:
+// 0 pa = dm*dv, 1 dm*v0 + da, 2 m0*dv (1 and 2 sum to pb), 3 pc = m0*v0 +
+// a0, 4..6 the bound v, a, m = x0 + dx*r; 7 idle.  Each warp leaves its
+// sums of roles 0..3 in sums[role][warp].
+__device__ __forceinline__ void small_round(const u64* src, size_t sn, u64* dst, size_t half,
+                                            F2 r, u64 (*sums)[WARPS][2]) {
     const int q = threadIdx.x % LANES;
     const size_t i = threadIdx.x / LANES;
     const bool on = i < half && q < 7;
     F2 res = {0ull, 0ull};
     if (on) {
         F2 v0, v1, a0, a1, m0, m1;
-        load_pair(tab, n, 2 * i, v0, v1);
-        load_pair(tab + 2 * n, n, 2 * i, a0, a1);
-        load_pair(tab + 4 * n, n, 2 * i, m0, m1);
+        load_pair(src, sn, 2 * i, v0, v1);
+        load_pair(src + 2 * sn, sn, 2 * i, a0, a1);
+        load_pair(src + 4 * sn, sn, 2 * i, m0, m1);
         const F2 dv = vpt::sub2(v1, v0);
         const F2 da = vpt::sub2(a1, a0);
         const F2 dm = vpt::sub2(m1, m0);
@@ -191,13 +189,12 @@ __device__ __forceinline__ void small_round(u64* tab, size_t n, size_t half, F2 
                                            pick(q == 4, v0, pick(q == 6, m0, zero))));
         res = vpt::add2(vpt::mul2(x, y), z);
     }
-    __syncthreads();  // every read of this round before the bound values land
     if (on && q >= 4) {
         const int t = 2 * (q - 4);
-        tab[t * n + i] = res.re;
-        tab[(t + 1) * n + i] = res.im;
+        dst[t * SPLIT_PAIRS + i] = res.re;
+        dst[(t + 1) * SPLIT_PAIRS + i] = res.im;
     }
-    // sum roles 0..3 over the pairs: within the warp (4 pairs), then across
+    // sum roles 0..3 over the warp's pairs
     u64 re = (on && q < 4) ? res.re : 0ull;
     u64 im = (on && q < 4) ? res.im : 0ull;
 #pragma unroll
@@ -206,163 +203,186 @@ __device__ __forceinline__ void small_round(u64* tab, size_t n, size_t half, F2 
         im = vpt::addp(im, __shfl_down_sync(0xffffffffu, im, off));
     }
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
     if (lane < 4) {
-        sh2[lane][warp][0] = re;
-        sh2[lane][warp][1] = im;
+        sums[lane][threadIdx.x >> 5][0] = re;
+        sums[lane][threadIdx.x >> 5][1] = im;
     }
-    __syncthreads();  // also publishes the bound values to the next round
-    if (warp == 0) {
-        const int warps = (int)((half * LANES + 31) / 32);
-        re = im = 0ull;
-        if (lane < 4) {
-            for (int w = 0; w < warps; ++w) {
-                re = vpt::addp(re, sh2[lane][w][0]);
-                im = vpt::addp(im, sh2[lane][w][1]);
-            }
-        }
-        const u64 re2 = __shfl_down_sync(0xffffffffu, re, 1);
-        const u64 im2 = __shfl_down_sync(0xffffffffu, im, 1);
-        // polys[j] row: coef a, b, c real, then imaginary
-        if (lane == 0 || lane == 1 || lane == 3) {
-            const int coef = lane == 3 ? 2 : lane;
-            out[coef] = lane == 1 ? vpt::addp(re, re2) : re;
-            out[3 + coef] = lane == 1 ? vpt::addp(im, im2) : im;
-        }
+    __syncthreads();  // dst complete before the next round reads it
+}
+
+// Warp w < rounds: the round sums of small round w from its per-warp sums,
+// written as row (first + w) of out (rows out_stride words apart).
+__device__ __forceinline__ void small_sums(u64 (*sums)[4][WARPS][2], int rounds,
+                                           int first, u64* out, size_t out_stride) {
+    const int w = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    if (w >= rounds) return;
+    const int role = lane & 3;
+    const int grp = lane >> 2;  // warps grp and grp + 8
+    u64 re = vpt::addp(sums[w][role][grp][0], sums[w][role][grp + 8][0]);
+    u64 im = vpt::addp(sums[w][role][grp][1], sums[w][role][grp + 8][1]);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+        re = vpt::addp(re, __shfl_xor_sync(0xffffffffu, re, off));
+        im = vpt::addp(im, __shfl_xor_sync(0xffffffffu, im, off));
+    }
+    const u64 re2 = __shfl_down_sync(0xffffffffu, re, 1);
+    const u64 im2 = __shfl_down_sync(0xffffffffu, im, 1);
+    // a row: coef a, b, c real, then imaginary; pb = role 1 + role 2
+    if (lane == 0 || lane == 1 || lane == 3) {
+        u64* row = out + (size_t)(first + w) * out_stride;
+        const int coef = lane == 3 ? 2 : lane;
+        row[coef] = lane == 1 ? vpt::addp(re, re2) : re;
+        row[3 + coef] = lane == 1 ? vpt::addp(im, im2) : im;
     }
 }
 
-// One block per table k.  Writes polys[j] of the j0 grid rounds from their
-// block partials (laid out round after round, (K, nb_j, 6) each), then runs
-// rounds j0..bl-1 on the (2, K, 2^(bl-j0)) tables sv/sa/sm in shared memory
-// and writes the bound values (3, 2, K).  Rounds of more than SPLIT_PAIRS
-// pairs give each thread whole pairs; smaller rounds go to small_round.
-__global__ void __launch_bounds__(TAIL_THREADS) fold_tail(
-        const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
-        const u64* __restrict__ rs, const u64* __restrict__ partials,
-        u64* __restrict__ polys, u64* __restrict__ bound, int K, int bl, int j0) {
-    extern __shared__ __align__(16) u64 tab[];  // planes v.re, v.im, a.re, a.im, m.re, m.im
-                                                 // of n words each
-    __shared__ u64 sh[6][TAIL_THREADS / 32];
-    __shared__ u64 sh2[4][TAIL_THREADS / 32][2];
-    __shared__ u64 sr[2][MAX_BL];  // this table's challenges
-    const int k = blockIdx.x;
-    if (threadIdx.x < bl) {
-        sr[0][threadIdx.x] = rs[(size_t)k * bl + threadIdx.x];
-        sr[1][threadIdx.x] = rs[(size_t)K * bl + (size_t)k * bl + threadIdx.x];
-    }
-
-    const u64* part = partials;
-    for (int j = 0; j < j0; ++j) {
-        const size_t half = (size_t)1 << (bl - j - 1);
-        const int nb = (int)((half + THREADS - 1) / THREADS);
-        u64 acc[6] = {0, 0, 0, 0, 0, 0};
-        for (int b = threadIdx.x; b < nb; b += TAIL_THREADS) {
-            const u64* p = part + ((size_t)k * nb + b) * 6;
+// All rounds j0 .. j0 + lg - 1 of the 2^lg-entry table in tab (6 planes,
+// stride 2^lg); round j's sums go to row j - j0 of out (rows out_stride
+// words apart).  Returns where the folded v.re lies; the other five words
+// follow at the returned stride.
+__device__ const u64* fold_block(u64* tab, int lg, int j0, Shared& s, u64* out,
+                                 size_t out_stride, size_t& fin_stride) {
+    const size_t n = (size_t)1 << lg;
+    size_t live = n;
+    int j = j0;
+    for (; j < j0 + lg && (live >> 1) > SPLIT_PAIRS; ++j) {
+        u64 acc[6];
+        wide_round(tab, n, live >> 1, {s.r[0][j], s.r[1][j]}, acc, s.sh);
+        if (threadIdx.x == 0) {
+            u64* row = out + (size_t)(j - j0) * out_stride;
 #pragma unroll
-            for (int t = 0; t < 6; ++t) acc[t] = vpt::addp(acc[t], p[t]);
+            for (int coef = 0; coef < 3; ++coef) {
+                row[coef] = acc[2 * coef];          // real plane
+                row[3 + coef] = acc[2 * coef + 1];  // imaginary plane
+            }
         }
-        block_reduce6<TAIL_THREADS>(acc, sh);
-        if (threadIdx.x == 0) write_poly(polys, K, k, j, acc);
-        part += (size_t)K * nb * 6;
+        live >>= 1;
     }
+    if (j == j0 + lg) {  // a table of one entry
+        fin_stride = n;
+        return tab;
+    }
+    const u64* src = tab;
+    size_t sn = n;
+    const int first = j;
+    for (int t = 0; j < j0 + lg; ++j, ++t) {
+        u64* dst = &s.small[t & 1][0][0];
+        small_round(src, sn, dst, live >> 1, {s.r[0][j], s.r[1][j]}, s.sums[t]);
+        src = dst;
+        sn = SPLIT_PAIRS;
+        live >>= 1;
+    }
+    small_sums(s.sums, j - first, first - j0, out, out_stride);
+    __syncthreads();
+    fin_stride = SPLIT_PAIRS;
+    return src;
+}
 
-    const size_t n = (size_t)1 << (bl - j0);
-    const size_t plane = (size_t)K * n;
+// grid: K * B blocks, B = 2^(bl - c).  work: partial rows (K, B, c, 6), then
+// chunk results (K, B, 6), then K tickets (zero on entry).
+__global__ void __launch_bounds__(THREADS) sumcheck_fold(
+        const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
+        const u64* __restrict__ rs, u64* __restrict__ polys, u64* __restrict__ bound,
+        u64* work, int K, int bl, int c) {
+    extern __shared__ __align__(16) u64 tab[];  // planes v.re, v.im, a.re, a.im, m.re, m.im
+    __shared__ Shared s;
+    const int B = 1 << (bl - c);
+    const int k = blockIdx.x >> (bl - c);
+    const int b = blockIdx.x & (B - 1);
+    if (threadIdx.x < bl) {
+        s.r[0][threadIdx.x] = rs[(size_t)k * bl + threadIdx.x];
+        s.r[1][threadIdx.x] = rs[(size_t)K * bl + (size_t)k * bl + threadIdx.x];
+    }
+    const size_t C = (size_t)1 << c;
+    const size_t plane = (size_t)K << bl;
+    const size_t g0 = ((size_t)k << bl) + (size_t)b * C;
 #pragma unroll 4
-    for (size_t i = threadIdx.x; i < n; i += TAIL_THREADS) {
-        const size_t g = (size_t)k * n + i;
-        tab[i] = sv[g];
-        tab[n + i] = sv[plane + g];
-        tab[2 * n + i] = sa[g];
-        tab[3 * n + i] = sa[plane + g];
-        tab[4 * n + i] = sm[g];
-        tab[5 * n + i] = sm[plane + g];
+    for (size_t i = threadIdx.x; i < C; i += THREADS) {
+        tab[i] = sv[g0 + i];
+        tab[C + i] = sv[plane + g0 + i];
+        tab[2 * C + i] = sa[g0 + i];
+        tab[3 * C + i] = sa[plane + g0 + i];
+        tab[4 * C + i] = sm[g0 + i];
+        tab[5 * C + i] = sm[plane + g0 + i];
     }
     __syncthreads();
 
-    size_t live = n;
-    for (int j = j0; j < bl; ++j) {
-        const size_t half = live >> 1;
-        const F2 r = {sr[0][j], sr[1][j]};
-        live = half;
-        if (half <= SPLIT_PAIRS) {
-            small_round(tab, n, half, r, sh2, polys + ((size_t)j * K + k) * 6);
-            continue;
-        }
-        u64 acc[6] = {0, 0, 0, 0, 0, 0};
-        for (size_t base = 0; base < half; base += TAIL_THREADS) {
-            const size_t i = base + threadIdx.x;
-            F2 nv, na, nm;
-            if (i < half) {
-                F2 v0, v1, a0, a1, m0, m1;
-                load_pair(tab, n, 2 * i, v0, v1);
-                load_pair(tab + 2 * n, n, 2 * i, a0, a1);
-                load_pair(tab + 4 * n, n, 2 * i, m0, m1);
-                fold_pair(v0, v1, a0, a1, m0, m1, r, acc, nv, na, nm);
-            }
-            __syncthreads();  // this chunk's reads before its writes
-            if (i < half) {
-                tab[i] = nv.re;
-                tab[n + i] = nv.im;
-                tab[2 * n + i] = na.re;
-                tab[3 * n + i] = na.im;
-                tab[4 * n + i] = nm.re;
-                tab[5 * n + i] = nm.im;
-            }
-        }
-        block_reduce6<TAIL_THREADS>(acc, sh);  // its barriers also publish the writes
-        if (threadIdx.x == 0) write_poly(polys, K, k, j, acc);
-    }
-    if (threadIdx.x == 0) {
+    u64* partials = work;
+    u64* chunks = partials + (size_t)K * B * c * 6;
+    unsigned long long* tickets =
+        reinterpret_cast<unsigned long long*>(chunks + (size_t)K * B * 6);
+    size_t fs;
+    const u64* fin;
+    if (B > 1) {
+        fin = fold_block(tab, c, 0, s, partials + ((size_t)k * B + b) * c * 6, 6, fs);
+        if (threadIdx.x < 6) chunks[((size_t)k * B + b) * 6 + threadIdx.x] = fin[threadIdx.x * fs];
+        __threadfence();  // the partial rows and the chunk result before the ticket
+        __syncthreads();
+        if (threadIdx.x == 0) s.last = atomicAdd(tickets + k, 1ull) == (unsigned long long)(B - 1);
+        __syncthreads();
+        if (!s.last) return;
+        __threadfence();
+        // rounds 0..c-1: warp j sums the B partial rows of round j
+        const int lane = threadIdx.x & 31;
+        for (int j = threadIdx.x >> 5; j < c; j += WARPS) {
+            u64 acc[6] = {0, 0, 0, 0, 0, 0};
+            for (int bb = lane; bb < B; bb += 32) {
+                const u64* p = partials + (((size_t)k * B + bb) * c + j) * 6;
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-            bound[(size_t)(2 * q) * K + k] = tab[(2 * q) * n];
-            bound[(size_t)(2 * q + 1) * K + k] = tab[(2 * q + 1) * n];
+                for (int t = 0; t < 6; ++t) acc[t] = vpt::addp(acc[t], __ldcg(p + t));
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+                for (int t = 0; t < 6; ++t)
+                    acc[t] = vpt::addp(acc[t], __shfl_down_sync(0xffffffffu, acc[t], off));
+            }
+            if (lane == 0) {
+                u64* row = polys + ((size_t)j * K + k) * 6;
+#pragma unroll
+                for (int t = 0; t < 6; ++t) row[t] = acc[t];
+            }
         }
+        // the B chunk results, as a table of their own
+        for (int i = threadIdx.x; i < B; i += THREADS) {
+#pragma unroll
+            for (int p = 0; p < 6; ++p)
+                tab[(size_t)p * B + i] = __ldcg(chunks + ((size_t)k * B + i) * 6 + p);
+        }
+        __syncthreads();
+        fin = fold_block(tab, bl - c, c, s, polys + ((size_t)c * K + k) * 6, (size_t)K * 6, fs);
+    } else {
+        fin = fold_block(tab, c, 0, s, polys + (size_t)k * 6, (size_t)K * 6, fs);
     }
+    if (threadIdx.x < 6) bound[(size_t)threadIdx.x * K + k] = fin[threadIdx.x * fs];
 }
 
 }  // namespace
 
 // v, a, m: (2, K, 2^bl); rs: (2, K, bl); polys: (bl, K, 2, 3);
-// bound: (3, 2, K) = bound v, a, m.  With G = max(0, bl - TAIL_LOG) grid
-// rounds: work0, work1 hold 3 * 2 * K * 2^(bl-1) words each and partials
-// K * 6 * sum_{j<G} ceil(2^(bl-1-j) / THREADS) words (both unused when
-// G = 0).  bl >= 1.  Makes G + 1 launches.
+// bound: (3, 2, K) = bound v, a, m.  c: log2 of the entries a block folds,
+// bl - MAX_LOG <= c <= min(bl, MAX_LOG); with B = 2^(bl - c) > 1, work
+// holds K * B * (c + 1) * 6 + K words (unused when B = 1).  1 <= bl <=
+// MAX_BL.  One launch.
 extern "C" int vpt_sumcheck_fold(const u64* v, const u64* a, const u64* m,
-                                 const u64* rs, u64* polys, u64* bound,
-                                 u64* work0, u64* work1, u64* partials,
-                                 int K, int bl, void* stream_ptr) {
-    if (bl < 1 || bl > MAX_BL) return (int)cudaErrorInvalidValue;
+                                 const u64* rs, u64* polys, u64* bound, u64* work,
+                                 int K, int bl, int c, void* stream_ptr) {
+    if (bl < 1 || bl > MAX_BL || c < 0 || c > bl || c > MAX_LOG || bl - c > MAX_LOG)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-    const int grid_rounds = bl > TAIL_LOG ? bl - TAIL_LOG : 0;
-    const u64 *sv = v, *sa = a, *sm = m;
-    u64* part = partials;
-    size_t n = (size_t)1 << bl;
-    for (int j = 0; j < grid_rounds; ++j) {
-        const size_t half = n >> 1;
-        u64* dst = (j & 1) ? work1 : work0;
-        u64* dv = dst;
-        u64* da = dst + 2 * (size_t)K * half;
-        u64* dm = dst + 4 * (size_t)K * half;
-        const int nb = (int)((half + THREADS - 1) / THREADS);
-        fold_round<<<dim3(nb, K), THREADS, 0, stream>>>(sv, sa, sm, dv, da, dm, rs, bl,
-                                                        j, part, K, n);
-        cudaError_t err = cudaGetLastError();
+    const int B = 1 << (bl - c);
+    if (B > 1) {
+        const size_t tickets = (size_t)K * B * (c + 1) * 6;
+        cudaError_t err = cudaMemsetAsync(work + tickets, 0, sizeof(u64) * K, stream);
         if (err != cudaSuccess) return (int)err;
-        part += (size_t)K * nb * 6;
-        sv = dv;
-        sa = da;
-        sm = dm;
-        n = half;
     }
-    const size_t smem = 6 * sizeof(u64) * n;
+    const int smem = (int)(6 * sizeof(u64)) << (c > bl - c ? c : bl - c);
     cudaError_t err = cudaFuncSetAttribute(
-        fold_tail, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(6 * sizeof(u64)) << TAIL_LOG);
+        sumcheck_fold, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(6 * sizeof(u64)) << MAX_LOG);
     if (err != cudaSuccess) return (int)err;
-    fold_tail<<<K, TAIL_THREADS, smem, stream>>>(sv, sa, sm, rs, partials, polys, bound,
-                                                  K, bl, grid_rounds);
+    sumcheck_fold<<<K * B, THREADS, smem, stream>>>(v, a, m, rs, polys, bound, work, K, bl,
+                                                    c);
     return (int)cudaGetLastError();
 }

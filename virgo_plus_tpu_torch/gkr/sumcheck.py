@@ -13,6 +13,7 @@ Gate scatters stay a sort permutation plus a field prefix sum: an integer
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -109,20 +110,26 @@ def concat_scatter_plans(plans, in_sizes):
 # K1: the batched sumcheck fold, kernel and plain twin
 # ---------------------------------------------------------------------------
 
-FOLD_THREADS = 256   # threads per grid-round block of csrc/sumcheck_fold.cu
-FOLD_TAIL_LOG = 12   # largest table (log2) K1 folds in one block (TAIL_LOG)
+FOLD_MAX_LOG = 12       # largest table (log2) one block of K1 holds (MAX_LOG)
+FOLD_MIN_CHUNK_LOG = 7  # K1 splits no table into chunks smaller than this
 
 
-def fold_grid_rounds(bl: int) -> int:
-    """Rounds K1 runs grid-wide, one launch each, before its tables fit in
-    one block's shared memory."""
-    return max(0, bl - FOLD_TAIL_LOG)
+def fold_chunk_log(bl: int, k: int, sms: int) -> int:
+    """log2 of the entries one block of K1 folds on 2^bl-entry tables, K of
+    them, on a card of `sms` SMs: the smallest chunk, down to
+    2^FOLD_MIN_CHUNK_LOG entries, that keeps the grid (K * 2^(bl - c)
+    blocks, one a SM) within one wave, and at most 2^FOLD_MAX_LOG entries
+    of the chunk or of the chunk results' own table."""
+    c = min(bl, FOLD_MIN_CHUNK_LOG)
+    while c < min(bl, FOLD_MAX_LOG) and k << (bl - c) > sms:
+        c += 1
+    return max(c, bl - FOLD_MAX_LOG)
 
 
 def fold_launches(bl: int) -> int:
-    """Device launches of one K1 call on 2^bl-entry tables: the grid-wide
-    rounds plus one launch of the shared-memory tail; none for bl = 0."""
-    return 0 if bl == 0 else fold_grid_rounds(bl) + 1
+    """Device launches of one K1 call on 2^bl-entry tables: one, whatever
+    bl; none for bl = 0."""
+    return 1 if bl else 0
 
 
 def fold_plain(v, a, m, rs):
@@ -154,27 +161,33 @@ def fold_plain(v, a, m, rs):
 
 
 def fold_cuda(v, a, m, rs):
-    """K1 on the card: same signature and bits as fold_plain."""
+    """K1 on the card, one launch: same signature and bits as fold_plain."""
     bl = rs.shape[2]
     k = v.shape[1]
     n = 1 << bl
     kernels.check_cuda("sumcheck_fold", (v, a, m, rs),
                        [(2, k, n)] * 3 + [(2, k, bl)])
+    if bl > 2 * FOLD_MAX_LOG:
+        raise ValueError(f"sumcheck_fold: tables of 2^{bl} entries exceed "
+                         f"2^{2 * FOLD_MAX_LOG}")
     dev = v.device
+    c = fold_chunk_log(bl, k, _sm_count(dev))
+    chunks = 1 << (bl - c)
     polys = torch.empty((bl, k, 2, 3), dtype=torch.int64, device=dev)
     bound = torch.empty((3, 2, k), dtype=torch.int64, device=dev)
-    grid = fold_grid_rounds(bl)
-    work = torch.empty((2, 3 * k * n if grid else 1), dtype=torch.int64,
-                       device=dev)
-    n_partials = sum(-(-(n >> (j + 1)) // FOLD_THREADS) for j in range(grid))
-    partials = torch.empty((max(1, 6 * k * n_partials),), dtype=torch.int64,
-                           device=dev)
+    # partial rows (K, B, c, 6), chunk results (K, B, 6), K tickets
+    work = torch.empty((k * chunks * (c + 1) * 6 + k if chunks > 1 else 1,),
+                       dtype=torch.int64, device=dev)
     kernels.launch("sumcheck_fold", fold_launches(bl),
-                   v.data_ptr(), a.data_ptr(), m.data_ptr(),
-                   rs.data_ptr(), polys.data_ptr(), bound.data_ptr(),
-                   work[0].data_ptr(), work[1].data_ptr(),
-                   partials.data_ptr(), k, bl, kernels.stream_ptr())
+                   v.data_ptr(), a.data_ptr(), m.data_ptr(), rs.data_ptr(),
+                   polys.data_ptr(), bound.data_ptr(), work.data_ptr(), k, bl,
+                   c, kernels.stream_ptr())
     return polys, (bound[0], bound[1], bound[2])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def scan_sumcheck_batched(v, a, m, rs):
