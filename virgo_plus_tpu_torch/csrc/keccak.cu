@@ -19,8 +19,8 @@
 // about 4320 32-bit logic and shift operations, so operations bound it, not
 // memory.  At the main path's widths (about 6000 leaves) one thread per
 // hash fills less than half a warp per scheduler, so a single chain or tree
-// level is bound by the latency of one Keccak-f, and a launch per step made
-// the launches the cost.  Three entries share keccak_f:
+// level is bound by the latency of one Keccak-f, and a launch per step or
+// level would cost more than the step.  Three entries share keccak_f:
 // - sha3_256_x64: N independent messages, one launch (the TPU kernel's
 //   direct counterpart);
 // - sha3_chain_x64: all S steps of every leaf chain in one launch, one

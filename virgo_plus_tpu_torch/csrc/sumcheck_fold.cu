@@ -20,8 +20,7 @@
 // integer-multiply rate, and bytes bound it at every main-path shape.  At
 // those shapes (2^7 to 2^13 entries, K up to 63) a call is a few
 // microseconds of work spread over bl dependent rounds, so what it costs is
-// launches (one per round in the first port: 2.6 us each) and then the
-// latency of each round.
+// launches (a few microseconds each) and then the latency of each round.
 //
 // Design: one launch per call, whatever bl.
 // - Natural pairs never cross a chunk of 2^c entries, and the challenges
