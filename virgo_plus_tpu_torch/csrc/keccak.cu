@@ -12,8 +12,9 @@
 //
 // What is dropped from the TPU design: the (lo, hi) u32 pairs of every
 // 64-bit lane, which exist because Mosaic has no 64-bit integers.  Here one
-// thread hashes one message; its 25-word state stays in registers as
-// uint64_t, and every rotate has a compile-time amount.
+// thread hashes one message (two share one in the chain, below); its 25-word
+// state stays in registers as uint64_t, and every rotate has a compile-time
+// amount.
 //
 // What bounds it on the H100: 96 bytes of memory traffic per hash against
 // about 4320 32-bit logic and shift operations, so operations bound it, not
@@ -23,11 +24,14 @@
 // level would cost more than the step.  Three entries share keccak_f:
 // - sha3_256_x64: N independent messages, one launch (the TPU kernel's
 //   direct counterpart);
-// - sha3_chain_x64: all S steps of every leaf chain in one launch, one
-//   thread per leaf, the chain state in registers between steps
-//   (state <- H(xs[s] || state) from zero); the next step's words are loaded
-//   before the current permutation runs;
-// - merkle_forest: every level of every tree of a forest in one launch.  A
+// - sha3_chain_x64: all S steps of every leaf chain in one launch, the
+//   chain state in registers between steps (state <- H(xs[s] || state) from
+//   zero); the next step's words are loaded before the current permutation
+//   runs.  A chain is a run of dependent permutations on too few warps to
+//   fill the card, so each leaf takes two lanes (keccak_f_pair below), which
+//   halves the instructions on its critical path;
+// - merkle_forest: every level of every tree of a forest in one launch, a
+//   lane pair a node (keccak_f_pair), for the same reason.  A
 //   block builds a subtree of up to 2^sub_log leaves level by level,
 //   straight in the tree's heap, with a barrier between levels; the last
 //   block of a tree to finish its subtree (a device-scope fence, then an
@@ -123,6 +127,122 @@ __device__ __forceinline__ void sha3_64(u64 s[25]) {
     keccak_f(s);
 }
 
+// ---- the bit-interleaved permutation on two lanes --------------------------
+//
+// Lane pair (lane, lane ^ 1) holds one state: role 0 the even bits of every
+// 64-bit word, role 1 the odd bits, each as a 32-bit word.  XOR, AND and NOT
+// act on each half alone; a rotation by an even amount 2k is a 32-bit
+// rotation by k of each half; one by an odd amount 2k + 1 swaps the halves:
+// the even half becomes the partner's odd half rotated by k + 1, the odd
+// half the partner's even half rotated by k.  So each lane runs half of the
+// logic, plus one shuffle per odd rotation (5 in theta, 12 in rho).
+
+typedef unsigned int u32;
+
+// RC split into even and odd bits
+__constant__ u32 RC_EVEN[24] = {
+    0x00000001u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000001u, 0x00000001u,
+    0x00000001u, 0x00000001u, 0x00000000u, 0x00000000u, 0x00000001u, 0x00000000u,
+    0x00000001u, 0x00000001u, 0x00000001u, 0x00000001u, 0x00000000u, 0x00000000u,
+    0x00000000u, 0x00000000u, 0x00000001u, 0x00000000u, 0x00000001u, 0x00000000u,
+};
+__constant__ u32 RC_ODD[24] = {
+    0x00000000u, 0x00000089u, 0x8000008Bu, 0x80008080u, 0x0000008Bu, 0x00008000u,
+    0x80008088u, 0x80000082u, 0x0000000Bu, 0x0000000Au, 0x00008082u, 0x00008003u,
+    0x0000808Bu, 0x8000000Bu, 0x8000008Au, 0x80000081u, 0x80000081u, 0x80000008u,
+    0x00000083u, 0x80008003u, 0x80008088u, 0x80000088u, 0x00008000u, 0x80008082u,
+};
+
+// rotation of a 64-bit word by R, on this lane's half; odd_extra = 1 - role
+template <int R>
+__device__ __forceinline__ u32 rot_half(u32 x, int odd_extra) {
+    if constexpr (R % 2 == 0) {
+        return __funnelshift_l(x, x, R / 2);
+    } else {
+        const u32 p = __shfl_xor_sync(0xffffffffu, x, 1);
+        return __funnelshift_l(p, p, (R - 1) / 2 + odd_extra);
+    }
+}
+
+__device__ __forceinline__ void keccak_f_pair(u32 s[25], int role) {
+    const int e = 1 - role;
+#pragma unroll 4
+    for (int round = 0; round < 24; ++round) {
+        u32 c[5], d[5];
+#pragma unroll
+        for (int x = 0; x < 5; ++x) c[x] = s[x] ^ s[x + 5] ^ s[x + 10] ^ s[x + 15] ^ s[x + 20];
+#pragma unroll
+        for (int x = 0; x < 5; ++x) d[x] = c[(x + 4) % 5] ^ rot_half<1>(c[(x + 1) % 5], e);
+#pragma unroll
+        for (int i = 0; i < 25; ++i) s[i] ^= d[i % 5];
+        u32 b[25];
+        b[0] = s[0];
+        b[1] = rot_half<44>(s[6], e);
+        b[2] = rot_half<43>(s[12], e);
+        b[3] = rot_half<21>(s[18], e);
+        b[4] = rot_half<14>(s[24], e);
+        b[5] = rot_half<28>(s[3], e);
+        b[6] = rot_half<20>(s[9], e);
+        b[7] = rot_half<3>(s[10], e);
+        b[8] = rot_half<45>(s[16], e);
+        b[9] = rot_half<61>(s[22], e);
+        b[10] = rot_half<1>(s[1], e);
+        b[11] = rot_half<6>(s[7], e);
+        b[12] = rot_half<25>(s[13], e);
+        b[13] = rot_half<8>(s[19], e);
+        b[14] = rot_half<18>(s[20], e);
+        b[15] = rot_half<27>(s[4], e);
+        b[16] = rot_half<36>(s[5], e);
+        b[17] = rot_half<10>(s[11], e);
+        b[18] = rot_half<15>(s[17], e);
+        b[19] = rot_half<56>(s[23], e);
+        b[20] = rot_half<62>(s[2], e);
+        b[21] = rot_half<55>(s[8], e);
+        b[22] = rot_half<39>(s[14], e);
+        b[23] = rot_half<41>(s[15], e);
+        b[24] = rot_half<2>(s[21], e);
+#pragma unroll
+        for (int y = 0; y < 25; y += 5) {
+#pragma unroll
+            for (int x = 0; x < 5; ++x)
+                s[y + x] = b[y + x] ^ (~b[y + (x + 1) % 5] & b[y + (x + 2) % 5]);
+        }
+        s[0] ^= role ? RC_ODD[round] : RC_EVEN[round];
+    }
+}
+
+// even bits of x to the low 16, odd bits to the high 16 (and back)
+__device__ __forceinline__ u32 unshuffle32(u32 x) {
+    u32 t;
+    t = (x ^ (x >> 1)) & 0x22222222u; x ^= t ^ (t << 1);
+    t = (x ^ (x >> 2)) & 0x0C0C0C0Cu; x ^= t ^ (t << 2);
+    t = (x ^ (x >> 4)) & 0x00F000F0u; x ^= t ^ (t << 4);
+    t = (x ^ (x >> 8)) & 0x0000FF00u; x ^= t ^ (t << 8);
+    return x;
+}
+
+__device__ __forceinline__ u32 shuffle32(u32 x) {
+    u32 t;
+    t = (x ^ (x >> 8)) & 0x0000FF00u; x ^= t ^ (t << 8);
+    t = (x ^ (x >> 4)) & 0x00F000F0u; x ^= t ^ (t << 4);
+    t = (x ^ (x >> 2)) & 0x0C0C0C0Cu; x ^= t ^ (t << 2);
+    t = (x ^ (x >> 1)) & 0x22222222u; x ^= t ^ (t << 1);
+    return x;
+}
+
+// this lane's half (role 0: even bits, role 1: odd bits) of a 64-bit word
+__device__ __forceinline__ u32 half_of(u64 w, int role) {
+    const u32 lo = unshuffle32((u32)w);
+    const u32 hi = unshuffle32((u32)(w >> 32));
+    return role ? (lo >> 16) | (hi & 0xFFFF0000u) : (lo & 0xFFFFu) | (hi << 16);
+}
+
+__device__ __forceinline__ u64 join_halves(u32 even, u32 odd) {
+    const u32 lo = shuffle32((even & 0xFFFFu) | (odd << 16));
+    const u32 hi = shuffle32((even >> 16) | (odd & 0xFFFF0000u));
+    return (u64)lo | ((u64)hi << 32);
+}
+
 // in: (8, n) message words; out: (4, n) digest words
 __global__ void sha3_256_x64(const u64* __restrict__ in, u64* __restrict__ out, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -135,53 +255,86 @@ __global__ void sha3_256_x64(const u64* __restrict__ in, u64* __restrict__ out, 
     for (int w = 0; w < 4; ++w) out[(size_t)w * n + i] = s[w];
 }
 
-// xs: (steps, 4, n) slice words; out: (4, n) final chain states
+// xs: (steps, 4, n) slice words; out: (4, n) final chain states.  Two lanes
+// a leaf (keccak_f_pair); lanes past the last leaf shadow it, since every
+// lane of a warp takes part in the shuffles.
 __global__ void sha3_chain_x64(const u64* __restrict__ xs, u64* __restrict__ out,
                                int steps, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const int role = t & 1;
+    const int leaf = t >> 1;
+    const int i = leaf < n ? leaf : n - 1;
     const size_t step = 4 * (size_t)n;
-    u64 st[4] = {0ull, 0ull, 0ull, 0ull};
-    u64 nxt[4];
+    u32 st[4] = {0u, 0u, 0u, 0u};
+    u32 nxt[4];
 #pragma unroll
-    for (int w = 0; w < 4; ++w) nxt[w] = steps > 0 ? xs[(size_t)w * n + i] : 0ull;
+    for (int w = 0; w < 4; ++w) nxt[w] = steps > 0 ? half_of(xs[(size_t)w * n + i], role) : 0u;
 #pragma unroll 1
-    for (int t = 0; t < steps; ++t) {
-        u64 s[25];
+    for (int k = 0; k < steps; ++k) {
+        u32 s[25];
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
             s[w] = nxt[w];
             s[4 + w] = st[w];
         }
-        if (t + 1 < steps) {
-            const u64* src = xs + (size_t)(t + 1) * step + i;
+        s[8] = role ? 0x1u : 0x2u;  // 0x06 at byte 64
 #pragma unroll
-            for (int w = 0; w < 4; ++w) nxt[w] = src[(size_t)w * n];
+        for (int w = 9; w < 25; ++w) s[w] = 0u;
+        s[16] = role ? 0x80000000u : 0u;  // 0x80 at byte 135
+        if (k + 1 < steps) {
+            const u64* src = xs + (size_t)(k + 1) * step + i;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) nxt[w] = half_of(src[(size_t)w * n], role);
         }
-        sha3_64(s);
+        keccak_f_pair(s, role);
 #pragma unroll
         for (int w = 0; w < 4; ++w) st[w] = s[w];
     }
+    // role 0 writes digest words 0 and 1, role 1 words 2 and 3
 #pragma unroll
-    for (int w = 0; w < 4; ++w) out[(size_t)w * n + i] = st[w];
+    for (int w = 0; w < 4; ++w) {
+        const u32 p = __shfl_xor_sync(0xffffffffu, st[w], 1);
+        if (leaf < n && w / 2 == role)
+            out[(size_t)w * n + leaf] = role ? join_halves(p, st[w]) : join_halves(st[w], p);
+    }
 }
 
 constexpr int FOREST_THREADS = 128;
 constexpr int TREE_FIELDS = 5;  // per tree: leaf offset, log2 leaves, heap address,
                                 // first block, ticket (zero on entry)
 
-// heap (4, stride) word-major: node p = H(node 2p || node 2p+1).  Reads go
-// through L2 (ld.global.cg): the children may come from another block.
-__device__ __forceinline__ void hash_node(u64* heap, size_t stride, size_t p) {
-    u64 s[25];
+// heap (4, stride) word-major: node p = H(node 2p || node 2p+1), on this
+// lane and its partner (keccak_f_pair); only `write` pairs store it.  Reads
+// go through L2 (ld.global.cg): the children may come from another block.
+__device__ __forceinline__ void hash_node(u64* heap, size_t stride, size_t p, int role,
+                                          bool write) {
+    u32 s[25];
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-        s[w] = __ldcg(heap + (size_t)w * stride + 2 * p);
-        s[4 + w] = __ldcg(heap + (size_t)w * stride + 2 * p + 1);
+        s[w] = half_of(__ldcg(heap + (size_t)w * stride + 2 * p), role);
+        s[4 + w] = half_of(__ldcg(heap + (size_t)w * stride + 2 * p + 1), role);
     }
-    sha3_64(s);
+    s[8] = role ? 0x1u : 0x2u;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) heap[(size_t)w * stride + p] = s[w];
+    for (int w = 9; w < 25; ++w) s[w] = 0u;
+    s[16] = role ? 0x80000000u : 0u;
+    keccak_f_pair(s, role);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        const u32 q = __shfl_xor_sync(0xffffffffu, s[w], 1);
+        if (write && w / 2 == role)
+            heap[(size_t)w * stride + p] = role ? join_halves(q, s[w]) : join_halves(s[w], q);
+    }
+}
+
+// Nodes [first, first + cnt) of one level, a lane pair each; pairs past the
+// end repeat the last node without storing it, since every lane takes part
+// in the shuffles.
+__device__ __forceinline__ void hash_level(u64* heap, size_t stride, size_t first, size_t cnt) {
+    for (size_t base = 0; base < cnt; base += FOREST_THREADS / 2) {
+        const size_t i = base + (threadIdx.x >> 1);
+        hash_node(heap, stride, first + (i < cnt ? i : cnt - 1), threadIdx.x & 1, i < cnt);
+    }
 }
 
 // leaves: (4, total) leaf digests of all trees side by side; trees:
@@ -212,9 +365,7 @@ __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
     __syncthreads();
     for (int h = 1; h <= slg; ++h) {
         const size_t cnt = S >> h;
-        const size_t first = (n >> h) + sb * cnt;
-        for (size_t i = threadIdx.x; i < cnt; i += FOREST_THREADS)
-            hash_node(heap, stride, first + i);
+        hash_level(heap, stride, (n >> h) + sb * cnt, cnt);
         __syncthreads();
     }
     if (nsub == 1) return;
@@ -227,8 +378,7 @@ __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
     __threadfence();
     for (int h = slg + 1; h <= lg; ++h) {
         const size_t cnt = n >> h;  // nodes of this level, heap [cnt, 2 cnt)
-        for (size_t i = threadIdx.x; i < cnt; i += FOREST_THREADS)
-            hash_node(heap, stride, cnt + i);
+        hash_level(heap, stride, cnt, cnt);
         __syncthreads();
     }
 }
@@ -243,14 +393,14 @@ extern "C" int vpt_sha3_256_x64(const u64* in, u64* out, int n, void* stream_ptr
     return (int)cudaGetLastError();
 }
 
-// One launch; 64 threads a block, so that the few warps of a main-path call
-// spread over the SMs.
+// One launch of 2n threads; 64 a block, so that the few warps of a
+// main-path call spread over the SMs.
 extern "C" int vpt_sha3_chain_x64(const u64* xs, u64* out, int steps, int n,
                                   void* stream_ptr) {
     if (n <= 0) return 0;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
     constexpr int T = 64;
-    sha3_chain_x64<<<(n + T - 1) / T, T, 0, stream>>>(xs, out, steps, n);
+    sha3_chain_x64<<<(int)((2 * (long long)n + T - 1) / T), T, 0, stream>>>(xs, out, steps, n);
     return (int)cudaGetLastError();
 }
 

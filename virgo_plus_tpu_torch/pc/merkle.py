@@ -16,7 +16,9 @@ import torch
 from .. import kernels
 from .keccak import on_cuda, sha3_256_x64_plain
 
-FOREST_SUB_LOG = 8   # a block of the forest kernel builds 2^8-leaf subtrees
+# a block of the forest kernel builds 2^7-leaf subtrees: its 64 lane pairs
+# hash a subtree's first level in one pass
+FOREST_SUB_LOG = 7
 
 
 def _heap(levels):
