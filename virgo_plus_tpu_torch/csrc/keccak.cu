@@ -11,27 +11,25 @@
 // run one Keccak-f[1600], squeeze 4 words.
 //
 // What is dropped from the TPU design: the (lo, hi) u32 pairs of every
-// 64-bit lane, which exist because Mosaic has no 64-bit integers.  Here one
-// thread hashes one message (two share one in the chain, below); its 25-word
-// state stays in registers as uint64_t, and every rotate has a compile-time
-// amount.
+// 64-bit lane, which exist because Mosaic has no 64-bit integers.  Here a
+// state stays in registers, split over a lane pair in bit-interleaved form
+// (keccak_f_pair below), and every rotate has a compile-time amount.
 //
 // What bounds it on the H100: 96 bytes of memory traffic per hash against
 // about 4320 32-bit logic and shift operations, so operations bound it, not
 // memory.  At the main path's widths (about 6000 leaves) one thread per
-// hash fills less than half a warp per scheduler, so a single chain or tree
+// hash fills less than half a warp per scheduler, so a chain or a tree
 // level is bound by the latency of one Keccak-f, and a launch per step or
-// level would cost more than the step.  Three entries share keccak_f:
+// level would cost more than the step.  So a lane pair runs each
+// permutation, which halves the instructions on its critical path, and
+// three entries share it:
 // - sha3_256_x64: N independent messages, one launch (the TPU kernel's
 //   direct counterpart);
 // - sha3_chain_x64: all S steps of every leaf chain in one launch, the
 //   chain state in registers between steps (state <- H(xs[s] || state) from
 //   zero); the next step's words are loaded before the current permutation
-//   runs.  A chain is a run of dependent permutations on too few warps to
-//   fill the card, so each leaf takes two lanes (keccak_f_pair below), which
-//   halves the instructions on its critical path;
-// - merkle_forest: every level of every tree of a forest in one launch, a
-//   lane pair a node (keccak_f_pair), for the same reason.  A
+//   runs;
+// - merkle_forest: every level of every tree of a forest in one launch.  A
 //   block builds a subtree of up to 2^sub_log leaves level by level,
 //   straight in the tree's heap, with a barrier between levels; the last
 //   block of a tree to finish its subtree (a device-scope fence, then an
@@ -44,88 +42,6 @@
 typedef unsigned long long u64;
 
 namespace {
-
-__constant__ u64 RC[24] = {
-    0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
-    0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
-    0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,
-    0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
-    0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull,
-    0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
-    0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
-    0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull,
-};
-
-template <int R>
-__device__ __forceinline__ u64 rotl(u64 x) {
-    if constexpr (R == 0) {
-        return x;
-    } else {
-        return (x << R) | (x >> (64 - R));
-    }
-}
-
-// state index x + 5*y, as in the SHA3 lane order.  Four rounds unrolled:
-// the 24-round body (about 70 KB of code) missed the instruction cache on
-// every permutation.
-__device__ __forceinline__ void keccak_f(u64 s[25]) {
-#pragma unroll 4
-    for (int round = 0; round < 24; ++round) {
-        // theta
-        u64 c[5], d[5];
-#pragma unroll
-        for (int x = 0; x < 5; ++x) c[x] = s[x] ^ s[x + 5] ^ s[x + 10] ^ s[x + 15] ^ s[x + 20];
-#pragma unroll
-        for (int x = 0; x < 5; ++x) d[x] = c[(x + 4) % 5] ^ rotl<1>(c[(x + 1) % 5]);
-#pragma unroll
-        for (int i = 0; i < 25; ++i) s[i] ^= d[i % 5];
-        // rho + pi: b[y + 5*((2x+3y)%5)] = rotl(s[x+5y], r[x][y])
-        u64 b[25];
-        b[0] = rotl<0>(s[0]);
-        b[1] = rotl<44>(s[6]);
-        b[2] = rotl<43>(s[12]);
-        b[3] = rotl<21>(s[18]);
-        b[4] = rotl<14>(s[24]);
-        b[5] = rotl<28>(s[3]);
-        b[6] = rotl<20>(s[9]);
-        b[7] = rotl<3>(s[10]);
-        b[8] = rotl<45>(s[16]);
-        b[9] = rotl<61>(s[22]);
-        b[10] = rotl<1>(s[1]);
-        b[11] = rotl<6>(s[7]);
-        b[12] = rotl<25>(s[13]);
-        b[13] = rotl<8>(s[19]);
-        b[14] = rotl<18>(s[20]);
-        b[15] = rotl<27>(s[4]);
-        b[16] = rotl<36>(s[5]);
-        b[17] = rotl<10>(s[11]);
-        b[18] = rotl<15>(s[17]);
-        b[19] = rotl<56>(s[23]);
-        b[20] = rotl<62>(s[2]);
-        b[21] = rotl<55>(s[8]);
-        b[22] = rotl<39>(s[14]);
-        b[23] = rotl<41>(s[15]);
-        b[24] = rotl<2>(s[21]);
-        // chi
-#pragma unroll
-        for (int y = 0; y < 25; y += 5) {
-#pragma unroll
-            for (int x = 0; x < 5; ++x)
-                s[y + x] = b[y + x] ^ (~b[y + (x + 1) % 5] & b[y + (x + 2) % 5]);
-        }
-        // iota
-        s[0] ^= RC[round];
-    }
-}
-
-// s[0..7] hold the message; pads and permutes, the digest is s[0..3]
-__device__ __forceinline__ void sha3_64(u64 s[25]) {
-    s[8] = 0x06ull;
-#pragma unroll
-    for (int w = 9; w < 25; ++w) s[w] = 0ull;
-    s[16] = 0x8000000000000000ull;
-    keccak_f(s);
-}
 
 // ---- the bit-interleaved permutation on two lanes --------------------------
 //
@@ -243,60 +159,71 @@ __device__ __forceinline__ u64 join_halves(u32 even, u32 odd) {
     return (u64)lo | ((u64)hi << 32);
 }
 
-// in: (8, n) message words; out: (4, n) digest words
+// s[0..7] hold this lane's halves of the 8 message words: pad and permute;
+// the digest is s[0..3]
+__device__ __forceinline__ void sha3_64_pair(u32 s[25], int role) {
+    s[8] = role ? 0x1u : 0x2u;  // 0x06 at byte 64
+#pragma unroll
+    for (int w = 9; w < 25; ++w) s[w] = 0u;
+    s[16] = role ? 0x80000000u : 0u;  // 0x80 at byte 135
+    keccak_f_pair(s, role);
+}
+
+// The digest in s[0..3] to out[w * stride + idx], if `write`: role 0 writes
+// words 0 and 1, role 1 words 2 and 3.  Every lane must take part.
+__device__ __forceinline__ void store_digest(const u32 s[25], int role, u64* out,
+                                             size_t stride, size_t idx, bool write) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        const u32 p = __shfl_xor_sync(0xffffffffu, s[w], 1);
+        if (write && w / 2 == role)
+            out[w * stride + idx] = role ? join_halves(p, s[w]) : join_halves(s[w], p);
+    }
+}
+
+// in: (8, n) message words; out: (4, n) digest words.  Two lanes a message;
+// lanes past the last message shadow it, since every lane of a warp takes
+// part in the shuffles.
 __global__ void sha3_256_x64(const u64* __restrict__ in, u64* __restrict__ out, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    u64 s[25];
+    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int role = t & 1;
+    const size_t msg = t >> 1;
+    const size_t i = msg < (size_t)n ? msg : n - 1;
+    u32 s[25];
 #pragma unroll
-    for (int w = 0; w < 8; ++w) s[w] = in[(size_t)w * n + i];
-    sha3_64(s);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) out[(size_t)w * n + i] = s[w];
+    for (int w = 0; w < 8; ++w) s[w] = half_of(in[w * (size_t)n + i], role);
+    sha3_64_pair(s, role);
+    store_digest(s, role, out, n, msg, msg < (size_t)n);
 }
 
 // xs: (steps, 4, n) slice words; out: (4, n) final chain states.  Two lanes
-// a leaf (keccak_f_pair); lanes past the last leaf shadow it, since every
-// lane of a warp takes part in the shuffles.
+// a leaf, shadowing as in sha3_256_x64.
 __global__ void sha3_chain_x64(const u64* __restrict__ xs, u64* __restrict__ out,
                                int steps, int n) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     const int role = t & 1;
-    const int leaf = t >> 1;
-    const int i = leaf < n ? leaf : n - 1;
+    const size_t leaf = t >> 1;
+    const size_t i = leaf < (size_t)n ? leaf : n - 1;
     const size_t step = 4 * (size_t)n;
-    u32 st[4] = {0u, 0u, 0u, 0u};
+    u32 s[25] = {};
     u32 nxt[4];
 #pragma unroll
-    for (int w = 0; w < 4; ++w) nxt[w] = steps > 0 ? half_of(xs[(size_t)w * n + i], role) : 0u;
+    for (int w = 0; w < 4; ++w) nxt[w] = steps > 0 ? half_of(xs[w * (size_t)n + i], role) : 0u;
 #pragma unroll 1
     for (int k = 0; k < steps; ++k) {
-        u32 s[25];
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
+            s[4 + w] = s[w];  // the chain state after the slice words
             s[w] = nxt[w];
-            s[4 + w] = st[w];
         }
-        s[8] = role ? 0x1u : 0x2u;  // 0x06 at byte 64
-#pragma unroll
-        for (int w = 9; w < 25; ++w) s[w] = 0u;
-        s[16] = role ? 0x80000000u : 0u;  // 0x80 at byte 135
         if (k + 1 < steps) {
             const u64* src = xs + (size_t)(k + 1) * step + i;
 #pragma unroll
-            for (int w = 0; w < 4; ++w) nxt[w] = half_of(src[(size_t)w * n], role);
+            for (int w = 0; w < 4; ++w) nxt[w] = half_of(src[w * (size_t)n], role);
         }
-        keccak_f_pair(s, role);
-#pragma unroll
-        for (int w = 0; w < 4; ++w) st[w] = s[w];
+        sha3_64_pair(s, role);
     }
-    // role 0 writes digest words 0 and 1, role 1 words 2 and 3
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-        const u32 p = __shfl_xor_sync(0xffffffffu, st[w], 1);
-        if (leaf < n && w / 2 == role)
-            out[(size_t)w * n + leaf] = role ? join_halves(p, st[w]) : join_halves(st[w], p);
-    }
+    store_digest(s, role, out, n, leaf, leaf < (size_t)n);
 }
 
 constexpr int FOREST_THREADS = 128;
@@ -304,27 +231,18 @@ constexpr int TREE_FIELDS = 5;  // per tree: leaf offset, log2 leaves, heap addr
                                 // first block, ticket (zero on entry)
 
 // heap (4, stride) word-major: node p = H(node 2p || node 2p+1), on this
-// lane and its partner (keccak_f_pair); only `write` pairs store it.  Reads
-// go through L2 (ld.global.cg): the children may come from another block.
+// lane and its partner; only `write` pairs store it.  Reads go through L2
+// (ld.global.cg): the children may come from another block.
 __device__ __forceinline__ void hash_node(u64* heap, size_t stride, size_t p, int role,
                                           bool write) {
     u32 s[25];
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
-        s[w] = half_of(__ldcg(heap + (size_t)w * stride + 2 * p), role);
-        s[4 + w] = half_of(__ldcg(heap + (size_t)w * stride + 2 * p + 1), role);
+        s[w] = half_of(__ldcg(heap + w * stride + 2 * p), role);
+        s[4 + w] = half_of(__ldcg(heap + w * stride + 2 * p + 1), role);
     }
-    s[8] = role ? 0x1u : 0x2u;
-#pragma unroll
-    for (int w = 9; w < 25; ++w) s[w] = 0u;
-    s[16] = role ? 0x80000000u : 0u;
-    keccak_f_pair(s, role);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-        const u32 q = __shfl_xor_sync(0xffffffffu, s[w], 1);
-        if (write && w / 2 == role)
-            heap[(size_t)w * stride + p] = role ? join_halves(q, s[w]) : join_halves(s[w], q);
-    }
+    sha3_64_pair(s, role);
+    store_digest(s, role, heap, stride, p, write);
 }
 
 // Nodes [first, first + cnt) of one level, a lane pair each; pairs past the
@@ -385,11 +303,12 @@ __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
 
 }  // namespace
 
+// One launch of 2n threads.
 extern "C" int vpt_sha3_256_x64(const u64* in, u64* out, int n, void* stream_ptr) {
     if (n <= 0) return 0;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
     constexpr int T = 128;
-    sha3_256_x64<<<(n + T - 1) / T, T, 0, stream>>>(in, out, n);
+    sha3_256_x64<<<(int)((2 * (long long)n + T - 1) / T), T, 0, stream>>>(in, out, n);
     return (int)cudaGetLastError();
 }
 
