@@ -207,7 +207,7 @@ def is_device_row(e):
 def profiled_ms(torch, fn, reps, names, tries=3):
     """Device time (ms) and device launches per call of the kernels whose
     names contain one of `names`, from torch.profiler over `reps` calls
-    after one warm-up call.  A session that recorded none of them (it
+    after one warm-up call.  A profile that recorded none of them (it
     happens now and then) is repeated; (None, 0) after `tries` of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
