@@ -80,9 +80,6 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20}
-# the forest's subtree sizes (log2 leaves a block) compared on the main
-# path's forests; 11 is one block per tree of up to 2048 leaves
-FOREST_SUB_LOGS = (5, 6, 7, 8, 11)
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
 CHAIN_STEPS = 65
@@ -147,7 +144,9 @@ def proof_arrays(proof_io, np, full):
 
 
 def event_ms(torch, fn, reps):
-    """Device time of one call, from CUDA events around `reps` calls."""
+    """Time of one call between CUDA events around `reps` calls back to
+    back: the plain twins' time, whose many small kernels wait on the
+    host's issue rate; never a kernel's device time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -204,11 +203,12 @@ def is_device_row(e):
     return "CUDA" in str(getattr(e, "device_type", "")) and device_us(e) > 0
 
 
-def profiled_ms(torch, fn, reps, names, tries=3):
-    """Device time (ms) and device launches per call of the kernels whose
-    names contain one of `names`, from torch.profiler over `reps` calls
-    after one warm-up call.  A profile that recorded none of them (it
-    happens now and then) is repeated; (None, 0) after `tries` of them."""
+def profiled_ms(torch, fn, reps, names, launches, tries=5):
+    """Device time (ms) per call of the kernels whose names contain one of
+    `names`, from torch.profiler over `reps` calls of fn after one warm-up
+    call, each making `launches` device launches.  A profile that missed
+    any of those launches (the profiler drops one now and then) is
+    repeated; None after `tries` of them, and the caller fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -223,9 +223,9 @@ def profiled_ms(torch, fn, reps, names, tries=3):
             if is_device_row(e) and any(n in e.key for n in names):
                 us += device_us(e)
                 count += e.count
-        if count:
-            return us / 1e3 / reps, count / reps
-    return None, 0
+        if count == reps * launches:
+            return us / 1e3 / reps
+    return None
 
 
 def flatten(x):
@@ -412,17 +412,10 @@ def main():
         leaves = gf.tensor(rng.integers(0, 2 ** 64, size=(4, sum(sizes)),
                                         dtype=np.uint64), dev)
         held("merkle_forest", (leaves, sizes), f"trees {sizes}")
-        twin_heaps = merkle.forest_plain(leaves, sizes)
-        for sub_log in (0, 2) + FOREST_SUB_LOGS:
-            got = merkle.forest_cuda(leaves, sizes, sub_log=sub_log)
-            if max_abs_err(torch, got, twin_heaps) != 0.0:
-                fail(f"merkle_forest differs from its plain twin at trees "
-                     f"{sizes}, sub_log {sub_log}")
     say(f"phase 3 ok: sha3_256_x64 == plain twin == hashlib.sha3_256, N in "
         f"(1, 1000, 4096, 6128, 65536); sha3_chain_x64 == plain twin, "
         f"{CHAIN_STEPS} steps x leaves {chain_widths}; merkle_forest == plain "
-        f"twin in one launch, trees {forests}, also with subtree blocks of "
-        f"2^s leaves, s in {(0, 2) + FOREST_SUB_LOGS}")
+        f"twin in one launch, trees {forests}")
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     c = driver.load_circuit(str(FIXTURE))
@@ -579,14 +572,13 @@ def main():
                  or {(6128,)})      # sha3_256_x64 is off the main path
         for shp in sorted(found):
             ins = example[(entry, shp)]
-            ms, nl = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
-                                 PROFILE_REPS[entry], names)
-            if ms is None:          # the profiler saw nothing: events instead
-                say(f"phase 5 kernel {entry} at {list(shp)}: no profiled "
-                    f"launch; timed with CUDA events (host issue rate bound)")
-                ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
-                              PROFILE_REPS[entry])
-                nl = expected_launches(entry, ins)
+            nl = expected_launches(entry, ins)
+            ms = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
+                             PROFILE_REPS[entry], names, nl)
+            if ms is None:
+                fail(f"the profiler missed launches of {entry} at "
+                     f"{list(shp)} in every try: its device time is not "
+                     f"measured")
             nbytes, ops = cost(entry, shp)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_ops = ops / int32_rate * 1e3
@@ -614,15 +606,6 @@ def main():
             f"{rows[entry]['timed_bound']:.5f}), one driver prove "
             f"{rows[entry]['driver_ms']:.4f} ms; top shape {list(top)}: plain "
             f"twin {plain_ms:.3f} ms")
-    for sizes in (MAIN_FOREST, [2048]):
-        leaves = example[("merkle_forest", tuple(sizes))][0]
-        alt = {sub_log: profiled_ms(
-            torch, lambda: merkle.forest_cuda(leaves, sizes, sub_log),
-            PROFILE_REPS["merkle_forest"], KERNEL_NAMES["merkle_forest"])[0]
-            for sub_log in FOREST_SUB_LOGS}
-        say(f"phase 5 forest design, trees {sizes} (device ms per call by "
-            f"log2 leaves a block; {merkle.FOREST_SUB_LOG} is the default): "
-            f"{alt}")
     example.clear()
 
     # ---- phase 6: where the time goes ------------------------------------

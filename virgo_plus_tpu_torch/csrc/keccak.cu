@@ -30,7 +30,8 @@
 //   zero); the next step's words are loaded before the current permutation
 //   runs;
 // - merkle_forest: every level of every tree of a forest in one launch.  A
-//   block builds a subtree of up to 2^sub_log leaves level by level,
+//   block builds a subtree of up to 2^sub_log leaves (pc/merkle.py's
+//   FOREST_SUB_LOG) level by level,
 //   straight in the tree's heap, with a barrier between levels; the last
 //   block of a tree to finish its subtree (a device-scope fence, then an
 //   atomic ticket) builds the levels above the subtree roots.  Small

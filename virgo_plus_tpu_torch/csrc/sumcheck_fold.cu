@@ -29,9 +29,11 @@
 //   folds chunk b of table k in dynamic shared memory (six u64 planes,
 //   v/a/m x re/im: 3 * 2^c * 16 B, 196,608 B at c = 12), writes its round
 //   sums as partial rows and its folded (v, a, m) to device memory, then
-//   takes a ticket (device-scope fence, atomicAdd).  The last block of a
+//   takes a ticket (device-scope fence, atomicInc).  The last block of a
 //   table sums the B partial rows of each of the c rounds, loads the B
 //   chunk results as a table of its own and folds the last bl - c rounds.
+//   atomicInc wraps the last block's ticket back to 0, so the tickets,
+//   zeroed once when the wrapper allocates them, need no reset per call.
 //   The wrapper picks c (sumcheck.fold_chunk_log) so that the grid spreads
 //   over the SMs; with B = 1 the one block writes polys and bound itself.
 // - In a block, each pair is bound in place, with a barrier between a
@@ -279,11 +281,11 @@ __device__ const u64* fold_block(u64* tab, int lg, int j0, Shared& s, u64* out,
 }
 
 // grid: K * B blocks, B = 2^(bl - c).  work: partial rows (K, B, c, 6), then
-// chunk results (K, B, 6), then K tickets (zero on entry).
+// chunk results (K, B, 6); tickets: K words, zero on entry and on exit.
 __global__ void __launch_bounds__(THREADS) sumcheck_fold(
         const u64* __restrict__ sv, const u64* __restrict__ sa, const u64* __restrict__ sm,
         const u64* __restrict__ rs, u64* __restrict__ polys, u64* __restrict__ bound,
-        u64* work, int K, int bl, int c) {
+        u64* work, unsigned int* tickets, int K, int bl, int c) {
     extern __shared__ __align__(16) u64 tab[];  // planes v.re, v.im, a.re, a.im, m.re, m.im
     __shared__ Shared s;
     const int B = 1 << (bl - c);
@@ -307,18 +309,17 @@ __global__ void __launch_bounds__(THREADS) sumcheck_fold(
     }
     __syncthreads();
 
-    u64* partials = work;
-    u64* chunks = partials + (size_t)K * B * c * 6;
-    unsigned long long* tickets =
-        reinterpret_cast<unsigned long long*>(chunks + (size_t)K * B * 6);
     size_t fs;
     const u64* fin;
     if (B > 1) {
+        u64* partials = work;
+        u64* chunks = partials + (size_t)K * B * c * 6;
         fin = fold_block(tab, c, 0, s, partials + ((size_t)k * B + b) * c * 6, 6, fs);
         if (threadIdx.x < 6) chunks[((size_t)k * B + b) * 6 + threadIdx.x] = fin[threadIdx.x * fs];
         __threadfence();  // the partial rows and the chunk result before the ticket
         __syncthreads();
-        if (threadIdx.x == 0) s.last = atomicAdd(tickets + k, 1ull) == (unsigned long long)(B - 1);
+        // tickets 0 .. B-1; the last one wraps the word back to 0
+        if (threadIdx.x == 0) s.last = atomicInc(tickets + k, (unsigned)(B - 1)) == (unsigned)(B - 1);
         __syncthreads();
         if (!s.last) return;
         __threadfence();
@@ -362,26 +363,31 @@ __global__ void __launch_bounds__(THREADS) sumcheck_fold(
 // v, a, m: (2, K, 2^bl); rs: (2, K, bl); polys: (bl, K, 2, 3);
 // bound: (3, 2, K) = bound v, a, m.  c: log2 of the entries a block folds,
 // bl - MAX_LOG <= c <= min(bl, MAX_LOG); with B = 2^(bl - c) > 1, work
-// holds K * B * (c + 1) * 6 + K words (unused when B = 1).  1 <= bl <=
-// MAX_BL.  One launch.
+// holds K * B * (c + 1) * 6 words and tickets K words that are zero (both
+// unused when B = 1), and no other call may use those tickets meanwhile.
+// 1 <= bl <= MAX_BL.  One launch.
 extern "C" int vpt_sumcheck_fold(const u64* v, const u64* a, const u64* m,
                                  const u64* rs, u64* polys, u64* bound, u64* work,
-                                 int K, int bl, int c, void* stream_ptr) {
+                                 unsigned int* tickets, int K, int bl, int c,
+                                 void* stream_ptr) {
     if (bl < 1 || bl > MAX_BL || c < 0 || c > bl || c > MAX_LOG || bl - c > MAX_LOG)
         return (int)cudaErrorInvalidValue;
+    // the dynamic shared memory of the largest table, allowed once a device
+    constexpr int MAX_DEVICES = 64;
+    static bool smem_allowed[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES || !smem_allowed[dev]) {
+        err = cudaFuncSetAttribute(sumcheck_fold, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)(6 * sizeof(u64)) << MAX_LOG);
+        if (err != cudaSuccess) return (int)err;
+        if (dev < MAX_DEVICES) smem_allowed[dev] = true;
+    }
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
     const int B = 1 << (bl - c);
-    if (B > 1) {
-        const size_t tickets = (size_t)K * B * (c + 1) * 6;
-        cudaError_t err = cudaMemsetAsync(work + tickets, 0, sizeof(u64) * K, stream);
-        if (err != cudaSuccess) return (int)err;
-    }
     const int smem = (int)(6 * sizeof(u64)) << (c > bl - c ? c : bl - c);
-    cudaError_t err = cudaFuncSetAttribute(
-        sumcheck_fold, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(6 * sizeof(u64)) << MAX_LOG);
-    if (err != cudaSuccess) return (int)err;
-    sumcheck_fold<<<K * B, THREADS, smem, stream>>>(v, a, m, rs, polys, bound, work, K, bl,
-                                                    c);
+    sumcheck_fold<<<K * B, THREADS, smem, stream>>>(v, a, m, rs, polys, bound, work, tickets,
+                                                    K, bl, c);
     return (int)cudaGetLastError();
 }

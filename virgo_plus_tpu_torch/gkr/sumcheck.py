@@ -175,19 +175,38 @@ def fold_cuda(v, a, m, rs):
     chunks = 1 << (bl - c)
     polys = torch.empty((bl, k, 2, 3), dtype=torch.int64, device=dev)
     bound = torch.empty((3, 2, k), dtype=torch.int64, device=dev)
-    # partial rows (K, B, c, 6), chunk results (K, B, 6), K tickets
-    work = torch.empty((k * chunks * (c + 1) * 6 + k if chunks > 1 else 1,),
-                       dtype=torch.int64, device=dev)
+    work = work_ptr = tickets = None
+    if chunks > 1:
+        # partial rows (K, B, c, 6), then chunk results (K, B, 6)
+        work = torch.empty((k * chunks * (c + 1) * 6,), dtype=torch.int64,
+                           device=dev)
+        work_ptr = work.data_ptr()
+        tickets = _tickets(dev, k)
     kernels.launch("sumcheck_fold", fold_launches(bl),
                    v.data_ptr(), a.data_ptr(), m.data_ptr(), rs.data_ptr(),
-                   polys.data_ptr(), bound.data_ptr(), work.data_ptr(), k, bl,
-                   c, kernels.stream_ptr())
+                   polys.data_ptr(), bound.data_ptr(), work_ptr, tickets, k,
+                   bl, c, kernels.stream_ptr())
     return polys, (bound[0], bound[1], bound[2])
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_TICKETS = {}   # (device, stream) -> K1's ticket words
+
+
+def _tickets(dev, k: int) -> int:
+    """Address of K1's `k` ticket words on the current stream: zeroed once
+    here, and left zero by every call, since the last block of each table
+    wraps its ticket back to 0."""
+    key = (dev, kernels.stream_ptr())
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < k:
+        t = torch.zeros((max(k, 64),), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t.data_ptr()
 
 
 def scan_sumcheck_batched(v, a, m, rs):

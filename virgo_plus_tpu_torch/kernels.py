@@ -33,7 +33,7 @@ BUILD = ROOT.parent / "build" / "torch_kernels"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SOURCES = {
     "sumcheck_fold": {
-        "sumcheck_fold": ("vpt_sumcheck_fold", [_P] * 7 + [_I, _I, _I, _P]),
+        "sumcheck_fold": ("vpt_sumcheck_fold", [_P] * 8 + [_I, _I, _I, _P]),
     },
     "keccak": {
         "sha3_256_x64": ("vpt_sha3_256_x64", [_P, _P, _I, _P]),

@@ -58,10 +58,10 @@ def forest_plain(leaves, sizes):
     return [_heap(lv) for lv in levels]
 
 
-def forest_cuda(leaves, sizes, sub_log=FOREST_SUB_LOG):
+def forest_cuda(leaves, sizes):
     """The forest kernel on the card, one launch: same arguments and bits
-    as forest_plain.  A block builds a subtree of up to 2^sub_log leaves;
-    the last block of a tree to finish builds the levels above."""
+    as forest_plain.  A block builds a subtree of up to 2^FOREST_SUB_LOG
+    leaves; the last block of a tree to finish builds the levels above."""
     total = leaves.shape[1]
     kernels.check_cuda("merkle_forest", (leaves,), [(4, total)])
     if sum(sizes) != total or any(n < 1 or n & (n - 1) for n in sizes):
@@ -76,12 +76,12 @@ def forest_cuda(leaves, sizes, sub_log=FOREST_SUB_LOG):
         # leaf offset, log2 leaves, heap address, first block, ticket
         rows.append([off, lg, heap.data_ptr(), blocks, 0])
         off += n
-        blocks += n >> min(lg, sub_log)
+        blocks += n >> min(lg, FOREST_SUB_LOG)
     if blocks:
         trees = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
         kernels.launch("merkle_forest", 1, leaves.data_ptr(), total,
-                       trees.data_ptr(), len(sizes), blocks, sub_log,
+                       trees.data_ptr(), len(sizes), blocks, FOREST_SUB_LOG,
                        kernels.stream_ptr())
     return heaps
 
@@ -98,13 +98,6 @@ def create_tree(leaves):
     """leaves: (4, N) digests, N a power of two -> (4, 2N) heap tree;
     root = tree[:, 1], tree[:, 0] = 0."""
     return forest(leaves, [leaves.shape[1]])[0]
-
-
-def create_trees_batched(leaves_list):
-    """Build many trees together as one forest.  Bit-identical to
-    create_tree per tree."""
-    return forest(torch.cat(list(leaves_list), dim=1),
-                  [lv.shape[1] for lv in leaves_list])
 
 
 def root_of(tree):
