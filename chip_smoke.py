@@ -26,17 +26,29 @@ package.  Phases, one line each, any failure exits non-zero:
    + the fft_gkr tape) is recorded and held the same way, and must launch
    K1 and K2's chain and forest kernels (these once each) with no plain
    twin call.  Wall times of the timed prove, verify and driver prove,
-   every run listed; each kernel's device time per call at every shape the
-   main path gave it, from the profiler, beside its bound and its plain
-   twin;
-6. where the time goes: synchronised prove spans, verify spans, and a
-   profile of one timed prove.
+   every run listed;
+6. where the time goes: synchronised prove spans, verify spans, and (at
+   the end) a profile of one timed prove;
+7. Fiat-Shamir: on ``randomize(3, 7, seed=9)`` and small1200 the card's
+   ``driver.prove_fs`` equals the CPU's in every proof array and the card's
+   ``verify_fs`` accepts it.  Full width: ``prove_fs`` and ``verify_fs``
+   with the counts reset just before and read just after, every kernel
+   call recorded and held against its plain twin; the FS prove must launch
+   all four entries (the sponge's SHA3 at N = 1) with no plain twin call;
+   proofs with one p1_polys coefficient or one all_sum entry changed are
+   rejected; wall times of 3 ``prove_fs`` and 3 ``verify_fs`` runs, their
+   spans, and (at the end) a profile of one ``prove_fs``.
 
-The last lines are the card line, one JSON object with every kernel
-entry's numbers, and ``{"ok": true, "device": {...}}``.
+Then each kernel entry's device time per call at every shape the glibc and
+FS paths gave it, from the profiler, beside its bound and its plain twin,
+and last the two whole-prove profiles: a large trace makes every later
+short profile miss launches.  The last lines are the card line, one JSON
+object with every kernel entry's numbers (``launches``: both paths' runs
+together), and ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import dataclasses
 import hashlib
 import io
 import json
@@ -69,7 +81,8 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "sha3_256_x64": ("sha3_256_x64",),
                 "sha3_chain_x64": ("sha3_chain_x64",),
                 "merkle_forest": ("merkle_forest",)}
-# the entries every prove must launch (sha3_256_x64 is off the main path)
+# the entries every glibc prove must launch (sha3_256_x64 is the FS
+# sponge's: every FS prove launches all four)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest")
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
@@ -86,6 +99,7 @@ CHAIN_STEPS = 65
 
 TIMED_RUNS = 10              # wall-clock runs of the timed prove
 VERIFY_RUNS = 5              # ... of driver.verify and driver.prove
+FS_RUNS = 3                  # ... of driver.prove_fs and driver.verify_fs
 
 
 def fail(msg):
@@ -390,7 +404,6 @@ def main():
         f"{[sumcheck.fold_launches(b) for b in k1_sizes]}")
 
     # ---- phase 3: K2's entries against their plain twins ------------------
-    sha3_example = None
     for n in (1, 1000, 4096, 6128, 65536):
         w = rng.integers(0, 2 ** 64, size=(8, n), dtype=np.uint64)
         wt = gf.tensor(w, dev)
@@ -400,8 +413,6 @@ def main():
         for i in range(n):
             if hashlib.sha3_256(wc[i].tobytes()).digest() != oc[i].tobytes():
                 fail(f"K2 differs from hashlib.sha3_256 at N={n}, message {i}")
-        if n == 6128:
-            sha3_example = (wt,)
     chain_widths = (1, 1000, 2048, 6128)
     for n in chain_widths:
         xs = gf.tensor(rng.integers(0, 2 ** 64, size=(CHAIN_STEPS, 4, n),
@@ -456,7 +467,7 @@ def main():
         f"{len(got)} arrays; verify accepts")
 
     # ---- phase 5: full width ----------------------------------------------
-    example = {("sha3_256_x64", (6128,)): sha3_example}
+    example = {}     # (entry, shape) -> the inputs of one recorded call
 
     def check_path(what, launches, plain):
         missing = [e for e in PATH_ENTRIES if launches[e] == 0]
@@ -466,21 +477,37 @@ def main():
 
     def check_calls(calls, what):
         """Hold every recorded call against its twin on the same inputs
-        and its launches against the rule; count calls per shape."""
+        and its launches against the rule; count calls per shape.  The
+        SHA3 twin hashes each message column on its own, so the recorded
+        sha3_256_x64 calls (thousands of one-message sponge calls in an FS
+        prove) are held together: one twin call on all their messages side
+        by side."""
         shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+        sponge = []
         for entry, ins, outs, launched in calls:
             shp = shape_of(entry, ins)
-            e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
-            if e != 0.0:
-                fail(f"{entry} differs from its plain twin on the {what}'s "
-                     f"call at shape {shp}")
             if launched != expected_launches(entry, ins):
                 fail(f"{entry} made {launched} launches on the {what}'s call "
                      f"at shape {shp}, expected "
                      f"{expected_launches(entry, ins)}")
-            err[entry] = max(err[entry], e)
             shapes[entry][shp] += 1
             example.setdefault((entry, shp), ins)
+            if entry == "sha3_256_x64":
+                sponge.append((ins[0], outs[0]))
+                continue
+            e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
+            if e != 0.0:
+                fail(f"{entry} differs from its plain twin on the {what}'s "
+                     f"call at shape {shp}")
+            err[entry] = max(err[entry], e)
+        if sponge:
+            msgs = torch.cat([m for m, _ in sponge], dim=1)
+            e = max_abs_err(torch, (torch.cat([d for _, d in sponge], dim=1),),
+                            (twin["sha3_256_x64"](msgs),))
+            if e != 0.0:
+                fail(f"sha3_256_x64 differs from its plain twin on one of the "
+                     f"{what}'s {len(sponge)} calls")
+            err["sha3_256_x64"] = max(err["sha3_256_x64"], e)
         calls.clear()
         return shapes
 
@@ -564,49 +591,6 @@ def main():
     say(f"phase 5 timing ({card}): timed prove {spread(t_e2e)}; "
         f"driver.verify {spread(t_verify)}; driver.prove {spread(t_driver)}")
 
-    # each kernel entry at every shape the main path gave it, profiled
-    rows = {}
-    for entry, names in KERNEL_NAMES.items():
-        per = {}
-        found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
-                 or {(6128,)})      # sha3_256_x64 is off the main path
-        for shp in sorted(found):
-            ins = example[(entry, shp)]
-            nl = expected_launches(entry, ins)
-            ms = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
-                             PROFILE_REPS[entry], names, nl)
-            if ms is None:
-                fail(f"the profiler missed launches of {entry} at "
-                     f"{list(shp)} in every try: its device time is not "
-                     f"measured")
-            nbytes, ops = cost(entry, shp)
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = ops / int32_rate * 1e3
-            per[shp] = dict(driver=driver_shapes[entry][shp],
-                            timed=timed_shapes[entry][shp], ms=ms,
-                            launches=nl, bound=max(t_bytes, t_ops),
-                            by="bytes" if t_bytes >= t_ops else "operations")
-        # the shape that takes the most kernel time in one timed prove
-        top = max(per, key=lambda s: (per[s]["timed"] * per[s]["ms"],
-                                      per[s]["driver"] * per[s]["ms"]))
-        plain_ms = event_ms(torch, lambda: twin[entry](*example[(entry, top)]),
-                            3)
-        rows[entry] = dict(
-            per=per, top=top, plain_ms=plain_ms,
-            timed_ms=sum(r["timed"] * r["ms"] for r in per.values()),
-            timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
-            driver_ms=sum(r["driver"] * r["ms"] for r in per.values()))
-        say(f"phase 5 kernel {entry} (profiled device time; calls in the "
-            f"driver prove / timed prove, ms per call, launches per call, "
-            f"bound ms): " + "; ".join(
-                f"{list(s)}: {r['driver']}/{r['timed']}, {r['ms']:.5f}, "
-                f"{r['launches']:g}, {r['bound']:.5f} {r['by']}"
-                for s, r in per.items())
-            + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
-            f"{rows[entry]['timed_bound']:.5f}), one driver prove "
-            f"{rows[entry]['driver_ms']:.4f} ms; top shape {list(top)}: plain "
-            f"twin {plain_ms:.3f} ms")
-    example.clear()
 
     # ---- phase 6: where the time goes ------------------------------------
     from virgo_plus_tpu_torch.utils.metrics import PhaseTimer
@@ -625,6 +609,140 @@ def main():
         f"{cp.verifier.last_split[0] * 1e3:.3f}, predicate sweeps "
         f"{cp.verifier.last_split[1] * 1e3:.3f}")
 
+    # ---- phase 7: Fiat-Shamir ---------------------------------------------
+    small = randomize(3, 7, seed=9)
+    subset_init(small)
+    for label, cs in (("randomize(3, 7, seed=9)", small),
+                      ("small1200", driver.load_circuit(str(FIXTURE)))):
+        card_fs, _ = driver.prove_fs(cs, device=dev)
+        cpu_fs, _ = driver.prove_fs(cs, device="cpu")
+        got = proof_arrays(proof_io, np, card_fs)
+        want = proof_arrays(proof_io, np, cpu_fs)
+        differ = sorted(k for k in set(got) | set(want)
+                        if k not in got or k not in want
+                        or got[k].dtype != want[k].dtype
+                        or not np.array_equal(got[k], want[k]))
+        if differ:
+            fail(f"{label}: the card's FS proof differs from the CPU's in "
+                 f"{differ}")
+        if not driver.verify_fs(cs, card_fs, device=dev).ok:
+            fail(f"{label}: the card's FS proof is rejected")
+        say(f"phase 7 ok: {label} card FS proof == CPU FS proof in all "
+            f"{len(got)} arrays; verify_fs accepts")
+
+    with Recorder(kernels, wrappers) as rec:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        full_fs, _ = driver.prove_fs(c, cp)
+        torch.cuda.synchronize()
+        t_fs_first = time.perf_counter() - t0
+        fs_launches = dict(kernels.LAUNCHES)
+        fs_plain = dict(kernels.PLAIN_CALLS)
+        rep_fs = driver.verify_fs(c, full_fs, cp)
+        fs_path_launches = dict(kernels.LAUNCHES)
+        fs_path_plain = dict(kernels.PLAIN_CALLS)
+    if not rep_fs.ok:
+        fail(f"the full-width FS proof is rejected: {rep_fs}")
+    missing = [e for e in KERNEL_NAMES if fs_launches[e] == 0]
+    if missing or any(fs_path_plain.values()):
+        fail(f"the FS prove did not run through every kernel: launches "
+             f"{fs_launches}, plain twin calls {fs_path_plain}")
+    say(f"phase 7 FS path ok: randomize(14, 13) prove_fs and verify_fs "
+        f"(first prove {t_fs_first:.3f} s); prove_fs device launches "
+        f"{fs_launches}, plain twin calls {fs_plain}; with verify_fs "
+        f"{fs_path_launches}, plain {fs_path_plain}")
+    fs_shapes = check_calls(rec.calls, "FS prove")
+    say(f"phase 7 recorded calls ok: every kernel call of prove_fs and "
+        f"verify_fs == its plain twin on the same inputs, launches as the "
+        f"rule says; calls per shape: {listing(fs_shapes)}")
+
+    def bumped(a, idx):
+        a = a.copy()
+        a[idx] = np.uint64((int(a[idx]) + 1) % M)
+        return a
+
+    layers = list(full_fs.layers)
+    layers[-1] = dict(layers[-1],
+                      p1_polys=bumped(layers[-1]["p1_polys"], (0, 0, 1)))
+    for what, bad in (
+            ("p1_polys coefficient", dataclasses.replace(full_fs,
+                                                         layers=layers)),
+            ("all_sum entry", dataclasses.replace(
+                full_fs, all_sum=bumped(full_fs.all_sum, (0, 0))))):
+        if driver.verify_fs(c, bad, cp).ok:
+            fail(f"an FS proof with one {what} changed was accepted")
+    say("phase 7 tamper ok: FS proofs with one p1_polys coefficient or one "
+        "all_sum entry changed are rejected")
+
+    fs_prove_spans, fs_verify_spans = [], []
+    t_fs_prove = wall_ms(torch, lambda: fs_prove_spans.append(
+        driver.prove_fs(c, cp)[1]["phases"]), FS_RUNS)
+    t_fs_verify = wall_ms(torch, lambda: fs_verify_spans.append(
+        driver.verify_fs(c, full_fs, cp).details["phases"]), FS_RUNS)
+    say(f"phase 7 timing ({card}): prove_fs {spread(t_fs_prove)}; verify_fs "
+        f"{spread(t_fs_verify)}")
+    for what, spans in (("prove_fs", fs_prove_spans),
+                        ("verify_fs", fs_verify_spans)):
+        mean = {k: round(sum(sp[k] for sp in spans[1:]) / FS_RUNS * 1e3, 3)
+                for k in spans[-1]}
+        say(f"phase 7 {what} spans (ms, mean of the {FS_RUNS} timed runs"
+            f"{', synchronised' if what == 'prove_fs' else ''}): {mean}")
+
+    # ---- each kernel entry at every shape the paths gave it, profiled -----
+    rows = {}
+    for entry, names in KERNEL_NAMES.items():
+        per = {}
+        found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
+                 | set(fs_shapes[entry]))
+        for shp in sorted(found):
+            ins = example[(entry, shp)]
+            nl = expected_launches(entry, ins)
+            ms = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
+                             PROFILE_REPS[entry], names, nl)
+            if ms is None:
+                fail(f"the profiler missed launches of {entry} at "
+                     f"{list(shp)} in every try: its device time is not "
+                     f"measured")
+            nbytes, ops = cost(entry, shp)
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = ops / int32_rate * 1e3
+            per[shp] = dict(driver=driver_shapes[entry][shp],
+                            timed=timed_shapes[entry][shp],
+                            fs=fs_shapes[entry][shp], ms=ms,
+                            launches=nl, bound=max(t_bytes, t_ops),
+                            by="bytes" if t_bytes >= t_ops else "operations")
+        # the shape that takes the most kernel time in one timed prove (in
+        # one FS prove for the sponge's SHA3)
+        top = max(per, key=lambda s: (per[s]["timed"] * per[s]["ms"],
+                                      per[s]["driver"] * per[s]["ms"],
+                                      per[s]["fs"] * per[s]["ms"]))
+        plain_ms = event_ms(torch, lambda: twin[entry](*example[(entry, top)]),
+                            3)
+        rows[entry] = dict(
+            per=per, top=top, plain_ms=plain_ms,
+            **{f"{k}_ms": sum(r[k] * r["ms"] for r in per.values())
+               for k in ("timed", "driver", "fs")},
+            timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
+            fs_bound=sum(r["fs"] * r["bound"] for r in per.values()))
+        say(f"kernel {entry} (profiled device time; calls in the driver "
+            f"prove / timed prove / FS prove, ms per call, launches per call, "
+            f"bound ms): " + "; ".join(
+                f"{list(s)}: {r['driver']}/{r['timed']}/{r['fs']}, "
+                f"{r['ms']:.5f}, {r['launches']:g}, {r['bound']:.7f} {r['by']}"
+                for s, r in per.items())
+            + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
+            f"{rows[entry]['timed_bound']:.5f}), one driver prove "
+            f"{rows[entry]['driver_ms']:.4f} ms, one FS prove "
+            f"{rows[entry]['fs_ms']:.4f} ms (bound "
+            f"{rows[entry]['fs_bound']:.5f}); top shape {list(top)}: plain "
+            f"twin {plain_ms:.3f} ms")
+    example.clear()
+
+    # ---- whole-prove profiles, after every per-shape profile: a large
+    # trace makes later short profiles miss launches (9 of 20 K1 launches
+    # after a 120k-launch trace: scripts/torch_profiler_probe.py), so they
+    # come last, and the second checks its count of the port's kernels
+    # against the launch counters
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -657,12 +775,46 @@ def main():
         say("phase 6 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
+    # device activity only: an FS prove also makes ~0.9M CPU-side op
+    # events, and a trace of 400k launches took the profiler over 100 s
+    # (scripts/torch_profiler_probe.py)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        driver.prove_fs(c, cp)
+        torch.cuda.synchronize()
+    fs_rows = [(device_us(e), e.count, e.key)
+               for e in prof.key_averages() if is_device_row(e)]
+    fs_busy = sum(r[0] for r in fs_rows) / 1e3
+    fs_idle = None
+    fs_profiled = {e: [0.0, 0] for e in KERNEL_NAMES}
+    if fs_busy > 0:
+        med = statistics.median(t_fs_prove)
+        fs_idle = 1 - fs_busy / med
+        for entry, names in KERNEL_NAMES.items():
+            for us, cnt, key in fs_rows:
+                if any(n in key for n in names):
+                    fs_profiled[entry][0] += us / 1e3
+                    fs_profiled[entry][1] += cnt
+        held = all(fs_profiled[e][1] == fs_launches[e] for e in KERNEL_NAMES)
+        say(f"phase 7 profile of one prove_fs: "
+            f"{sum(r[1] for r in fs_rows)} kernel launches, device busy "
+            f"{fs_busy:.3f} ms; idle share {fs_idle:.4f} of the median wall "
+            f"{med:.1f} ms; the port's kernels (device ms, launches): "
+            f"{fs_profiled}, " + ("every launch of the counters held" if held
+                                  else "launches missing against the "
+                                  "counters: device busy is a lower bound"))
+        for us, cnt, key in sorted(fs_rows, reverse=True)[:8]:
+            say(f"phase 7   {us / 1e3:9.3f} ms  x{cnt:6d}  {key[:90]}")
+    else:
+        say("phase 7 profile: the profiler recorded no device time "
+            "(device busy share not measured)")
+
     def entry_json(entry):
         row = rows[entry]
         top = row["per"][row["top"]]
         source, replaces = SOURCE_AND_REPLACES[entry]
         return {"name": entry, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[entry],
+                "replaces": replaces,
+                "launches": launches[entry] + fs_path_launches[entry],
                 "max_abs_err": err[entry], "ms": top["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": top["bound"],
                 "bound_by": top["by"], "library_ms": None,
@@ -670,12 +822,19 @@ def main():
                 "timed_prove_launches": timed_launches[entry],
                 "timed_prove_kernel_ms": row["timed_ms"],
                 "timed_prove_bound_ms": row["timed_bound"],
-                "profiled_device_ms": profiled[entry][0]}
+                "profiled_device_ms": profiled[entry][0],
+                "glibc_path_launches": launches[entry],
+                "fs_prove_launches": fs_launches[entry],
+                "fs_prove_kernel_ms": row["fs_ms"],
+                "fs_prove_profiled_ms": fs_profiled[entry][0]}
 
     report = {"kernels": [entry_json(e) for e in KERNEL_NAMES],
               "timed_prove_ms": t_e2e, "verify_ms": t_verify,
               "driver_prove_ms": t_driver, "device_busy_ms": busy_ms or None,
-              "idle_share_of_median": idle}
+              "idle_share_of_median": idle,
+              "fs_prove_launches": fs_launches, "fs_prove_ms": t_fs_prove,
+              "fs_verify_ms": t_fs_verify, "fs_device_busy_ms": fs_busy or None,
+              "fs_idle_share": fs_idle}
     say(f"card: {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

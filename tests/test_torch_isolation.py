@@ -11,8 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from virgo_plus_tpu_torch import device, driver, kernels
+from virgo_plus_tpu_torch import cli, device, driver, kernels
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
+from virgo_plus_tpu_torch.config import ProtocolConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "virgo_plus_tpu_torch"
@@ -57,9 +58,9 @@ def test_package_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_default_device_without_cuda_raises(monkeypatch):
+def test_default_device_without_cuda_raises(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    c = randomize(2, 6, seed=3)
+    c = randomize(2, 7, seed=3)
     subset_init(c)
     before = dict(kernels.PLAIN_CALLS)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -70,5 +71,19 @@ def test_default_device_without_cuda_raises(monkeypatch):
         driver.prove(c)
     with pytest.raises(RuntimeError, match="CUDA"):
         driver.run(circuit=c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.prove_fs(c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.run(circuit=c, config=ProtocolConfig(transcript="fs"))
+    assert kernels.PLAIN_CALLS == before      # nothing ran on the CPU
+    cpu_proof, _ = driver.prove_fs(c, device="cpu")
+    before = dict(kernels.PLAIN_CALLS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.verify_fs(c, cpu_proof)
+    # the command line without --device cpu: an argument error naming CUDA
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["prove", str(ROOT / "tests/data/small1200.pws"),
+                  "-o", str(tmp_path / "p.npz")])
+    assert exc.value.code == 2 and "CUDA" in capsys.readouterr().err
     assert kernels.PLAIN_CALLS == before      # nothing ran on the CPU
     assert device.resolve("cpu") == torch.device("cpu")

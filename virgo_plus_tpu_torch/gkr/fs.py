@@ -1,0 +1,498 @@
+"""Fiat-Shamir (non-interactive) mode: device sponge, prover and verifier.
+
+Counterpart of ``virgo_plus_tpu/gkr/fs.py``.  The reference ships only the
+interactive protocol driven by srand(3396) randomness; this mode draws every
+challenge from a SHA3 sponge instead, so a proof can be handed to a third
+party.  The prover keeps the sponge on the device: every absorb and squeeze
+is one ``pc/keccak.sha3_256_x64`` call on one 64-byte block (K2 on a CUDA
+tensor, its plain twin on a CPU tensor), and nothing in the GKR walk or the
+PC half goes back to the host until query drawing.
+
+Sponge spec (the JAX package's; the reference defines none):
+  state D: 32 bytes as (4,) u64 words (int64 bit patterns here),
+           initialized from the domain tag.
+  absorb(e0, e1): D <- SHA3-256(e0.real||e0.img||e1.real||e1.img||D);
+                  element streams are absorbed pairwise, zero-padded.
+  squeeze():      H = SHA3-256(D || 0x01 pad block); D <- SHA3-256(D || 0x02)
+                  challenge = (H[0] mod p, H[1] mod p), unsigned.
+
+Each sumcheck round absorbs its round polynomial before its challenge is
+squeezed (batch FS would be unsound for sumcheck).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..field import gf
+from ..pc import fft_gkr, virgo_pc
+from ..pc.keccak import sha3_256_x64
+from . import protocol
+from .beta import beta_table
+from .sumcheck import apply_scatter_arrays, concat_scatter_plans, mle_fold, \
+    tree_sum
+
+DOMAIN_TAG = b"virgo_plus_tpu.fs.v1\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00"
+
+
+# ---------------------------------------------------------------------------
+# Device sponge
+# ---------------------------------------------------------------------------
+
+def init_state(device):
+    h = hashlib.sha3_256(DOMAIN_TAG).digest()
+    return torch.from_numpy(np.frombuffer(h, dtype=np.int64).copy()).to(device)
+
+
+def _sha3_one(words8):
+    """words8: (8,) words -> (4,) digest words (one SHA3-256 block)."""
+    return sha3_256_x64(words8[:, None])[:, 0]
+
+
+def absorb_pair(D, e0, e1):
+    return _sha3_one(torch.cat([e0, e1, D]))
+
+
+def absorb_elems(D, elems):
+    """elems: (2, k) — absorbed pairwise in order, zero-padded."""
+    k = elems.shape[1]
+    if k % 2:
+        elems = torch.cat([elems, torch.zeros_like(elems[:, :1])], dim=1)
+    blocks = elems.t().reshape(-1, 4)      # pair p: e_2p.re/im, e_2p+1.re/im
+    for p in range(blocks.shape[0]):
+        D = _sha3_one(torch.cat([blocks[p], D]))
+    return D
+
+
+def _pad_block(D, tag: int):
+    pad = torch.zeros(4, dtype=torch.int64, device=D.device)
+    pad[0] = tag
+    return torch.cat([D, pad])
+
+
+def squeeze(D):
+    """-> ((2,) challenge element, new state).  The digest words are u64:
+    reduce_lazy's Mersenne fold with a logical shift is the unsigned
+    ``h mod p`` (int64 ``%`` would be signed)."""
+    h = _sha3_one(_pad_block(D, 1))
+    d2 = _sha3_one(_pad_block(D, 2))
+    return gf.reduce_lazy(h[:2]), d2
+
+
+def squeeze_vec(D, n: int):
+    """n chained squeezes -> ((2, n) challenges, new state)."""
+    out = []
+    for _ in range(n):
+        el, D = squeeze(D)
+        out.append(el)
+    if not out:
+        return torch.zeros((2, 0), dtype=torch.int64, device=D.device), D
+    return torch.stack(out, dim=1), D
+
+
+# ---------------------------------------------------------------------------
+# Sumcheck rounds with sponge challenges
+# ---------------------------------------------------------------------------
+
+def _round(T):
+    """One sumcheck round over stacked tables T (2, 3, ..., 2h), axis 1 =
+    (v, a, m): the round polynomial of m·v + a summed over every table and
+    pair -> ((2, 3) poly, low halves (2, 3, ..., h), differences)."""
+    T0, T1 = T[..., 0::2], T[..., 1::2]
+    d = gf.sub(T1, T0)
+    v0, a0, m0 = T0[:, 0], T0[:, 1], T0[:, 2]
+    dv, da, dm = d[:, 0], d[:, 1], d[:, 2]
+    prods = gf.mul(torch.stack([dm, dm, m0, m0], 1),
+                   torch.stack([dv, v0, dv, v0], 1))
+    pa = prods[:, 0]
+    pb = gf.add(gf.add(prods[:, 1], prods[:, 2]), da)
+    pc = gf.add(prods[:, 3], a0)
+    poly = tree_sum(torch.stack([pa, pb, pc], 1).reshape(2, 3, -1))
+    return poly, T0, d
+
+
+def _bind(T0, d, r):
+    """Fix the round's variable at r: T0 + r·(T1 - T0)."""
+    return gf.add(T0, gf.mul(d, r.reshape((2,) + (1,) * (d.dim() - 1))))
+
+
+def fs_scan_sumcheck(v, a, m, bl: int, D):
+    """Sumcheck of m·v + a with a per-round absorb + squeeze.  v, a, m:
+    (2, 2^bl).  Returns (polys (bl, 2, 3), rs (2, bl), bound scalars
+    (v, a, m) each (2,), D').  Each round halves the tables; the JAX
+    version masks a full-size table instead, with the same sums."""
+    assert v.shape[1] == 1 << bl, (v.shape, bl)
+    T = torch.stack([v, a, m], dim=1)
+    polys, rs = [], []
+    for _ in range(bl):
+        poly, T0, d = _round(T)
+        # absorb the round polynomial (two pairs), then squeeze its r
+        r, D = squeeze(absorb_elems(D, poly))
+        T = _bind(T0, d, r)
+        polys.append(poly)
+        rs.append(r)
+    dev = v.device
+    polys = (torch.stack(polys) if polys
+             else torch.zeros((0, 2, 3), dtype=torch.int64, device=dev))
+    rs = (torch.stack(rs, dim=1) if rs
+          else torch.zeros((2, 0), dtype=torch.int64, device=dev))
+    return polys, rs, (T[:, 0, 0], T[:, 1, 0], T[:, 2, 0]), D
+
+
+def _phase2(groups, mdb: int, D):
+    """The joint phase-2 sumcheck of one layer: every dad table shares each
+    round's challenge.  groups: {bl: (li list, T (2, 3, K, 2^bl))}, the
+    layer's tables stacked per bit length.  A table exhausted at round
+    j == bl adds v·m + a to the a_term chain, which contributes
+    (0, -a_term, a_term) to every later poly.  Returns (polys (mdb, 2, 3),
+    r_v (2, mdb), {li: bound v (2,)}, D')."""
+    dev = D.device
+    zero = gf.zeros((), dev)
+    one = gf.ones((), dev)
+    a_term = zero
+    polys, rs, bounds = [], [], {}
+    for j in range(mdb):
+        if j > 0:
+            a_term = gf.mul(a_term, gf.sub(one, rs[-1]))
+        pj = gf.zeros((3,), dev)
+        live = {}
+        for bl, (lis, T) in groups.items():
+            if j < bl:
+                poly, T0, d = _round(T)
+                pj = gf.add(pj, poly)
+                live[bl] = (T0, d)
+            elif j == bl:
+                v, a, m = T[:, 0, :, 0], T[:, 1, :, 0], T[:, 2, :, 0]
+                a_term = gf.add(a_term, tree_sum(gf.add(gf.mul(v, m), a)))
+                bounds.update((li, v[:, k]) for k, li in enumerate(lis))
+        pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], 1))
+        r, D = squeeze(absorb_elems(D, pj))
+        for bl, (T0, d) in live.items():
+            groups[bl] = (groups[bl][0], _bind(T0, d, r))
+        polys.append(pj)
+        rs.append(r)
+    for bl, (lis, T) in groups.items():
+        if bl == mdb:
+            bounds.update((li, T[:, 0, k, 0]) for k, li in enumerate(lis))
+    polys = (torch.stack(polys) if polys
+             else torch.zeros((0, 2, 3), dtype=torch.int64, device=dev))
+    r_v = (torch.stack(rs, dim=1) if rs
+           else torch.zeros((2, 0), dtype=torch.int64, device=dev))
+    return polys, r_v, bounds, D
+
+
+# ---------------------------------------------------------------------------
+# GKR prover
+# ---------------------------------------------------------------------------
+
+def fs_arrays(cc, plans, device) -> dict:
+    """Per-layer scatter plans of the FS walk, made once per circuit on the
+    device: p1P{i} and p2P{i} scatter the add and the mult contributions
+    of layer i in one pass (the plan twice, side by side); liuP{i} is the
+    Liu plan.  The gather and coefficient tables are the glibc prover's
+    (protocol.circuit_arrays)."""
+    arrs = {}
+    for i in range(1, cc.depth):
+        L = cc.layers[i]
+        P = plans[i]
+        arrs[f"p1P{i}"] = concat_scatter_plans(
+            [P.p1, P.p1], [L.size, L.size]).arrays(device)
+        if P.p2 is not None:
+            arrs[f"p2P{i}"] = concat_scatter_plans(
+                [P.p2, P.p2], [L.size, L.size]).arrays(device)
+        if P.liu_plan is not None:
+            arrs[f"liuP{i}"] = P.liu_plan.arrays(device)
+    return arrs
+
+
+def _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs, fsa):
+    """One layer of the FS walk (phase 1, joint phase 2, Liu) with every
+    challenge squeezed from the sponge.  rvs: {j: r_v} of the consumer
+    layers j > i, walked already.  Returns (LayerProof, LayerChallenges,
+    new sponge state)."""
+    L = cc.layers[i]
+    P = plans[i]
+    bl_prev = cc.layers[i - 1].bit_length
+    pre_padded = cc.layers[i - 1].padded
+    dev = values.device
+    one = gf.ones((), dev)
+
+    assert_r, D = squeeze(D)
+    bg = protocol._scale_beta_asserts(
+        cc, i, beta_table(r_cur, L.bit_length, one), assert_r,
+        arrs.get(f"ia{i}"))[:, :L.size]
+    y = values[:, arrs[f"y{i}"]]
+    A, B, C, Dc = arrs[f"co{i}"]
+    add_c = gf.mul(bg, gf.add(gf.mul(B, y), Dc))
+    mult_c = gf.mul(bg, gf.add(A, gf.mul(C, y)))
+    s = apply_scatter_arrays(torch.cat([add_c, mult_c], 1), fsa[f"p1P{i}"])
+    tmp_v = protocol._values_block(cc, values, i - 1)
+    p1_polys, r_u, (claim_u, _, _), D = fs_scan_sumcheck(
+        tmp_v, s[:, :pre_padded], s[:, pre_padded:], bl_prev, D)
+    D = absorb_elems(D, claim_u[:, None])
+
+    p2_polys = claims_v = r_v = None
+    if L.max_dad_bit_length >= 0:
+        beta_u = beta_table(r_u, bl_prev, one)
+        tmp_g = gf.mul(bg, beta_u[:, arrs[f"x{i}"]])
+        cu = claim_u[:, None]
+        addv_c = gf.mul(tmp_g, gf.add(gf.mul(A, cu), Dc))
+        multv_c = gf.mul(tmp_g, gf.add(B, gf.mul(C, cu)))
+        s = apply_scatter_arrays(torch.cat([addv_c, multv_c], 1),
+                                 fsa[f"p2P{i}"])
+        tot = L.dad_padded_total
+        vdad = torch.where(arrs[f"dgm{i}"][None, :],
+                           values[:, arrs[f"dg{i}"]], 0)
+        addV, multV = s[:, :tot], s[:, tot:]
+        jobs = {}
+        for li in range(i):
+            if L.dad_sizes[li] == 0:
+                continue
+            bl_l = L.dad_bls[li]
+            sl = slice(L.dad_offsets[li], L.dad_offsets[li] + (1 << bl_l))
+            jobs.setdefault(bl_l, []).append(
+                (li, torch.stack([vdad[:, sl], addV[:, sl], multV[:, sl]], 1)))
+        groups = {bl: ([li for li, _ in js], torch.stack([t for _, t in js], 2))
+                  for bl, js in jobs.items()}
+        p2_polys, r_v, bounds, D = _phase2(groups, L.max_dad_bit_length, D)
+        zero = gf.zeros((), dev)
+        claims_v = torch.stack([bounds.get(li, zero) for li in range(i)])
+        D = absorb_elems(D, claims_v.t())
+
+    # Liu: merge the claims about layer i-1 made by layers i .. depth-1
+    sig, D = squeeze_vec(D, cc.depth)
+    bsig = beta_table(r_u, bl_prev, sig[:, 0])
+    pre_size = cc.layers[i - 1].size
+    multL = torch.zeros((2, pre_padded), dtype=torch.int64, device=dev)
+    multL[:, :pre_size] = bsig[:, :pre_size]
+    if P.liu_plan is not None:
+        parts = []
+        for (j, ds, bl_jl, _off) in P.liu_consumers:
+            # j == i is this layer's own dad table, drawn just above
+            rv_j = r_v if j == i else rvs[j]
+            parts.append(beta_table(rv_j[:, :bl_jl], bl_jl,
+                                    sig[:, j - i + 1])[:, :ds])
+        multL = gf.add(multL, apply_scatter_arrays(torch.cat(parts, 1),
+                                                   fsa[f"liuP{i}"]))
+    liu_polys, r_liu, (liu_claim, _, _), D = fs_scan_sumcheck(
+        tmp_v, torch.zeros_like(multL), multL, bl_prev, D)
+    D = absorb_elems(D, liu_claim[:, None])
+
+    lp = protocol.LayerProof(
+        p1_polys=p1_polys, claim_u=claim_u, p2_polys=p2_polys,
+        claims_v=claims_v, liu_polys=liu_polys, liu_claim=liu_claim)
+    chl = protocol.LayerChallenges(
+        r_u=r_u, assert_r=assert_r, r_v=r_v, sig=sig, r_liu=r_liu)
+    return lp, chl, D
+
+
+def make_fs_prover(cc, plans, arrs, device):
+    """Returns prove(values, root_l) -> (Proof, Challenges, final state):
+    the non-interactive GKR proof of ``values`` with every challenge
+    squeezed from the device sponge, seeded by the input commitment root
+    root_l ((4,) digest words).  arrs: protocol.circuit_arrays."""
+    fsa = fs_arrays(cc, plans, device)
+    depth = cc.depth
+
+    def prove(values, root_l):
+        D = absorb_elems(init_state(values.device),
+                         torch.stack([root_l[:2], root_l[2:]], dim=1))
+        # the output claim point depends only on the input commitment;
+        # vres is computed, then absorbed
+        r_out, D = squeeze_vec(D, cc.layers[depth - 1].bit_length)
+        vres = mle_fold(protocol._values_block(cc, values, depth - 1), r_out)
+        D = absorb_elems(D, vres[:, None])
+        layer_proofs: List[Optional[protocol.LayerProof]] = [None] * depth
+        ch_layers: List[Optional[protocol.LayerChallenges]] = [None] * depth
+        r_cur = r_out
+        for i in range(depth - 1, 0, -1):
+            rvs = {j: ch_layers[j].r_v for (j, *_rest) in plans[i].liu_consumers
+                   if j != i}
+            lp, chl, D = _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs,
+                                   fsa)
+            layer_proofs[i] = lp
+            ch_layers[i] = chl
+            r_cur = chl.r_liu
+        return (protocol.Proof(vres=vres, layers=layer_proofs),
+                protocol.Challenges(r_out=r_out, layers=ch_layers), D)
+
+    return prove
+
+
+# ---------------------------------------------------------------------------
+# PC half: public commit, fft_gkr messages and every FRI fold level
+# ---------------------------------------------------------------------------
+
+def _fs_fft_schedule(D, lg: int):
+    """Squeeze the fft_gkr draw schedule, in the order of
+    fft_gkr.draw_schedule (the verifier's HostSponge feeds fft_gkr.run the
+    same stream)."""
+    d = {}
+    for key, n in (("r", lg), ("eval_points", 64), ("r0", lg + 10),
+                   ("r1", lg + 10), ("add_ru", lg + 6), ("add_rv", lg + 6),
+                   ("mult_ru", lg), ("mult_rv", lg)):
+        d[key], D = squeeze_vec(D, n)
+    stages = []
+    for _ in range(lg):
+        ru, D = squeeze_vec(D, lg)
+        rv, D = squeeze_vec(D, lg)
+        al, D = squeeze(D)
+        be, D = squeeze(D)
+        stages.append((ru, rv, al, be))
+    d["stages"] = tuple(stages)
+    return d, D
+
+
+def fs_pc_prove(l_codeword, final_point, D, bl0: int):
+    """The PC half of the non-interactive prover on the device: public
+    commit, absorb root_h and all_sum, the fft_gkr message tape, then per
+    FRI level squeeze r, fold, hash the level (one chain and one forest
+    launch) and absorb its root before the next challenge.  Returns
+    (h_oracle, all_sum, fft_gkr messages, level oracles, final codeword,
+    D')."""
+    lg = bl0 - virgo_pc.LOG_SLICE
+    q_values = beta_table(final_point, bl0, gf.ones((), l_codeword.device))
+    h_oracle, _q_eval, _q_coefs, all_sum, vo = virgo_pc.commit_public(
+        l_codeword, q_values, bl0)
+    rt = h_oracle.tree[:, 1]
+    D = absorb_pair(D, rt[:2], rt[2:])
+    D = absorb_elems(D, all_sum)
+    sched, D = _fs_fft_schedule(D, lg)
+    msgs = fft_gkr.prove_messages(lg, sched, l_codeword.device)
+    cur = vo
+    lgc = bl0 + virgo_pc.RATE - virgo_pc.LOG_SLICE
+    oracles = []
+    for _ in range(lg):
+        r, D = squeeze(D)
+        cur = virgo_pc.fold_step(cur, r, lgc)
+        o = virgo_pc.make_oracle(cur)
+        ort = o.tree[:, 1]
+        D = absorb_pair(D, ort[:2], ort[2:])
+        lgc -= 1
+        oracles.append(o)
+    return h_oracle, all_sum, msgs, oracles, cur, D
+
+
+# ---------------------------------------------------------------------------
+# Host-side sponge (verifier re-derivation)
+# ---------------------------------------------------------------------------
+
+class HostSponge:
+    def __init__(self):
+        self.state = hashlib.sha3_256(DOMAIN_TAG).digest()
+
+    def _h(self, data64: bytes) -> bytes:
+        return hashlib.sha3_256(data64).digest()
+
+    def absorb_pair(self, e0, e1):
+        blob = b"".join(int(x).to_bytes(8, "little")
+                        for x in (e0[0], e0[1], e1[0], e1[1]))
+        self.state = self._h(blob + self.state)
+
+    def absorb_elems(self, elems):
+        """elems: list of (real, img) int pairs."""
+        es = list(elems)
+        if len(es) % 2:
+            es.append((0, 0))
+        for k in range(0, len(es), 2):
+            self.absorb_pair(es[k], es[k + 1])
+
+    def squeeze(self):
+        h = self._h(self.state + b"\x01" + b"\x00" * 31)
+        self.state = self._h(self.state + b"\x02" + b"\x00" * 31)
+        w = np.frombuffer(h, dtype=np.uint64)
+        return (int(w[0]) % gf.MOD, int(w[1]) % gf.MOD)
+
+    def squeeze_vec(self, n):
+        return [self.squeeze() for _ in range(n)]
+
+    # rng-adapter API (GlibcRandom-compatible) so transcript-seeded
+    # components (fft_gkr, query positions) can draw from the sponge
+    def field_element(self):
+        return self.squeeze()
+
+    def rand(self):
+        r, _ = self.squeeze()
+        return r & 0x7FFFFFFF
+
+    @staticmethod
+    def from_device_state(D):
+        """The device state (4,) int64 as the u64 words' little-endian
+        bytes: the one device-to-host read between the GKR walk and query
+        drawing."""
+        sp = HostSponge.__new__(HostSponge)
+        sp.state = gf.to_numpy(D).astype("<u8").tobytes()
+        return sp
+
+    def absorb_digest_words(self, words4):
+        w = np.asarray(words4)
+        self.absorb_pair((int(w[0]), int(w[1])), (int(w[2]), int(w[3])))
+
+
+def _host(x) -> np.ndarray:
+    """A proof field as host numpy u64: a port tensor is read once."""
+    if isinstance(x, torch.Tensor):
+        return gf.to_numpy(x)
+    return np.asarray(x, dtype=np.uint64)
+
+
+def derive_challenges(cc, proof: protocol.Proof, root_l, device):
+    """Verifier side: re-derive every FS challenge from the proof messages
+    with the host sponge.  root_l: (4,) digest words.  The proof's fields
+    may be host numpy (as proof_io.load gives them: no device read at all)
+    or port tensors (each read once).  Returns (Challenges on ``device``,
+    the sponge after the GKR messages)."""
+    sp = HostSponge()
+    sp.absorb_digest_words(_host(root_l))
+
+    def el(a):
+        return (int(a[0]), int(a[1]))
+
+    def polys_rs(polys):
+        rs = []
+        for j in range(polys.shape[0]):
+            sp.absorb_elems([el(polys[j, :, 0]), el(polys[j, :, 1]),
+                             el(polys[j, :, 2])])
+            rs.append(sp.squeeze())
+        return rs
+
+    def T(pairs):
+        out = np.zeros((2, len(pairs)), dtype=np.uint64)
+        for k, (r, i) in enumerate(pairs):
+            out[0, k], out[1, k] = r, i
+        return gf.tensor(out, device)
+
+    depth = cc.depth
+    r_out = T(sp.squeeze_vec(cc.layers[depth - 1].bit_length))
+    sp.absorb_elems([el(_host(proof.vres))])
+
+    layers: list = [None] * depth
+    for i in range(depth - 1, 0, -1):
+        lp = proof.layers[i]
+        assert_r = T([sp.squeeze()])[:, 0]
+        r_u = T(polys_rs(_host(lp.p1_polys)))
+        sp.absorb_elems([el(_host(lp.claim_u))])
+        r_v = None
+        if lp.p2_polys is not None:
+            r_v = T(polys_rs(_host(lp.p2_polys)))
+            cv = _host(lp.claims_v)
+            sp.absorb_elems([el(cv[k]) for k in range(cv.shape[0])])
+        sig = T(sp.squeeze_vec(depth))
+        r_liu = T(polys_rs(_host(lp.liu_polys)))
+        sp.absorb_elems([el(_host(lp.liu_claim))])
+        layers[i] = protocol.LayerChallenges(
+            r_u=r_u, assert_r=assert_r, r_v=r_v, sig=sig, r_liu=r_liu)
+    return protocol.Challenges(r_out=r_out, layers=layers), sp
+
+
+def fs_verify(cc, proof: protocol.Proof, root_l, output_values=None):
+    """Non-interactive GKR verification: re-derive the challenges, then run
+    the standard checks on the proof's device.  proof: port tensors.
+    Returns (ok, final_claim, final_point)."""
+    dev = proof.vres.device
+    ch, _sp = derive_challenges(cc, proof, root_l, dev)
+    return protocol.make_verifier(cc, dev)(proof, ch, output_values)
