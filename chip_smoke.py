@@ -37,14 +37,27 @@ package.  Phases, one line each, any failure exits non-zero:
    all four entries (the sponge's SHA3 at N = 1) with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
    rejected; wall times of 3 ``prove_fs`` and 3 ``verify_fs`` runs, their
-   spans, and (at the end) a profile of one ``prove_fs``.
+   spans, and (at the end) a profile of one ``prove_fs``;
+8. batched proving (``parallel.sharded.make_batched_full_prover``, i.e.
+   ``fused.prove_e2e`` on a (2, B, N) witness batch) at full width: a B = 1
+   batched call equals ``prove_e2e`` on the same witness in every array,
+   and at B = 16 instances 0 and 15 each equal ``prove_e2e`` of their own
+   witness; every kernel call of one batched call at B = 4 and at B = 64 is
+   recorded and held against its plain twin, with no plain twin call; the
+   launches per batched call are the same at every B in (1, 4, 16, 64)
+   (one chain, one forest); wall times (3 runs after a warm-up), proofs
+   per second and peak device memory at each B, and (at the end) a
+   profile of one batched call at B = 16.
 
-Then each kernel entry's device time per call at every shape the glibc and
-FS paths gave it, from the profiler, beside its bound and its plain twin,
-and last the two whole-prove profiles: a large trace makes every later
-short profile miss launches.  The last lines are the card line, one JSON
-object with every kernel entry's numbers (``launches``: both paths' runs
-together), and ``{"ok": true, "device": {...}}``.
+Phase 4 starts by building the native C++ frontend into ``build/native/``
+and holding its small1200 circuit against the Python frontend's, field by
+field; from there on ``driver.load_circuit`` uses it.  Then each kernel
+entry's device time per call at every shape the glibc, FS and batched paths
+gave it, from the profiler, beside its bound and its plain twin, and last
+the three whole-call profiles: a large trace makes every later short
+profile miss launches.  The last lines are the card line, one JSON object
+with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
+batched runs together), and ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -100,6 +113,9 @@ CHAIN_STEPS = 65
 TIMED_RUNS = 10              # wall-clock runs of the timed prove
 VERIFY_RUNS = 5              # ... of driver.verify and driver.prove
 FS_RUNS = 3                  # ... of driver.prove_fs and driver.verify_fs
+BATCHES = (1, 4, 16, 64)     # witnesses per batched call (phase 8)
+BATCH_RUNS = 3               # wall-clock runs of a batched call per B
+PROFILED_BATCH = 16          # B of the profiled batched call
 
 
 def fail(msg):
@@ -261,6 +277,33 @@ def shape_of(entry, ins):
     return tuple(ins[1])
 
 
+def circuit_differences(a, b):
+    """The fields in which two LayeredCircuits differ, as "layer.field"."""
+    import numpy as np
+    if a.size != b.size:
+        return ["depth"]
+    out = [] if np.array_equal(a.input_values, b.input_values) else ["inputs"]
+    for i, (x, y) in enumerate(zip(a.layers, b.layers)):
+        for k in ("ty", "u", "v", "l", "lv", "c_real", "c_img", "is_assert",
+                  "size", "bit_length", "dad_size", "dad_bit_length",
+                  "max_dad_size", "max_dad_bit_length"):
+            if not np.array_equal(np.asarray(getattr(x, k)),
+                                  np.asarray(getattr(y, k))):
+                out.append(f"{i}.{k}")
+        if len(x.dad_id) != len(y.dad_id) or not all(
+                np.array_equal(p, q) for p, q in zip(x.dad_id, y.dad_id)):
+            out.append(f"{i}.dad_id")
+    return out
+
+
+def shape_label(entry, shp):
+    """A shape as printed: a forest of many trees by its tree count and
+    leaves."""
+    if entry == "merkle_forest" and len(shp) > 12:
+        return f"{len(shp)} trees, {sum(shp)} leaves"
+    return shp
+
+
 def cost(entry, shp):
     """(bytes, 32-bit integer operations) one call needs: each input read
     once, each output written once."""
@@ -324,12 +367,13 @@ def main():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from virgo_plus_tpu_torch import driver, fused, kernels, proof_io
+    from virgo_plus_tpu_torch import driver, fused, kernels, native, proof_io
     from virgo_plus_tpu_torch.circuits.compile import input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import protocol
     from virgo_plus_tpu_torch.gkr import sumcheck
+    from virgo_plus_tpu_torch.parallel.sharded import make_batched_full_prover
     from virgo_plus_tpu_torch.pc import fft_gkr, keccak, merkle, virgo_pc
     from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
@@ -429,6 +473,21 @@ def main():
         f"twin in one launch, trees {forests}")
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
+    # first the native frontend, which driver.load_circuit uses from here on
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("no C++ compiler: the native frontend cannot be built")
+    c = native.load_circuit(str(FIXTURE))
+    t_native = time.perf_counter() - t0
+    differ = circuit_differences(c, driver.load_circuit(str(FIXTURE),
+                                                        prefer_native=False))
+    if differ:
+        fail(f"small1200: the native frontend differs from the Python "
+             f"frontend in {differ}")
+    say(f"phase 4 native frontend ok: small1200 through "
+        f"build/native/{native._target().name} (built and parsed in "
+        f"{t_native:.2f} s) == the Python frontend in every layer field; "
+        f"driver.load_circuit uses it")
     c = driver.load_circuit(str(FIXTURE))
     cp = driver.compile_prover(c)
     full, info = driver.prove(c, cp)
@@ -511,9 +570,11 @@ def main():
         calls.clear()
         return shapes
 
-    def listing(shapes):
-        return "; ".join(f"{e} {dict(sorted(shapes[e].items()))}"
-                         for e in KERNEL_NAMES if shapes[e])
+    def listing(shapes, short=False):
+        return "; ".join(
+            f"{e} " + str({shape_label(e, s) if short else s: n
+                           for s, n in sorted(shapes[e].items())})
+            for e in KERNEL_NAMES if shapes[e])
 
     c = randomize(14, 13, seed=0)
     subset_init(c)
@@ -688,12 +749,130 @@ def main():
         say(f"phase 7 {what} spans (ms, mean of the {FS_RUNS} timed runs"
             f"{', synchronised' if what == 'prove_fs' else ''}): {mean}")
 
+    # ---- phase 8: batched proving -----------------------------------------
+    t8 = time.perf_counter()
+    final_point = ch.layers[1].r_liu[:, :bl0]
+    run_batch = make_batched_full_prover(cc, cp.plans)
+    base = gf.to_numpy(inputs)
+
+    def witness_batch(b):
+        """b witnesses: the circuit's inputs plus default_rng(7) integers
+        in [0, 5) on the real plane (benches/batched_full.py)."""
+        xs = np.stack([base] * b)
+        xs[:, 0, :] = (xs[:, 0, :] + np.random.default_rng(7).integers(
+            0, 5, xs[:, 0, :].shape, dtype=np.uint64)) % np.uint64(M)
+        return xs
+
+    def batched(xs):
+        return run_batch(xs, ch, final_point, fold_rands)
+
+    def single_arrays(out):
+        proof, l_or, h_or, a_sum, _q, ldt = out
+        d = {"root_l": l_or.tree[:, 1], "root_h": h_or.tree[:, 1],
+             "all_sum": a_sum, "final_codeword": ldt.final_codeword,
+             "level_roots": torch.stack([o.tree[:, 1] for o in ldt.oracles]),
+             "vres": proof.vres}
+        for i in range(1, cc.depth):
+            for k, t in vars(proof.layers[i]).items():
+                if t is not None:
+                    d[f"{k}[{i}]"] = t
+        return {k: gf.to_numpy(t) for k, t in d.items()}
+
+    def instance_arrays(out, b):
+        proofs, root_l, root_h, a_sum, level_roots, final_cw = out
+        d = {"root_l": root_l[b], "root_h": root_h[b], "all_sum": a_sum[b],
+             "final_codeword": final_cw[b], "level_roots": level_roots[b],
+             "vres": proofs.vres[b]}
+        for i in range(1, cc.depth):
+            for k, t in vars(proofs.layers[i]).items():
+                if t is not None:
+                    d[f"{k}[{i}]"] = t[b]
+        return {k: gf.to_numpy(t) for k, t in d.items()}
+
+    def identity(out, xs, b, what):
+        want = single_arrays(fused.prove_e2e(
+            cc, cp.plans, input_buffer(cc, xs[b], dev), ch, fold_rands,
+            cp.arrs))
+        got = instance_arrays(out, b)
+        differ = sorted(k for k in set(got) | set(want)
+                        if k not in got or k not in want
+                        or got[k].shape != want[k].shape
+                        or not np.array_equal(got[k], want[k]))
+        if differ:
+            fail(f"batched {what}: instance {b} differs from prove_e2e of "
+                 f"its witness in {differ}")
+        return len(got)
+
+    n_arr = identity(batched(witness_batch(1)), witness_batch(1), 0, "B = 1")
+    xs16 = witness_batch(16)
+    out16 = batched(xs16)
+    for b in (0, 15):
+        identity(out16, xs16, b, "B = 16")
+    del out16
+    say(f"phase 8 identity ok: a B = 1 batched call == prove_e2e on the same "
+        f"witness in all {n_arr} arrays; at B = 16 instances 0 and 15 each "
+        f"== prove_e2e of their own witness in all {n_arr} arrays")
+
+    per_b = {}
+    for b in BATCHES:
+        xs = witness_batch(b)
+        kernels.reset_counts()
+        batched(xs)
+        torch.cuda.synchronize()
+        per_b[b] = dict(launches=dict(kernels.LAUNCHES),
+                        plain=dict(kernels.PLAIN_CALLS))
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated()
+        ts = wall_ms(torch, lambda: batched(xs), BATCH_RUNS)
+        peak = torch.cuda.max_memory_allocated()
+        per_b[b].update(wall_ms=ts, peak_bytes=peak,
+                        call_peak_bytes=peak - held_bytes,
+                        proofs_per_s=b / statistics.median(ts) * 1e3)
+        say(f"phase 8 timing ({card}): B = {b}: batched call {spread(ts)}; "
+            f"{per_b[b]['proofs_per_s']:.3f} proofs/s at the median; "
+            f"max_memory_allocated {peak / 2 ** 30:.3f} GiB, "
+            f"{(peak - held_bytes) / 2 ** 30:.3f} GiB above the "
+            f"{held_bytes / 2 ** 30:.3f} GiB held before the calls; device "
+            f"launches {per_b[b]['launches']}")
+
+    batched_shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+    recorded = {}
+    for b in (4, 64):
+        xs = witness_batch(b)
+        with Recorder(kernels, wrappers) as rec:
+            kernels.reset_counts()
+            batched(xs)
+            torch.cuda.synchronize()
+            recorded[b] = (dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS))
+        check_path(f"the batched call at B = {b}", *recorded[b])
+        for e, n in check_calls(rec.calls, f"batched call at B = {b}").items():
+            batched_shapes[e].update(n)
+    batched_launches, batched_plain = recorded[4]
+    say(f"phase 8 recorded calls ok: every kernel call of one batched call "
+        f"at B = 4 and at B = 64 == its plain twin on the same inputs, "
+        f"launches as the rule says; B = 4 device launches "
+        f"{batched_launches}, plain twin calls {batched_plain}; calls per "
+        f"shape: {listing(batched_shapes, short=True)}")
+
+    first = per_b[BATCHES[0]]["launches"]
+    if any(per_b[b]["launches"] != first or any(per_b[b]["plain"].values())
+           for b in BATCHES) or any(recorded[b][0] != first
+                                    for b in recorded):
+        fail(f"launches per batched call depend on B: "
+             f"{ {b: per_b[b]['launches'] for b in BATCHES} }")
+    if (first["sha3_chain_x64"], first["merkle_forest"],
+            first["sha3_256_x64"]) != (1, 1, 0):
+        fail(f"a batched call launched {first}, not one chain, one forest "
+             f"and no single SHA3")
+    say(f"phase 8 ok in {time.perf_counter() - t8:.1f} s: launches per "
+        f"batched call {first} at every B in {BATCHES}, no plain twin call")
+
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
     for entry, names in KERNEL_NAMES.items():
         per = {}
         found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
-                 | set(fs_shapes[entry]))
+                 | set(fs_shapes[entry]) | set(batched_shapes[entry]))
         for shp in sorted(found):
             ins = example[(entry, shp)]
             nl = expected_launches(entry, ins)
@@ -708,7 +887,8 @@ def main():
             t_ops = ops / int32_rate * 1e3
             per[shp] = dict(driver=driver_shapes[entry][shp],
                             timed=timed_shapes[entry][shp],
-                            fs=fs_shapes[entry][shp], ms=ms,
+                            fs=fs_shapes[entry][shp],
+                            batched=batched_shapes[entry][shp], ms=ms,
                             launches=nl, bound=max(t_bytes, t_ops),
                             by="bytes" if t_bytes >= t_ops else "operations")
         # the shape that takes the most kernel time in one timed prove (in
@@ -725,10 +905,11 @@ def main():
             timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
             fs_bound=sum(r["fs"] * r["bound"] for r in per.values()))
         say(f"kernel {entry} (profiled device time; calls in the driver "
-            f"prove / timed prove / FS prove, ms per call, launches per call, "
-            f"bound ms): " + "; ".join(
-                f"{list(s)}: {r['driver']}/{r['timed']}/{r['fs']}, "
-                f"{r['ms']:.5f}, {r['launches']:g}, {r['bound']:.7f} {r['by']}"
+            f"prove / timed prove / FS prove / batched calls at B = 4 and "
+            f"64, ms per call, launches per call, bound ms): " + "; ".join(
+                f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
+                f"{r['fs']}/{r['batched']}, {r['ms']:.5f}, "
+                f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
                 for s, r in per.items())
             + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
             f"{rows[entry]['timed_bound']:.5f}), one driver prove "
@@ -738,12 +919,54 @@ def main():
             f"twin {plain_ms:.3f} ms")
     example.clear()
 
-    # ---- whole-prove profiles, after every per-shape profile: a large
+    # ---- whole-call profiles, after every per-shape profile: a large
     # trace makes later short profiles miss launches (9 of 20 K1 launches
     # after a 120k-launch trace: scripts/torch_profiler_probe.py), so they
-    # come last, and the second checks its count of the port's kernels
-    # against the launch counters
+    # come last.  The batched and FS ones check their counts of the port's
+    # kernels against the launch counters.  The batched call goes first (a
+    # batched trace made after the timed prove's missed its chain and
+    # forest launches), device activity only, repeated up to 5 times while
+    # a launch is missing.
     from torch.profiler import ProfilerActivity, profile
+    xs = witness_batch(PROFILED_BATCH)
+    batched(xs)
+    torch.cuda.synchronize()
+    for b_try in range(1, 6):
+        kernels.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            batched(xs)
+            torch.cuda.synchronize()
+        b_launches = dict(kernels.LAUNCHES)
+        b_rows = [(device_us(e), e.count, e.key)
+                  for e in prof.key_averages() if is_device_row(e)]
+        b_profiled = {e: [0.0, 0] for e in KERNEL_NAMES}
+        for entry, names in KERNEL_NAMES.items():
+            for us, cnt, key in b_rows:
+                if any(n in key for n in names):
+                    b_profiled[entry][0] += us / 1e3
+                    b_profiled[entry][1] += cnt
+        held = all(b_profiled[e][1] == b_launches[e] for e in KERNEL_NAMES)
+        if held:
+            break
+    b_busy = sum(r[0] for r in b_rows) / 1e3
+    b_idle = None
+    if b_busy > 0:
+        med = statistics.median(per_b[PROFILED_BATCH]["wall_ms"])
+        b_idle = 1 - b_busy / med
+        say(f"phase 8 profile of one batched call at B = {PROFILED_BATCH} "
+            f"(try {b_try}): {sum(r[1] for r in b_rows)} kernel launches, "
+            f"device busy {b_busy:.3f} ms; idle share {b_idle:.4f} of the "
+            f"median wall {med:.1f} ms; the port's kernels (device ms, "
+            f"launches): {b_profiled}, "
+            + ("every launch of the counters held" if held
+               else "launches missing against the counters in every try: "
+               "device busy is a lower bound"))
+        for us, cnt, key in sorted(b_rows, reverse=True)[:8]:
+            say(f"phase 8   {us / 1e3:9.3f} ms  x{cnt:6d}  {key[:90]}")
+    else:
+        say("phase 8 profile: the profiler recorded no device time "
+            "(device busy share not measured)")
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         timed_prove()
@@ -814,7 +1037,8 @@ def main():
         source, replaces = SOURCE_AND_REPLACES[entry]
         return {"name": entry, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": launches[entry] + fs_path_launches[entry],
+                "launches": (launches[entry] + fs_path_launches[entry]
+                             + batched_launches[entry]),
                 "max_abs_err": err[entry], "ms": top["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": top["bound"],
                 "bound_by": top["by"], "library_ms": None,
@@ -826,7 +1050,9 @@ def main():
                 "glibc_path_launches": launches[entry],
                 "fs_prove_launches": fs_launches[entry],
                 "fs_prove_kernel_ms": row["fs_ms"],
-                "fs_prove_profiled_ms": fs_profiled[entry][0]}
+                "fs_prove_profiled_ms": fs_profiled[entry][0],
+                "batched_call_launches": batched_launches[entry],
+                "batched_profiled_ms": b_profiled[entry][0]}
 
     report = {"kernels": [entry_json(e) for e in KERNEL_NAMES],
               "timed_prove_ms": t_e2e, "verify_ms": t_verify,
@@ -834,7 +1060,14 @@ def main():
               "idle_share_of_median": idle,
               "fs_prove_launches": fs_launches, "fs_prove_ms": t_fs_prove,
               "fs_verify_ms": t_fs_verify, "fs_device_busy_ms": fs_busy or None,
-              "fs_idle_share": fs_idle}
+              "fs_idle_share": fs_idle,
+              "batched": {str(b): {k: per_b[b][k] for k in
+                                   ("wall_ms", "proofs_per_s", "peak_bytes",
+                                    "call_peak_bytes")}
+                          for b in BATCHES},
+              "batched_profiled_b": PROFILED_BATCH,
+              "batched_device_busy_ms": b_busy or None,
+              "batched_idle_share": b_idle}
     say(f"card: {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from virgo_plus_tpu_torch import cli, device, driver, kernels
+from virgo_plus_tpu_torch.circuits.compile import compile_circuit
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.config import ProtocolConfig
+from virgo_plus_tpu_torch.gkr import protocol
+from virgo_plus_tpu_torch.parallel import sharded
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "virgo_plus_tpu_torch"
@@ -87,3 +90,15 @@ def test_default_device_without_cuda_raises(monkeypatch, capsys, tmp_path):
     assert exc.value.code == 2 and "CUDA" in capsys.readouterr().err
     assert kernels.PLAIN_CALLS == before      # nothing ran on the CPU
     assert device.resolve("cpu") == torch.device("cpu")
+
+
+def test_batched_provers_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = randomize(2, 7, seed=3)
+    subset_init(c)
+    cc = compile_circuit(c)
+    plans = protocol.build_plans(cc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.make_batched_prover(cc, plans, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.make_batched_full_prover(cc, plans)

@@ -153,11 +153,14 @@ def compile_circuit(c: LayeredCircuit) -> CompiledCircuit:
 
 def input_buffer(cc: CompiledCircuit, witness: Optional[np.ndarray],
                  device):
-    """(2, 2^input_bl) int64 padded input-layer values on the device."""
+    """(2, 2^input_bl) int64 padded input-layer values on the device.  A
+    (B, 2, n) witness batch gives (2, B, 2^input_bl)."""
     if witness is None:
         witness = cc.source.input_values
-    vals = np.zeros((2, cc.layers[0].padded), dtype=np.uint64)
-    vals[:, :witness.shape[1]] = witness
+    witness = np.asarray(witness)
+    vals = np.zeros((2,) + witness.shape[:-2] + (cc.layers[0].padded,),
+                    dtype=np.uint64)
+    vals[..., :witness.shape[-1]] = np.moveaxis(witness, -2, 0)
     return gf.tensor(vals, device)
 
 
@@ -177,19 +180,26 @@ def eval_arrays(cc: CompiledCircuit, device) -> dict:
     return arrs
 
 
+def coeffs(co, n_lead: int):
+    """A layer's (4, 2, size) coefficient planes as A, B, C, D, each shaped
+    (2, 1, ..., size) to broadcast over `n_lead` batch axes."""
+    return co.reshape((4, 2) + (1,) * n_lead + (-1,))
+
+
 def evaluate(cc: CompiledCircuit, inputs, arrs):
-    """Forward pass: returns the concatenated (2, total_values) buffer,
-    written layer by layer in place."""
-    values = torch.zeros((2, cc.total_values), dtype=torch.int64,
-                         device=inputs.device)
-    values[:, :inputs.shape[1]] = inputs
+    """Forward pass: inputs (2, ..., n) -> the concatenated (2, ...,
+    total_values) buffer, written layer by layer in place; the middle axes
+    (a batch of witnesses) share the circuit."""
+    values = torch.zeros(inputs.shape[:-1] + (cc.total_values,),
+                         dtype=torch.int64, device=inputs.device)
+    values[..., :inputs.shape[-1]] = inputs
     for i in range(1, cc.depth):
         L = cc.layers[i]
-        x = values[:, int(cc.value_off[i - 1]) + arrs[f"x{i}"]]
-        y = values[:, arrs[f"y{i}"]]
-        A, B, C, D = arrs[f"co{i}"]
+        x = values[..., int(cc.value_off[i - 1]) + arrs[f"x{i}"]]
+        y = values[..., arrs[f"y{i}"]]
+        A, B, C, D = coeffs(arrs[f"co{i}"], inputs.dim() - 2)
         out = gf.add(gf.add(gf.mul(A, x), gf.mul(B, y)),
                      gf.add(gf.mul(C, gf.mul(x, y)), D))
         off = int(cc.value_off[i])
-        values[:, off:off + L.size] = out
+        values[..., off:off + L.size] = out
     return values

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import device as _device
-from . import proof_io
+from . import native, proof_io
 from .config import ProtocolConfig
 from .field import gf
 from .field.ref import Fq2
@@ -99,10 +99,16 @@ class CompiledProver:
 
 
 def load_circuit(pws_path: str, bug_compat: bool = True,
+                 prefer_native: bool = True,
                  config: Optional[ProtocolConfig] = None) -> LayeredCircuit:
-    """Parse + layer + subset-init (the Python frontend)."""
+    """Parse + layer + subset-init.  Uses the native C++ frontend (built at
+    first use) unless no C++ compiler is found; then, or with
+    prefer_native=False, the Python frontend, which gives the same
+    structures.  A failed native build or parse raises."""
     if config is not None:
         bug_compat = config.bug_compat
+    if prefer_native and native.available():
+        return native.load_circuit(pws_path, bug_compat=bug_compat)
     c = dag_to_layered(parse_pws(pws_path), bug_compat=bug_compat)
     subset_init(c)
     return c

@@ -25,12 +25,20 @@ from .pc.fft import ifft
 
 
 def prove_e2e(cc: CompiledCircuit, plans, inputs, ch, fold_rands, arrs,
-              timer=None):
+              timer=None, final_point=None):
     """Full prove on the device of ``inputs``.  fold_rands: list of (2,)
-    fold challenges.  All codewords (l, h, every LDT level) are computed
-    first, then every leaf chain and Merkle tree hashes as one batch.
-    timer: optional metrics.PhaseTimer; each phase is then timed between
-    device synchronisations (off by default: no synchronisation at all).
+    fold challenges; final_point: the PC's evaluation point, by default
+    the input-layer point of ``ch``.  All codewords (l, h, every LDT
+    level) are computed first, then every leaf chain and Merkle tree
+    hashes as one batch.  timer: optional metrics.PhaseTimer; each phase
+    is then timed between device synchronisations (off by default: no
+    synchronisation at all).
+
+    inputs (2, N) proves one witness.  A batch (2, B, N) of witnesses,
+    under the same challenges, runs through the same calls with every
+    tensor carrying the batch after its plane axis (the proof's arrays
+    carry it first: ``protocol.prove``), so each kernel launches as often
+    as for one witness.
 
     Returns (proof, l_oracle, h_oracle, all_sum, q_coefs, ldt)."""
     bl0 = cc.layers[0].bit_length
@@ -44,7 +52,8 @@ def prove_e2e(cc: CompiledCircuit, plans, inputs, ch, fold_rands, arrs,
     with span("commit_encode"):
         l_eval, _l_coefs = virgo_pc._slice_encode(inputs, bl0)
     with span("public_commit"):
-        final_point = ch.layers[1].r_liu[:, :bl0]
+        if final_point is None:
+            final_point = ch.layers[1].r_liu[:, :bl0]
         q_values = beta_table(final_point, bl0, gf.ones((), inputs.device))
         srec_lg = bl0 - virgo_pc.LOG_SLICE
         q_coefs = ifft(q_values.reshape(2, virgo_pc.SLICES, 1 << srec_lg),

@@ -17,6 +17,7 @@ discharged by the polynomial commitment (pc/).
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -26,7 +27,7 @@ import torch
 
 from ..field import gf
 from ..utils.glibc_rand import GlibcRandom
-from ..circuits.compile import CompiledCircuit, index
+from ..circuits.compile import CompiledCircuit, coeffs, index
 from .beta import beta_table, beta_tables_batched
 from .sumcheck import (ScatterPlan, apply_scatter_arrays,
                        concat_scatter_plans, eval_quad, mle_fold,
@@ -211,7 +212,7 @@ class Proof:
 
 def _values_block(cc, values, i):
     off = int(cc.value_off[i])
-    return values[:, off:off + cc.layers[i].padded]
+    return values[..., off:off + cc.layers[i].padded]
 
 
 def _batched_betas(jobs):
@@ -237,6 +238,19 @@ def _scale_beta_asserts(cc, i, bg, assert_r, mask):
     return torch.where(mask[None, :], gf.mul(bg, assert_r[:, None]), bg)
 
 
+def _shared(t, n_lead: int):
+    """A (2, n) table that depends only on the challenges, shaped
+    (2, 1, ..., n) to broadcast over `n_lead` batch axes."""
+    return t.reshape((2,) + (1,) * n_lead + (-1,))
+
+
+def _lead_first(t, axis: int, n_lead: int):
+    """Move the `n_lead` batch axes that start at `axis` to the front."""
+    if not n_lead:
+        return t
+    return t.movedim(tuple(range(axis, axis + n_lead)), tuple(range(n_lead)))
+
+
 def _groups(cc):
     """Static fold groups: which tables fold together per size."""
     p1_groups = {}
@@ -256,8 +270,14 @@ def _groups(cc):
 def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
     """Full GKR proof.  All sumchecks of one table size fold in one K1
     launch: layers are independent once the challenge schedule is fixed,
-    so the messages are the same as a per-layer walk's."""
+    so the messages are the same as a per-layer walk's.
+
+    values (2, T) gives one proof; a batch (2, B, T) of witnesses of the
+    same circuit, proved under the same challenges, gives one Proof whose
+    arrays carry the batch first (vres (B, 2), p1_polys (B, bl, 2, 3), ...),
+    with each batch's tables folded as more tables of the same K1 calls."""
     depth = cc.depth
+    n_lead = values.dim() - 2
     p1_groups, p2_groups = _groups(cc)
     vres, p1_stacked, liu_stacked = _prove_inits(cc, plans, values, ch, arrs)
     # p1 and Liu tables are both ready after the inits, so same-size jobs
@@ -271,7 +291,7 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
         if bl in liu_stacked:
             parts.append(liu_stacked[bl])
             tags += [("liu", i) for i in p1_groups[bl]]
-        m_stacked[bl] = tuple(torch.cat([p[k] for p in parts], dim=1)
+        m_stacked[bl] = tuple(torch.cat([p[k] for p in parts], dim=-2)
                               for k in range(4))
         m_groups[bl] = tags
     m_res = _apply_grouped(m_stacked, m_groups)
@@ -282,40 +302,63 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
     claims = {i: p1_res[i][1] for i in p1_res}
     p2_stacked = _prove_p2_inits(cc, plans, values, ch, claims, arrs)
     p2_scan = _apply_grouped(p2_stacked, p2_groups, bounds=True)
-    p2_out = _prove_p2_combine(cc, ch, p2_scan)
+    p2_out = _prove_p2_combine(cc, ch, p2_scan, values.shape[1:-1])
 
+    lead = lambda t, axis: None if t is None else _lead_first(t, axis, n_lead)
     layer_proofs: List[Optional[LayerProof]] = [None] * depth
     for i in range(depth - 1, 0, -1):
         p2_polys, claims_v = p2_out.get(i, (None, None))
         layer_proofs[i] = LayerProof(
-            p1_polys=p1_res[i][0], claim_u=p1_res[i][1],
-            p2_polys=p2_polys, claims_v=claims_v,
-            liu_polys=liu_res[i][0], liu_claim=liu_res[i][1])
-    return Proof(vres=vres, layers=layer_proofs)
+            p1_polys=lead(p1_res[i][0], 2), claim_u=lead(p1_res[i][1], 1),
+            p2_polys=lead(p2_polys, 2), claims_v=lead(claims_v, 2),
+            liu_polys=lead(liu_res[i][0], 2),
+            liu_claim=lead(liu_res[i][1], 1))
+    return Proof(vres=lead(vres, 1), layers=layer_proofs)
 
 
 def _unstack(raw, groups, bounds=False):
-    """raw: {bl: (polys, (vb, ab, mb))} batched fold outputs;
-    groups: {bl: [tag, ...]} table order.  Returns {tag: result}."""
+    """raw: {bl: (polys (bl, 2, ..., K, 3), (vb, ab, mb) each (2, ..., K))}
+    batched fold outputs; groups: {bl: [tag, ...]} table order.  Returns
+    {tag: result}."""
     out = {}
     for bl, (polys, (vb, ab, mb)) in sorted(raw.items()):
         for kk, tag in enumerate(groups[bl]):
             if bounds:
-                out[tag] = (polys[:, kk], (vb[:, kk], ab[:, kk], mb[:, kk]))
+                out[tag] = (polys[..., kk, :],
+                            (vb[..., kk], ab[..., kk], mb[..., kk]))
             else:
-                out[tag] = (polys[:, kk], vb[:, kk])
+                out[tag] = (polys[..., kk, :], vb[..., kk])
     return out
 
 
+def _fold_stacked(v, a, m, rs):
+    """One K1 call on stacked jobs: v, a, m (2, ..., K, 2^bl), rs (2, K, bl)
+    shared by the middle (batch) axes, which fold as more tables.  Returns
+    (polys (bl, 2, ..., K, 3), bound (v, a, m) each (2, ..., K))."""
+    lead = v.shape[1:-2]
+    k, n = v.shape[-2:]
+    bl = rs.shape[-1]
+    nk = math.prod(lead) * k
+    rs = rs.reshape((2,) + (1,) * len(lead) + (k, bl)).expand(
+        (2,) + lead + (k, bl))
+    polys, bound = scan_sumcheck_batched(
+        v.reshape(2, nk, n), a.reshape(2, nk, n), m.reshape(2, nk, n),
+        rs.reshape(2, nk, bl))
+    polys = polys.reshape((bl,) + lead + (k, 2, 3)).movedim(-2, 1)
+    return polys, tuple(b.reshape((2,) + lead + (k,)) for b in bound)
+
+
 def _apply_grouped(stacked, groups, bounds=False):
-    """Fold every table size as its own K1 launch (K tables each)."""
-    raw = {bl: scan_sumcheck_batched(*job)
-           for bl, job in sorted(stacked.items())}
+    """Fold every table size as its own K1 launch (K tables each, times the
+    batch)."""
+    raw = {bl: _fold_stacked(*job) for bl, job in sorted(stacked.items())}
     return _unstack(raw, groups, bounds)
 
 
 def _stack_jobs(jobs):
-    return {bl: tuple(torch.stack([g[k] for g in group], dim=1)
+    """{bl: [(v, a, m, r), ...]} -> {bl: (v, a, m (2, ..., K, 2^bl),
+    rs (2, K, bl))}: tables stack on the axis before the last."""
+    return {bl: tuple(torch.stack([g[k] for g in group], dim=-2)
                       for k in range(4))
             for bl, group in jobs.items()}
 
@@ -328,9 +371,11 @@ def _r_cur(cc, ch, i):
 def _prove_inits(cc, plans, values, ch, arrs):
     """vres + phase-1 and Liu table inits for every layer.  All gate
     scatters (add/mult contributions of every layer plus every Liu consumer
-    part) run as one fused segment sum."""
+    part) run as one fused segment sum.  Beta tables depend only on the
+    challenges: a batch shares them."""
     depth = cc.depth
     dev = values.device
+    lead = values.shape[1:-1]
     one = gf.ones((), dev)
     vres = mle_fold(_values_block(cc, values, depth - 1), ch.r_out)
 
@@ -358,26 +403,29 @@ def _prove_inits(cc, plans, values, ch, arrs):
         chl = ch.layers[i]
         bg = _scale_beta_asserts(cc, i, betas[("bg", i)], chl.assert_r,
                                  arrs.get(f"ia{i}"))[:, :L.size]
-        y = values[:, arrs[f"y{i}"]]
-        A, B, C, D = arrs[f"co{i}"]
+        y = values[..., arrs[f"y{i}"]]
+        A, B, C, D = coeffs(arrs[f"co{i}"], len(lead))
         contribs[("add", i)] = gf.mul(bg, gf.add(gf.mul(B, y), D))
         contribs[("mult", i)] = gf.mul(bg, gf.add(A, gf.mul(C, y)))
         pre = cc.layers[i - 1]
         base = torch.zeros((2, pre.padded), dtype=torch.int64, device=dev)
         base[:, :pre.size] = betas[("bsig", i)][:, :pre.size]
-        multL_base[i] = base
+        multL_base[i] = _shared(base, len(lead))
         if P.liu_plan is not None:
-            contribs[("liu", i)] = torch.cat(
+            contribs[("liu", i)] = _shared(torch.cat(
                 [betas[("bt", i, j)][:, :ds]
-                 for (j, ds, bl_jl, off) in P.liu_consumers], dim=1)
+                 for (j, ds, bl_jl, off) in P.liu_consumers], dim=1),
+                len(lead))
 
+    # the Liu parts depend on the challenges only: broadcast over a batch
     fused = apply_scatter_arrays(
-        torch.cat([contribs[(k, i)] for (k, i, _n, _o) in blocks], dim=1),
+        torch.cat([contribs[(k, i)].expand((2,) + lead + (-1,))
+                   for (k, i, _n, _o) in blocks], dim=-1),
         arrs["initsP"])
     slices = {}
     off = 0
     for (k, i, _n, out_len) in blocks:
-        slices[(k, i)] = fused[:, off:off + out_len]
+        slices[(k, i)] = fused[..., off:off + out_len]
         off += out_len
 
     p1_jobs = {}
@@ -393,6 +441,7 @@ def _prove_inits(cc, plans, values, ch, arrs):
         multL = multL_base[i]
         if P.liu_plan is not None:
             multL = gf.add(multL, slices[("liu", i)])
+        multL = multL.expand(vloc.shape)
         liu_jobs.setdefault(bl_prev, []).append(
             (vloc, torch.zeros_like(multL), multL, chl.r_liu[:, :bl_prev]))
     return vres, _stack_jobs(p1_jobs), _stack_jobs(liu_jobs)
@@ -424,19 +473,19 @@ def _prove_p2_inits(cc, plans, values, ch, claims, arrs):
         chl = ch.layers[i]
         bg = _scale_beta_asserts(cc, i, betas[("bg", i)], chl.assert_r,
                                  arrs.get(f"ia{i}"))[:, :L.size]
-        A, B, C, D = arrs[f"co{i}"]
+        A, B, C, D = coeffs(arrs[f"co{i}"], values.dim() - 2)
         tmp_g = gf.mul(bg, betas[("bu", i)][:, arrs[f"x{i}"]])
-        cu = claims[i][:, None]
+        cu = claims[i][..., None]
         contribs[("p2a", i)] = gf.mul(tmp_g, gf.add(gf.mul(A, cu), D))
         contribs[("p2m", i)] = gf.mul(tmp_g, gf.add(B, gf.mul(C, cu)))
 
     fused = apply_scatter_arrays(
-        torch.cat([contribs[(k, i)] for (k, i, _n, _o) in blocks], dim=1),
+        torch.cat([contribs[(k, i)] for (k, i, _n, _o) in blocks], dim=-1),
         arrs["p2P"])
     slices = {}
     off = 0
     for (k, i, _n, out_len) in blocks:
-        slices[(k, i)] = fused[:, off:off + out_len]
+        slices[(k, i)] = fused[..., off:off + out_len]
         off += out_len
 
     p2_jobs = {}
@@ -447,23 +496,24 @@ def _prove_p2_inits(cc, plans, values, ch, claims, arrs):
         chl = ch.layers[i]
         addV = slices[("p2a", i)]
         multV = slices[("p2m", i)]
-        vdad = torch.where(arrs[f"dgm{i}"][None, :],
-                           values[:, arrs[f"dg{i}"]], 0)
+        vdad = torch.where(arrs[f"dgm{i}"], values[..., arrs[f"dg{i}"]], 0)
         for li in range(i):
             if L.dad_sizes[li] == 0:
                 continue
             bl_l = L.dad_bls[li]
             sl = slice(L.dad_offsets[li], L.dad_offsets[li] + (1 << bl_l))
             p2_jobs.setdefault(bl_l, []).append(
-                (vdad[:, sl], addV[:, sl], multV[:, sl], chl.r_v[:, :bl_l]))
+                (vdad[..., sl], addV[..., sl], multV[..., sl],
+                 chl.r_v[:, :bl_l]))
     return _stack_jobs(p2_jobs)
 
 
-def _prove_p2_combine(cc, ch, p2_res):
-    """Per-layer phase-2 round messages + add_term chain + claims."""
+def _prove_p2_combine(cc, ch, p2_res, lead):
+    """Per-layer phase-2 round messages + add_term chain + claims; every
+    per-layer scalar is (2, *lead) for a batch of shape `lead`."""
     dev = ch.r_out.device
     one = gf.ones((), dev)
-    zero = gf.zeros((), dev)
+    zero = gf.zeros(lead, dev)
     p2_out = {}
     for i in range(cc.depth - 1, 0, -1):
         L = cc.layers[i]
@@ -475,7 +525,7 @@ def _prove_p2_combine(cc, ch, p2_res):
         for j in range(L.max_dad_bit_length):
             if j > 0:
                 a_term = gf.mul(a_term, gf.sub(one, chl.r_v[:, j - 1]))
-            pj = gf.zeros((3,), dev)
+            pj = gf.zeros(lead + (3,), dev)
             for li in range(i):
                 if L.dad_sizes[li] == 0:
                     continue
@@ -486,14 +536,16 @@ def _prove_p2_combine(cc, ch, p2_res):
                 elif j == bl_l:
                     vb, ab, mb = bounds_l
                     a_term = gf.add(a_term, gf.add(gf.mul(vb, mb), ab))
-            pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], 1))
+            pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], -1))
             out_polys.append(pj)
         p2_polys = (torch.stack(out_polys) if out_polys
-                    else torch.zeros((0, 2, 3), dtype=torch.int64, device=dev))
+                    else torch.zeros((0, 2) + lead + (3,), dtype=torch.int64,
+                                     device=dev))
         cl = [p2_res[(i, li)][1][0] if L.dad_sizes[li] > 0 else zero
               for li in range(i)]
         claims_v = (torch.stack(cl) if cl
-                    else torch.zeros((0, 2), dtype=torch.int64, device=dev))
+                    else torch.zeros((0, 2) + lead, dtype=torch.int64,
+                                     device=dev))
         p2_out[i] = (p2_polys, claims_v)
     return p2_out
 

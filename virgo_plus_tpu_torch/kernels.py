@@ -147,5 +147,12 @@ def check_cuda(name: str, tensors, shapes):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
+def check_int(name: str, **counts):
+    """Counts passed to a C entry as `int` must fit in 31 bits."""
+    for what, n in counts.items():
+        if not 0 <= n < 2 ** 31:
+            raise ValueError(f"{name}: {what} = {n} does not fit a C int")
+
+
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream

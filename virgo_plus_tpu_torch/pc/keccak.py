@@ -94,6 +94,7 @@ def sha3_256_x64_cuda(words):
     """K2 on the card: same signature and bits as sha3_256_x64_plain."""
     n = words.shape[1]
     kernels.check_cuda("sha3_256_x64", (words,), [(8, n)])
+    kernels.check_int("sha3_256_x64", messages=n)
     out = torch.empty((4, n), dtype=torch.int64, device=words.device)
     if n:
         kernels.launch("sha3_256_x64", 1, words.data_ptr(), out.data_ptr(), n,
@@ -116,6 +117,7 @@ def sha3_chain_x64_cuda(xs):
     bits as sha3_chain_x64_plain."""
     steps, _, n = xs.shape
     kernels.check_cuda("sha3_chain_x64", (xs,), [(steps, 4, n)])
+    kernels.check_int("sha3_chain_x64", steps=steps, leaves=n)
     out = torch.empty((4, n), dtype=torch.int64, device=xs.device)
     if n:
         kernels.launch("sha3_chain_x64", 1, xs.data_ptr(), out.data_ptr(),

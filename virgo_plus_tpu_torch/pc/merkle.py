@@ -77,6 +77,7 @@ def forest_cuda(leaves, sizes):
         rows.append([off, lg, heap.data_ptr(), blocks, 0])
         off += n
         blocks += n >> min(lg, FOREST_SUB_LOG)
+    kernels.check_int("merkle_forest", trees=len(sizes), blocks=blocks)
     if blocks:
         trees = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
