@@ -8,8 +8,9 @@ package.  Phases, one line each, any failure exits non-zero:
 1. the card's name and power limit; build the kernels (one ``nvcc`` per
    source, started together) into ``build/torch_kernels/``;
 2. K1 (sumcheck fold) against its plain twin, bit for bit, on either side
-   of the shared-memory boundary; each call's device launches equal
-   ``sumcheck.fold_launches(bl)``;
+   of the shared-memory boundary and at the sharded provers' shapes (the
+   local folds and the 2^1-2^3-entry tails); each call's device launches
+   equal ``sumcheck.fold_launches(bl)``;
 3. K2's three entries against their plain twins: single SHA3-256 hashes
    (also against hashlib), the fused 65-step leaf chain at the main path's
    widths, and the Merkle forest on the main path's forest, on one tree of
@@ -47,17 +48,30 @@ package.  Phases, one line each, any failure exits non-zero:
    launches per batched call are the same at every B in (1, 4, 16, 64)
    (one chain, one forest); wall times (3 runs after a warm-up), proofs
    per second and peak device memory at each B, and (at the end) a
-   profile of one batched call at B = 16.
+   profile of one batched call at B = 16;
+9. the sharded provers (``parallel/gkr_sharded``, ``parallel/fs_sharded``)
+   at full width, S ranks of ``parallel.mesh.spawn`` sharing the one card
+   over gloo: the glibc ``prove_sharded`` at S = 2 and S = 4 and
+   ``prove_fs_sharded`` at S = 2 each equal the single-device card proof of
+   phase 5 or 7 in every array (meta adds ``mesh_shards``) and verify, and a
+   tampered one is rejected; each rank proves with its launch counts reset
+   just before and read just after, rank 0 recording every kernel call and
+   holding it against its plain twin; every rank makes the same launches
+   and no plain twin call; launches per rank per entry, the backend, the
+   walls of every rank and each rank's peak device memory are printed.
 
 Phase 4 starts by building the native C++ frontend into ``build/native/``
 and holding its small1200 circuit against the Python frontend's, field by
 field; from there on ``driver.load_circuit`` uses it.  Then each kernel
-entry's device time per call at every shape the glibc, FS and batched paths
-gave it, from the profiler, beside its bound and its plain twin, and last
+entry's device time per call at every shape the glibc, FS, batched and
+sharded paths gave it, from the profiler, beside its bound and its plain
+twin (a sharded shape on random inputs of that shape: rank 0's calls are
+held in its own process), and last
 the three whole-call profiles: a large trace makes every later short
 profile miss launches.  The last lines are the card line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
-batched runs together), and ``{"ok": true, "device": {...}}``.
+batched runs and rank 0 of the three sharded runs together), and
+``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -116,6 +130,13 @@ FS_RUNS = 3                  # ... of driver.prove_fs and driver.verify_fs
 BATCHES = (1, 4, 16, 64)     # witnesses per batched call (phase 8)
 BATCH_RUNS = 3               # wall-clock runs of a batched call per B
 PROFILED_BATCH = 16          # B of the profiled batched call
+SHARDED = ((2, ("glibc", "fs")), (4, ("glibc",)))   # S, transcripts
+SHARDED_RUNS = 2             # timed proves per rank after the recorded one
+# K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
+# five table groups at S = 2 and 4, and tails of 1-3 bits
+K1_SHARDED = ([(bl - s, k) for s in (1, 2) for bl, k in
+               ((13, 26), (10, 63), (11, 22), (12, 5), (13, 1))]
+              + [(b, k) for b in (1, 2, 3) for k in (1, 5, 22, 26, 63)])
 
 
 def fail(msg):
@@ -356,6 +377,140 @@ class Recorder:
             setattr(m, a, self.saved[e])
 
 
+def kernel_tables():
+    """The port's kernel wrappers and plain twins: (kernels module,
+    {entry: (module, wrapper name)}, {entry: twin}, expected_launches)."""
+    from virgo_plus_tpu_torch import kernels
+    from virgo_plus_tpu_torch.gkr import sumcheck
+    from virgo_plus_tpu_torch.pc import keccak, merkle
+
+    wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
+                "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
+                "sha3_chain_x64": (keccak, "sha3_chain_x64_cuda"),
+                "merkle_forest": (merkle, "forest_cuda")}
+    twin = {"sumcheck_fold": sumcheck.fold_plain,
+            "sha3_256_x64": keccak.sha3_256_x64_plain,
+            "sha3_chain_x64": keccak.sha3_chain_x64_plain,
+            "merkle_forest": merkle.forest_plain}
+
+    def expected_launches(entry, ins):
+        if entry == "sumcheck_fold":
+            return sumcheck.fold_launches(ins[3].shape[2])
+        n = ins[0].shape[-1]
+        return 1 if n else 0
+
+    return kernels, wrappers, twin, expected_launches
+
+
+def compare_calls(torch, calls, twin, expected_launches, what):
+    """Hold every recorded call against its twin on the same inputs and its
+    launches against the rule; fail at the first difference.  The SHA3
+    twin hashes each message column on its own, so the recorded
+    sha3_256_x64 calls (thousands of one-message sponge calls in an FS
+    prove) are held together: one twin call on all their messages side by
+    side.  Returns ({entry: Counter of shapes}, {entry: max_abs_err},
+    {(entry, shape): the inputs of one call})."""
+    shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+    err = {e: 0.0 for e in KERNEL_NAMES}
+    example, sponge = {}, []
+    for entry, ins, outs, launched in calls:
+        shp = shape_of(entry, ins)
+        if launched != expected_launches(entry, ins):
+            fail(f"{entry} made {launched} launches on the {what}'s call at "
+                 f"shape {shp}, expected {expected_launches(entry, ins)}")
+        shapes[entry][shp] += 1
+        example.setdefault((entry, shp), ins)
+        if entry == "sha3_256_x64":
+            sponge.append((ins[0], outs[0]))
+            continue
+        e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
+        if e != 0.0:
+            fail(f"{entry} differs from its plain twin on the {what}'s call "
+                 f"at shape {shp}")
+        err[entry] = max(err[entry], e)
+    if sponge:
+        msgs = torch.cat([m for m, _ in sponge], dim=1)
+        e = max_abs_err(torch, (torch.cat([d for _, d in sponge], dim=1),),
+                        (twin["sha3_256_x64"](msgs),))
+        if e != 0.0:
+            fail(f"sha3_256_x64 differs from its plain twin on one of the "
+                 f"{what}'s {len(sponge)} calls")
+        err["sha3_256_x64"] = e
+    calls.clear()
+    return shapes, err, example
+
+
+def random_inputs(torch, np, gf, entry, shp, dev, rng):
+    """Random inputs of one kernel call at shape `shp` (shape_of's)."""
+    M = gf.MOD
+    if entry == "sumcheck_fold":
+        bl, k = shp
+        return tuple(gf.tensor(rng.integers(0, M, size=(2, k, 1 << bl),
+                                            dtype=np.uint64), dev)
+                     for _ in range(3)) + (gf.tensor(rng.integers(
+                         0, M, size=(2, k, bl), dtype=np.uint64), dev),)
+    words = lambda *s: gf.tensor(rng.integers(0, 2 ** 64, size=s,
+                                              dtype=np.uint64), dev)
+    if entry == "sha3_256_x64":
+        return (words(8, shp[0]),)
+    if entry == "sha3_chain_x64":
+        return (words(shp[0], 4, shp[1]),)
+    return (words(4, sum(shp)), list(shp))
+
+
+def sharded_rank(mesh, circuit, transcripts, runs):
+    """Phase 9 on one rank: per transcript, compile, then one prove with
+    the launch counts reset just before and read just after (rank 0
+    recording every kernel call and holding it against its twin), then
+    `runs` timed proves.  Returns {transcript: results}."""
+    import torch
+    import torch.distributed
+    from virgo_plus_tpu_torch.parallel import fs_sharded, gkr_sharded
+
+    kernels, wrappers, twin, expected_launches = kernel_tables()
+    out = {}
+    for tr in transcripts:
+        if tr == "fs":
+            comp = fs_sharded.compile_fs_sharded(circuit, mesh)
+            prove = lambda: fs_sharded.prove_fs_sharded(circuit, mesh,
+                                                        compiled=comp)
+        else:
+            comp = gkr_sharded.compile_sharded(circuit, mesh)
+            prove = lambda: gkr_sharded.prove_sharded(circuit, mesh,
+                                                      compiled=comp)
+        torch.cuda.synchronize()
+        with Recorder(kernels, wrappers if mesh.rank == 0 else {}) as rec:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            full, info = prove()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            plain = dict(kernels.PLAIN_CALLS)
+        shapes, err, _ = compare_calls(
+            torch, rec.calls, twin, expected_launches,
+            f"rank 0's sharded {tr} prove at S = {mesh.sp}")
+        # rank 0's twin checks above hold the others in their first
+        # collective: start the timed proves together
+        torch.distributed.barrier()
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prove()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[tr] = dict(full=full if mesh.rank == 0 else None,
+                       launches=launches, plain=plain, first_s=first,
+                       wall_ms=walls, backend=mesh.backend,
+                       device=str(mesh.device),
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       pc_bytes=info.get("per_rank_pc_bytes"),
+                       shapes=shapes, err=err)
+    return out
+
+
 def main():
     try:
         import torch
@@ -367,31 +522,19 @@ def main():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from virgo_plus_tpu_torch import driver, fused, kernels, native, proof_io
+    from virgo_plus_tpu_torch import driver, fused, native, proof_io
     from virgo_plus_tpu_torch.circuits.compile import input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import protocol
     from virgo_plus_tpu_torch.gkr import sumcheck
+    from virgo_plus_tpu_torch.parallel import mesh as pmesh
     from virgo_plus_tpu_torch.parallel.sharded import make_batched_full_prover
-    from virgo_plus_tpu_torch.pc import fft_gkr, keccak, merkle, virgo_pc
+    from virgo_plus_tpu_torch.pc import fft_gkr, virgo_pc
     from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
-    wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
-                "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
-                "sha3_chain_x64": (keccak, "sha3_chain_x64_cuda"),
-                "merkle_forest": (merkle, "forest_cuda")}
+    kernels, wrappers, twin, expected_launches = kernel_tables()
     cuda_fn = {e: getattr(m, a) for e, (m, a) in wrappers.items()}
-    twin = {"sumcheck_fold": sumcheck.fold_plain,
-            "sha3_256_x64": keccak.sha3_256_x64_plain,
-            "sha3_chain_x64": keccak.sha3_chain_x64_plain,
-            "merkle_forest": merkle.forest_plain}
-
-    def expected_launches(entry, ins):
-        if entry == "sumcheck_fold":
-            return sumcheck.fold_launches(ins[3].shape[2])
-        n = ins[0].shape[-1]
-        return 1 if n else 0
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -443,8 +586,13 @@ def main():
             rs = gf.tensor(rng.integers(0, M, size=(2, k, bl),
                                         dtype=np.uint64), dev)
             held("sumcheck_fold", (*ins, rs), f"bl={bl} K={k}")
+    for shp in K1_SHARDED:
+        held("sumcheck_fold", random_inputs(torch, np, gf, "sumcheck_fold",
+                                            shp, dev, rng),
+             f"the sharded shape (bl, K) = {shp}")
     say(f"phase 2 ok: K1 == plain twin bit for bit, bl in {k1_sizes} x K in "
-        f"(1, 3, 26); launches per call == fold_launches(bl) "
+        f"(1, 3, 26) and at the sharded shapes (bl, K) {K1_SHARDED}; "
+        f"launches per call == fold_launches(bl) "
         f"{[sumcheck.fold_launches(b) for b in k1_sizes]}")
 
     # ---- phase 3: K2's entries against their plain twins ------------------
@@ -535,39 +683,14 @@ def main():
                  f"{launches}, plain twin calls {plain}")
 
     def check_calls(calls, what):
-        """Hold every recorded call against its twin on the same inputs
-        and its launches against the rule; count calls per shape.  The
-        SHA3 twin hashes each message column on its own, so the recorded
-        sha3_256_x64 calls (thousands of one-message sponge calls in an FS
-        prove) are held together: one twin call on all their messages side
-        by side."""
-        shapes = {e: collections.Counter() for e in KERNEL_NAMES}
-        sponge = []
-        for entry, ins, outs, launched in calls:
-            shp = shape_of(entry, ins)
-            if launched != expected_launches(entry, ins):
-                fail(f"{entry} made {launched} launches on the {what}'s call "
-                     f"at shape {shp}, expected "
-                     f"{expected_launches(entry, ins)}")
-            shapes[entry][shp] += 1
-            example.setdefault((entry, shp), ins)
-            if entry == "sha3_256_x64":
-                sponge.append((ins[0], outs[0]))
-                continue
-            e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
-            if e != 0.0:
-                fail(f"{entry} differs from its plain twin on the {what}'s "
-                     f"call at shape {shp}")
-            err[entry] = max(err[entry], e)
-        if sponge:
-            msgs = torch.cat([m for m, _ in sponge], dim=1)
-            e = max_abs_err(torch, (torch.cat([d for _, d in sponge], dim=1),),
-                            (twin["sha3_256_x64"](msgs),))
-            if e != 0.0:
-                fail(f"sha3_256_x64 differs from its plain twin on one of the "
-                     f"{what}'s {len(sponge)} calls")
-            err["sha3_256_x64"] = max(err["sha3_256_x64"], e)
-        calls.clear()
+        """compare_calls, keeping one call's inputs per shape and each
+        entry's largest error."""
+        shapes, e, ex = compare_calls(torch, calls, twin, expected_launches,
+                                      what)
+        for entry in err:
+            err[entry] = max(err[entry], e[entry])
+        for key, ins in ex.items():
+            example.setdefault(key, ins)
         return shapes
 
     def listing(shapes, short=False):
@@ -867,14 +990,84 @@ def main():
     say(f"phase 8 ok in {time.perf_counter() - t8:.1f} s: launches per "
         f"batched call {first} at every B in {BATCHES}, no plain twin call")
 
+    # ---- phase 9: the sharded provers, S ranks sharing the card ----------
+    t9 = time.perf_counter()
+    sharded = {}          # (transcript, S) -> [per-rank results]
+    for S, transcripts in SHARDED:
+        t0 = time.perf_counter()
+        ranks = pmesh.spawn(sharded_rank, 1, S,
+                            args=(c, transcripts, SHARDED_RUNS))
+        for tr in transcripts:
+            sharded[(tr, S)] = [r[tr] for r in ranks]
+        r0 = ranks[0][transcripts[0]]
+        say(f"phase 9 ranks ok: {S} ranks on {r0['device']} over "
+            f"{r0['backend']} ({', '.join(transcripts)}) in "
+            f"{time.perf_counter() - t0:.1f} s with start-up and compile")
+    sharded_shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+    for (tr, S), per_rank in sharded.items():
+        r0 = per_rank[0]
+        label = f"{'prove_fs_sharded' if tr == 'fs' else 'prove_sharded'} "\
+                f"at S = {S}"
+        got = proof_arrays(proof_io, np, r0["full"])
+        want = proof_arrays(proof_io, np, full_fs if tr == "fs" else full)
+        if int(got.pop("meta_mesh_shards")) != S:
+            fail(f"{label}: meta mesh_shards is not {S}")
+        differ = sorted(k for k in set(got) | set(want)
+                        if k not in got or k not in want
+                        or got[k].dtype != want[k].dtype
+                        or not np.array_equal(got[k], want[k]))
+        if differ:
+            fail(f"{label} differs from the single-device card proof in "
+                 f"{differ}")
+        ok = (driver.verify_fs(c, r0["full"], cp) if tr == "fs"
+              else driver.verify(c, r0["full"], cp)).ok
+        if not ok:
+            fail(f"{label}: the proof is rejected")
+        launches9 = [r["launches"] for r in per_rank]
+        if any(any(r["plain"].values()) for r in per_rank) or any(
+                l != launches9[0] for l in launches9) or any(
+                launches9[0][e] == 0 for e in KERNEL_NAMES):
+            fail(f"{label}: launches per rank {launches9}, plain twin calls "
+                 f"{[r['plain'] for r in per_rank]}: not the same on every "
+                 f"rank, or an entry not launched, or a plain twin call")
+        for e in KERNEL_NAMES:
+            sharded_shapes[e].update(r0["shapes"][e])
+            err[e] = max(err[e], r0["err"][e])
+        say(f"phase 9 ok: {label} == the single-device card proof in all "
+            f"{len(want)} arrays and verifies; every kernel call of rank 0 "
+            f"== its plain twin; launches per rank (the same on all {S}) "
+            f"{launches9[0]}, plain twin calls 0; calls per shape (rank 0): "
+            f"{listing(r0['shapes'])}")
+        say(f"phase 9 timing ({card}; {S} ranks sharing one card over "
+            f"{r0['backend']}, not a scaling number): {label}: first prove "
+            f"{[round(r['first_s'], 3) for r in per_rank]} s by rank; "
+            f"timed proves by rank "
+            f"{[[round(t, 1) for t in r['wall_ms']] for r in per_rank]} ms; "
+            f"max_memory_allocated by rank "
+            f"{[round(r['peak_bytes'] / 2 ** 30, 4) for r in per_rank]} GiB"
+            + (f"; PC state held by rank "
+               f"{[round(r['pc_bytes'] / 2 ** 20, 2) for r in per_rank]} MiB"
+               if r0["pc_bytes"] else ""))
+    bad = sharded[("glibc", 2)][0]["full"]
+    lp = bad.layers[cc.depth - 1]
+    lp["p1_polys"] = lp["p1_polys"].copy()
+    lp["p1_polys"][0, 0, 1] = np.uint64((int(lp["p1_polys"][0, 0, 1]) + 1)
+                                        % M)
+    if driver.verify(c, bad, cp).ok:
+        fail("a tampered sharded proof was accepted")
+    say(f"phase 9 ok in {time.perf_counter() - t9:.1f} s: a sharded proof "
+        f"with one p1_polys coefficient changed is rejected")
+
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
     for entry, names in KERNEL_NAMES.items():
         per = {}
         found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
-                 | set(fs_shapes[entry]) | set(batched_shapes[entry]))
+                 | set(fs_shapes[entry]) | set(batched_shapes[entry])
+                 | set(sharded_shapes[entry]))
         for shp in sorted(found):
-            ins = example[(entry, shp)]
+            ins = example.get((entry, shp)) or random_inputs(
+                torch, np, gf, entry, shp, dev, rng)
             nl = expected_launches(entry, ins)
             ms = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
                              PROFILE_REPS[entry], names, nl)
@@ -888,7 +1081,8 @@ def main():
             per[shp] = dict(driver=driver_shapes[entry][shp],
                             timed=timed_shapes[entry][shp],
                             fs=fs_shapes[entry][shp],
-                            batched=batched_shapes[entry][shp], ms=ms,
+                            batched=batched_shapes[entry][shp],
+                            sharded=sharded_shapes[entry][shp], ms=ms,
                             launches=nl, bound=max(t_bytes, t_ops),
                             by="bytes" if t_bytes >= t_ops else "operations")
         # the shape that takes the most kernel time in one timed prove (in
@@ -903,14 +1097,20 @@ def main():
             **{f"{k}_ms": sum(r[k] * r["ms"] for r in per.values())
                for k in ("timed", "driver", "fs")},
             timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
-            fs_bound=sum(r["fs"] * r["bound"] for r in per.values()))
+            fs_bound=sum(r["fs"] * r["bound"] for r in per.values()),
+            sharded_ms={f"{tr} S={S}": sum(
+                n * per[shp]["ms"] for shp, n in
+                sharded[(tr, S)][0]["shapes"][entry].items())
+                for tr, S in sharded})
         say(f"kernel {entry} (profiled device time; calls in the driver "
             f"prove / timed prove / FS prove / batched calls at B = 4 and "
-            f"64, ms per call, launches per call, bound ms): " + "; ".join(
+            f"64 / rank 0 of the sharded runs, ms per call, launches per "
+            f"call, bound ms): " + "; ".join(
                 f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
-                f"{r['fs']}/{r['batched']}, {r['ms']:.5f}, "
+                f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
                 f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
                 for s, r in per.items())
+            + f"; rank 0 of a sharded prove (ms): {rows[entry]['sharded_ms']}"
             + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
             f"{rows[entry]['timed_bound']:.5f}), one driver prove "
             f"{rows[entry]['driver_ms']:.4f} ms, one FS prove "
@@ -1038,7 +1238,9 @@ def main():
         return {"name": entry, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (launches[entry] + fs_path_launches[entry]
-                             + batched_launches[entry]),
+                             + batched_launches[entry]
+                             + sum(r[0]["launches"][entry]
+                                   for r in sharded.values())),
                 "max_abs_err": err[entry], "ms": top["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": top["bound"],
                 "bound_by": top["by"], "library_ms": None,
@@ -1052,7 +1254,11 @@ def main():
                 "fs_prove_kernel_ms": row["fs_ms"],
                 "fs_prove_profiled_ms": fs_profiled[entry][0],
                 "batched_call_launches": batched_launches[entry],
-                "batched_profiled_ms": b_profiled[entry][0]}
+                "batched_profiled_ms": b_profiled[entry][0],
+                "sharded_rank_launches": {
+                    f"{tr} S={S}": r[0]["launches"][entry]
+                    for (tr, S), r in sharded.items()},
+                "sharded_rank0_kernel_ms": row["sharded_ms"]}
 
     report = {"kernels": [entry_json(e) for e in KERNEL_NAMES],
               "timed_prove_ms": t_e2e, "verify_ms": t_verify,
@@ -1067,7 +1273,13 @@ def main():
                           for b in BATCHES},
               "batched_profiled_b": PROFILED_BATCH,
               "batched_device_busy_ms": b_busy or None,
-              "batched_idle_share": b_idle}
+              "batched_idle_share": b_idle,
+              "sharded": {f"{tr} S={S}": {
+                  "backend": r[0]["backend"],
+                  "first_prove_s": [x["first_s"] for x in r],
+                  "wall_ms": [x["wall_ms"] for x in r],
+                  "peak_bytes": [x["peak_bytes"] for x in r]}
+                  for (tr, S), r in sharded.items()}}
     say(f"card: {card}")
     say(json.dumps(report))
     say(json.dumps({"ok": True, "device": {

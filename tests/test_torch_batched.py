@@ -159,10 +159,12 @@ def test_batched_prover_rejects_a_malformed_batch(run):
 
 
 def test_batched_provers_refuse_a_mesh(run):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh that is not the port's ``parallel.mesh.Mesh`` raises (the dp
+    axis over a port Mesh is tests/test_torch_sharded_pc.py's)."""
+    with pytest.raises(TypeError, match="Mesh"):
         make_batched_prover(run["cc"], run["plans"], {}, device="cpu",
                             mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_batched_full_prover(run["cc"], run["plans"], device="cpu",
                                  mesh=object())
 

@@ -102,3 +102,30 @@ def test_batched_provers_default_to_cuda(monkeypatch):
         sharded.make_batched_prover(cc, plans, {})
     with pytest.raises(RuntimeError, match="CUDA"):
         sharded.make_batched_full_prover(cc, plans)
+
+
+def test_sharded_runs_default_to_cuda(monkeypatch):
+    """Without CUDA, a mesh run that does not ask for the CPU raises before
+    any rank starts; the backend rule picks nccl only for a card a rank."""
+    from virgo_plus_tpu_torch.parallel import mesh
+
+    c = randomize(2, 7, seed=3)
+    subset_init(c)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.run(circuit=c, config=ProtocolConfig(mesh=(1, 2)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.spawn(mesh.rank_device, 1, 2)
+    assert mesh.backend_for(2, "cpu") == "gloo"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for count, world, want in ((1, 2, "gloo"), (2, 2, "nccl"),
+                               (4, 2, "nccl"), (2, 4, "gloo")):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+        assert mesh.backend_for(world) == want, (count, world)
+    assert mesh.backend_for(2, "cuda:0") == "gloo"
+    assert mesh.rank_device(3) == torch.device("cuda", 3 % 2)
+    assert mesh.rank_device(3, "cuda:0") == torch.device("cuda", 0)
+    m = mesh.Mesh(dp=1, sp=16, rank=0, device=torch.device("cpu"),
+                  backend="gloo", groups={})
+    with pytest.raises(ValueError, match="at most 8"):
+        m.field_sum(torch.zeros((2, 1), dtype=torch.int64))

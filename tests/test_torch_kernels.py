@@ -156,3 +156,28 @@ def test_unknown_device_raises(call):
     t = torch.zeros((8, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         call(t)
+
+
+def test_build_never_leaves_a_partial_library(monkeypatch, tmp_path):
+    """Ranks that start together may build one source at once: each writes
+    its own temporary file and os.replace()s it into place, so the target
+    is absent or whole, and a failed build raises and leaves no target."""
+    fake = tmp_path / "fake_nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "[ -n \"$FAIL\" ] && { printf partial > \"$out\"; exit 1; }\n"
+        "printf whole > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD", tmp_path / "build")
+    monkeypatch.setenv("FAIL", "1")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.build(["keccak"])
+    assert not any((tmp_path / "build").iterdir())
+    monkeypatch.delenv("FAIL")
+    assert kernels.build(["keccak"])["keccak"] == ""
+    assert kernels._target("keccak").read_text() == "whole"
+    assert kernels.build(["keccak"])["keccak"] == "(cached)"
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [
+        kernels._target("keccak").name]

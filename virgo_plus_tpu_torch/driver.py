@@ -8,7 +8,9 @@ verifier.cpp:134-189):
   * ``prove_fs``  -> a non-interactive (Fiat-Shamir) proof: every challenge
                      squeezed from a SHA3 sponge on the device (gkr/fs.py)
   * ``verify_fs`` -> re-derives those challenges from the proof alone
-  * ``run``       -> prove + verify, in either transcript mode
+  * ``run``       -> prove + verify, in either transcript mode, on one
+                     device or sharded over a (dp, sp) mesh of ranks
+                     (``parallel/``)
 
 glibc-stream challenges come from the reference's exact stream, so
 transcripts are bit-identical to the JAX package's and the reference's; FS
@@ -370,30 +372,60 @@ def verify_fs(circuit: LayeredCircuit, full: proof_io.FullProof,
                      phases=pt.report()))
 
 
+def prove_on_mesh(mesh, circuit: LayeredCircuit, config: ProtocolConfig):
+    """One rank's part of a sharded prove (parallel/gkr_sharded for the
+    glibc stream, parallel/fs_sharded for the FS sponge).  Every rank
+    returns the same (FullProof, info)."""
+    if config.transcript == "fs":
+        from .parallel.fs_sharded import prove_fs_sharded
+        return prove_fs_sharded(circuit, mesh)
+    from .parallel.gkr_sharded import prove_sharded
+    return prove_sharded(circuit, mesh, config.seed)
+
+
+def _prove_sharded(circuit, config, device):
+    """Prove over config.mesh = (dp, sp): in place when this process is a
+    rank of an initialised group of dp·sp ranks (torchrun), else on dp·sp
+    spawned ranks.  Returns (FullProof, info, the device to verify on)."""
+    import torch.distributed as dist
+    from .parallel import mesh as _mesh
+
+    dp, sp = config.mesh
+    if dist.is_available() and dist.is_initialized():
+        m = _mesh.Mesh.create(dp, sp, device)
+        full, info = prove_on_mesh(m, circuit, config)
+        return full, info, m.device
+    full, info = _mesh.spawn(prove_on_mesh, dp, sp, device,
+                             args=(circuit, config))[0]
+    return full, info, device
+
+
 def run(pws_path: Optional[str] = None,
         circuit: Optional[LayeredCircuit] = None,
         compiled: Optional[CompiledProver] = None,
         bug_compat: bool = True, seed: int = 3396,
         config: Optional[ProtocolConfig] = None, device=None) -> Report:
-    """Prove + verify in one go on one device.  config selects the
-    transcript ("glibc": the reference's stream, "fs": Fiat-Shamir), the
-    seed and bug-compat; explicit kwargs are ignored when a config is
-    given."""
+    """Prove + verify in one go.  config selects the transcript ("glibc":
+    the reference's stream, "fs": Fiat-Shamir), the seed, bug-compat and a
+    mesh (dp, sp); explicit kwargs are ignored when a config is given.
+    With sp > 1 the prove is sharded over sp ranks (``_prove_sharded``)
+    and the unchanged single-device verify checks it; details["mesh"]
+    names the mesh and the backend that ran."""
     if config is None:
         config = ProtocolConfig(seed=seed, bug_compat=bug_compat)
-    if config.mesh is not None:
-        raise NotImplementedError(
-            "the PyTorch port proves on one device; sharded proving is not "
-            "ported yet")
     if circuit is None:
         circuit = load_circuit(pws_path, config.bug_compat)
+    sharded = config.mesh is not None and config.mesh[1] > 1
+    if sharded:
+        full, info, device = _prove_sharded(circuit, config, device)
     cp = _compiled(circuit, compiled, device)
-    if config.transcript == "fs":
-        full, info = prove_fs(circuit, cp)
-        rep = verify_fs(circuit, full, cp)
-    else:
-        full, info = prove(circuit, cp, config.seed)
-        rep = verify(circuit, full, cp, config.seed)
+    if not sharded:
+        full, info = (prove_fs(circuit, cp) if config.transcript == "fs"
+                      else prove(circuit, cp, config.seed))
+    rep = (verify_fs(circuit, full, cp) if config.transcript == "fs"
+           else verify(circuit, full, cp, config.seed))
+    if sharded:
+        rep.details["mesh"] = dict(shape=config.mesh, backend=info["backend"])
     rep.pc_proof_size = info["pc_proof_size"]
     rep.prove_time = info["prove_time"]
     ops = metrics.protocol_op_counts(cp.cc)

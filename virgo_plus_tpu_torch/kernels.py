@@ -4,7 +4,10 @@ Each source under ``csrc/`` is a plain-C-interface CUDA file compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/torch_kernels/`` of the checkout, at first use, and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The library name
-carries a hash of the source, so an edited source is rebuilt.
+carries a hash of the source, so an edited source is rebuilt.  A build
+writes a temporary file of its own and renames it into place, so processes
+that build one source at once (the ranks of a sharded prove) never load a
+partial library.
 
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
@@ -100,6 +103,7 @@ def build(names=None) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
         os.replace(tmp, out)
         logs[name] = log

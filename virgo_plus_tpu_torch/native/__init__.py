@@ -48,6 +48,7 @@ def _build(out: Path) -> None:
            str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"native frontend: {' '.join(cmd)} failed:\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
