@@ -58,7 +58,23 @@ package.  Phases, one line each, any failure exits non-zero:
    just before and read just after, rank 0 recording every kernel call and
    holding it against its plain twin; every rank makes the same launches
    and no plain twin call; launches per rank per entry, the backend, the
-   walls of every rank and each rank's peak device memory are printed.
+   walls of every rank and each rank's peak device memory are printed;
+10. the compiled programs as CUDA graphs (``graphs.py``): the replays of
+   ``fused.make_e2e_prover`` + ``make_fg_tape``, the driver's
+   ``make_evaluator``, ``make_prover`` (staged, and unstaged), the four
+   ``VirgoPC.compile`` programs and ``make_batched_full_prover`` at every B
+   each equal the eager call in every array, with launches per replay equal
+   to the eager call's, no plain twin call, and each graph's kernel nodes
+   (read from the cudaGraph_t through the driver API) equal to the
+   launches its capture counted; capture + instantiate seconds and pool
+   bytes per graph; walls of 10 timed-prove replays, of ``driver.prove``
+   through the graphs and eagerly, and of the batched replays at every B.
+
+``driver.prove`` runs through the graphs of ``driver.compile_prover``, so
+phases 4-5 check them too: the first prove of a compiled circuit makes an
+eager warm-up call, the capture and a replay, and the kernel calls the
+Recorder holds against their twins are the warm-up's.  Phase 8 drives the
+eager batched function (the graph's own), phase 10 its replays.
 
 Phase 4 starts by building the native C++ frontend into ``build/native/``
 and holding its small1200 circuit against the Python frontend's, field by
@@ -67,8 +83,9 @@ entry's device time per call at every shape the glibc, FS, batched and
 sharded paths gave it, from the profiler, beside its bound and its plain
 twin (a sharded shape on random inputs of that shape: rank 0's calls are
 held in its own process), and last
-the three whole-call profiles: a large trace makes every later short
-profile miss launches.  The last lines are the card line, one JSON object
+the whole-call profiles (three eager calls, then one replay of the timed
+prove's graphs and one batched replay at B = 16): a large trace makes
+every later short profile miss launches.  The last lines are the card line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
 ``{"ok": true, "device": {...}}``.
@@ -286,6 +303,72 @@ def flatten(x):
     return (x,)
 
 
+def tree_tensors(x):
+    """The tensors of a result (tuples, lists, dicts, dataclasses), in
+    order; None where a field is None."""
+    if x is None or hasattr(x, "data_ptr"):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tree_tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tree_tensors(v)]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in tree_tensors(getattr(x, f.name))]
+    return []
+
+
+def same_arrays(torch, a, b):
+    """(number of arrays, whether every array of two results is equal)."""
+    xs, ys = tree_tensors(a), tree_tensors(b)
+    ok = len(xs) == len(ys) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and x.shape == y.shape
+                                      and torch.equal(x, y))
+        for x, y in zip(xs, ys))
+    return len(xs), ok
+
+
+def graph_kernel_nodes(graph):
+    """A captured graph's kernel nodes by the port's entry whose name they
+    carry ("other" for the rest), read through the driver API from the
+    cudaGraph_t that graphs.py keeps; None without one."""
+    import ctypes
+    if not hasattr(graph, "raw_cuda_graph"):
+        return None
+    try:
+        handle = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    except RuntimeError:
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    counts = collections.Counter({e: 0 for e in KERNEL_NAMES})
+    counts["other"] = 0
+    kind = ctypes.c_int()
+    params = (ctypes.c_uint64 * 16)()      # CUDA_KERNEL_NODE_PARAMS_v2
+    name = ctypes.c_char_p()
+    for node in nodes:
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                 # not CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        name.value = None
+        cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params)
+        func, kern = params[0], params[7]
+        if not (func and cu.cuFuncGetName(ctypes.byref(name),
+                                          ctypes.c_void_p(func)) == 0):
+            if not (kern and cu.cuKernelGetName(
+                    ctypes.byref(name), ctypes.c_void_p(kern)) == 0):
+                return None
+        label = (name.value or b"").decode()
+        counts[next((e for e, names in KERNEL_NAMES.items()
+                     if any(k in label for k in names)), "other")] += 1
+    return counts
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
     chain call; the tree sizes of a forest call."""
@@ -347,7 +430,8 @@ class Recorder:
     """While active, every call of the four kernel wrappers keeps a copy of
     its inputs and outputs and the device launches it made, so that each
     call can be held against its plain twin afterwards.  The wrappers' own
-    launch counts are untouched."""
+    launch counts are untouched.  Calls made while a graph is captured are
+    not recorded (they run nothing); a replay calls no wrapper."""
 
     def __init__(self, kernels, wrappers):
         self.kernels = kernels
@@ -355,7 +439,13 @@ class Recorder:
         self.calls = []
 
     def _record(self, entry, fn):
+        import torch
+
         def rec(*args):
+            if torch.cuda.is_current_stream_capturing():
+                # a capture runs nothing: the eager call just before it on
+                # the same inputs is the one recorded (graphs.py)
+                return fn(*args)
             ins = tuple(a.clone() if hasattr(a, "clone") else list(a)
                         for a in args)
             before = self.kernels.LAUNCHES[entry]
@@ -522,8 +612,8 @@ def main():
         fail("run chip_smoke.py from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    from virgo_plus_tpu_torch import driver, fused, native, proof_io
-    from virgo_plus_tpu_torch.circuits.compile import input_buffer
+    from virgo_plus_tpu_torch import driver, fused, graphs, native, proof_io
+    from virgo_plus_tpu_torch.circuits.compile import evaluate, input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import protocol
@@ -876,6 +966,8 @@ def main():
     t8 = time.perf_counter()
     final_point = ch.layers[1].r_liu[:, :bl0]
     run_batch = make_batched_full_prover(cc, cp.plans)
+    # phase 8 holds the eager batched prove; phase 10 replays its graphs
+    eager_batch = run_batch.graphs[0].fn
     base = gf.to_numpy(inputs)
 
     def witness_batch(b):
@@ -887,7 +979,8 @@ def main():
         return xs
 
     def batched(xs):
-        return run_batch(xs, ch, final_point, fold_rands)
+        return eager_batch(input_buffer(cc, xs, dev), ch, final_point,
+                           tuple(fold_rands))
 
     def single_arrays(out):
         proof, l_or, h_or, a_sum, _q, ldt = out
@@ -1057,6 +1150,130 @@ def main():
         fail("a tampered sharded proof was accepted")
     say(f"phase 9 ok in {time.perf_counter() - t9:.1f} s: a sharded proof "
         f"with one p1_polys coefficient changed is rejected")
+
+    # ---- phase 10: the compiled programs as CUDA graphs -------------------
+    t10 = time.perf_counter()
+    held_graphs = {}          # holder name -> its record
+
+    def graph_check(label, makers, first, eager):
+        """Build the makers' graphs by calling them once (on a new shape: a
+        warm-up call, the capture, a replay), then hold one more replay
+        against the eager call: every array equal, launches per replay
+        equal to the eager call's, no plain twin call, and each graph's
+        kernel nodes by entry equal to the launches its capture counted.
+        Returns the replayed outputs."""
+        kernels.reset_counts()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_launches = dict(kernels.LAUNCHES)
+        first()
+        new = [h for m in makers for h in graphs.holders(m)
+               if h.name not in held_graphs]
+        kernels.reset_counts()
+        got = first()
+        torch.cuda.synchronize()
+        replay_launches = dict(kernels.LAUNCHES)
+        plain = dict(kernels.PLAIN_CALLS)
+        n, ok = same_arrays(torch, got, want)
+        if not ok:
+            fail(f"phase 10 {label}: the replay differs from the eager call")
+        if replay_launches != eager_launches or any(plain.values()):
+            fail(f"phase 10 {label}: launches per replay {replay_launches} "
+                 f"against {eager_launches} eager, plain twin calls {plain}")
+        for h in new:
+            nodes = graph_kernel_nodes(h.graph)
+            if nodes is None:
+                fail(f"phase 10 {h.name}: this PyTorch keeps no cudaGraph_t, "
+                     f"so its kernel nodes cannot be counted")
+            ours = {e: nodes[e] for e in KERNEL_NAMES if nodes[e]}
+            if ours != h.launches:
+                fail(f"phase 10 {h.name}: kernel nodes {ours} against the "
+                     f"capture's launches {h.launches}")
+            held_graphs[h.name] = dict(
+                launches=h.launches, kernel_nodes=sum(nodes.values()),
+                capture_s=h.capture_s, warmup_s=h.warmup_s,
+                pool_bytes=h.pool_bytes)
+        say(f"phase 10 ok: {label}: the replay == the eager call in all {n} "
+            f"arrays; launches per replay {replay_launches} == the eager "
+            f"call's, plain twin calls 0; graphs " + "; ".join(
+                f"{h.name}: {held_graphs[h.name]['kernel_nodes']} kernel "
+                f"nodes (the port's {h.launches} == the capture's count), "
+                f"capture + instantiate {h.capture_s:.3f} s, pool "
+                f"{h.pool_bytes / 2 ** 20:.1f} MiB" for h in new))
+        return got
+
+    e2e = fused.make_e2e_prover(cc, cp.plans)
+    tape = fused.make_fg_tape(n_folds)
+    graph_check("make_e2e_prover + make_fg_tape", (e2e, tape),
+                lambda: (e2e(inputs, ch, fold_rands), tape(sched)),
+                lambda: (fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands,
+                                         cp.arrs),
+                         fused.fg_tape(n_folds, sched, dev)))
+    values10 = graph_check("make_evaluator (driver's)", (cp.evaluator,),
+                           lambda: cp.evaluator(inputs),
+                           lambda: evaluate(cc, inputs, cp.arrs))
+    unstaged = protocol.make_prover(cc, cp.plans, staged=False)
+    for label, prover in (("make_prover staged (driver's)", cp.prover),
+                          ("make_prover unstaged", unstaged)):
+        graph_check(label, (prover,), lambda: prover(values10, ch),
+                    lambda: protocol.prove(cc, cp.plans, values10, ch,
+                                           cp.arrs))
+    fns = cp.pc_fns
+    l_oracle10, _ = graph_check(
+        "VirgoPC commit (driver's)", (fns["commit"],),
+        lambda: fns["commit"](inputs),
+        lambda: virgo_pc.commit_private(inputs, bl0))
+    q10 = graph_check("VirgoPC q_prepare (driver's)", (fns["q_prepare"],),
+                      lambda: fns["q_prepare"](final_point),
+                      lambda: fns["q_prepare"].fn(final_point))
+    pub10 = graph_check(
+        "VirgoPC commit_pub (driver's)", (fns["commit_pub"],),
+        lambda: fns["commit_pub"](l_oracle10.codeword, q10[0]),
+        lambda: virgo_pc.commit_public(l_oracle10.codeword, q10[0], bl0))
+    graph_check("VirgoPC folds (driver's)", (fns["folds"],),
+                lambda: fns["folds"](pub10[4], fold_rands),
+                lambda: virgo_pc.commit_phase(pub10[4], bl0, fold_rands))
+    del values10, l_oracle10, q10, pub10
+    used = {h.name: h.replays for obj in (cp.evaluator, cp.prover, fns)
+            for h in graphs.holders(obj)}
+    if len(used) != 9 or not all(used.values()) or any(
+            h.graph is None for obj in (cp.evaluator, cp.prover, fns)
+            for h in graphs.holders(obj)):
+        fail(f"phase 10: driver.prove did not run through its 9 graphs: "
+             f"replays {used}")
+    say(f"phase 10 driver ok: driver.prove runs through the graphs of "
+        f"compile_prover (so phases 4-5 held them: small1200 pins, card "
+        f"proof == CPU proof, full width verified); replays by graph {used}")
+
+    replay_batch = {}
+    for b in BATCHES:
+        xs = witness_batch(b)
+        graph_check(f"make_batched_full_prover at B = {b}", (run_batch,),
+                    lambda: run_batch(xs, ch, final_point, fold_rands),
+                    lambda: batched(xs))
+        ts = wall_ms(torch, lambda: run_batch(xs, ch, final_point,
+                                              fold_rands), BATCH_RUNS)
+        replay_batch[b] = dict(wall_ms=ts, proofs_per_s=b / statistics.median(
+            ts) * 1e3)
+        say(f"phase 10 timing ({card}): B = {b}: batched replay {spread(ts)};"
+            f" {replay_batch[b]['proofs_per_s']:.3f} proofs/s at the median "
+            f"against {per_b[b]['proofs_per_s']:.3f} eager (phase 8)")
+
+    t_replay = wall_ms(torch, lambda: (e2e(inputs, ch, fold_rands),
+                                       tape(sched)), TIMED_RUNS)
+    eager_cp = dataclasses.replace(
+        cp, evaluator=lambda x: evaluate(cc, x, cp.arrs),
+        prover=lambda v, chl: protocol.prove(cc, cp.plans, v, chl, cp.arrs),
+        pc_fns={k: getattr(f, "fn", f) for k, f in fns.items()})
+    t_driver_eager = wall_ms(torch, lambda: driver.prove(c, eager_cp),
+                             VERIFY_RUNS)
+    t_driver_graphs = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
+    say(f"phase 10 timing ({card}): timed prove replayed (e2e + tape) "
+        f"{spread(t_replay)} against eager {statistics.median(t_e2e):.3f} "
+        f"(phase 5); driver.prove through the graphs {spread(t_driver_graphs)}"
+        f", eager {spread(t_driver_eager)}")
+    say(f"phase 10 ok in {time.perf_counter() - t10:.1f} s: {len(held_graphs)}"
+        f" graphs held against their eager calls")
 
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
@@ -1231,6 +1448,42 @@ def main():
         say("phase 7 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
+    # phase 10's replays, profiled last: one replay of the timed prove's
+    # two graphs (e2e + tape), and one batched replay at B = 16
+    replay_prof = {}
+    for label, fn, walls in (
+            ("timed prove replay", lambda: (e2e(inputs, ch, fold_rands),
+                                            tape(sched)), t_replay),
+            (f"batched replay at B = {PROFILED_BATCH}",
+             lambda: run_batch(witness_batch(PROFILED_BATCH), ch,
+                               final_point, fold_rands),
+             replay_batch[PROFILED_BATCH]["wall_ms"])):
+        kernels.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        r_launches = dict(kernels.LAUNCHES)
+        r_rows = [(device_us(e), e.count, e.key)
+                  for e in prof.key_averages() if is_device_row(e)]
+        r_busy = sum(r[0] for r in r_rows) / 1e3
+        ours = {e: sum(cnt for _, cnt, key in r_rows
+                       if any(n in key for n in KERNEL_NAMES[e]))
+                for e in KERNEL_NAMES}
+        med = statistics.median(walls)
+        replay_prof[label] = dict(
+            busy_ms=r_busy or None, launches=sum(r[1] for r in r_rows),
+            idle_share=(1 - r_busy / med) if r_busy else None)
+        if not r_busy:
+            say(f"phase 10 profile of one {label}: the profiler recorded no "
+                f"device time (device busy share not measured)")
+            continue
+        say(f"phase 10 profile of one {label}: "
+            f"{replay_prof[label]['launches']} kernels, device busy "
+            f"{r_busy:.3f} ms; idle share "
+            f"{replay_prof[label]['idle_share']:.4f} of the median replay "
+            f"wall {med:.1f} ms; the port's kernels {ours} against the "
+            f"replay's counted launches {r_launches}")
+
     def entry_json(entry):
         row = rows[entry]
         top = row["per"][row["top"]]
@@ -1274,6 +1527,12 @@ def main():
               "batched_profiled_b": PROFILED_BATCH,
               "batched_device_busy_ms": b_busy or None,
               "batched_idle_share": b_idle,
+              "graphs": held_graphs,
+              "timed_prove_replay_ms": t_replay,
+              "driver_prove_graphs_ms": t_driver_graphs,
+              "driver_prove_eager_ms": t_driver_eager,
+              "batched_replay": {str(b): r for b, r in replay_batch.items()},
+              "replay_profiles": replay_prof,
               "sharded": {f"{tr} S={S}": {
                   "backend": r[0]["backend"],
                   "first_prove_s": [x["first_s"] for x in r],

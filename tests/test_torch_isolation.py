@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from virgo_plus_tpu_torch import cli, device, driver, kernels
+from virgo_plus_tpu_torch import cli, device, driver, fused, kernels
 from virgo_plus_tpu_torch.circuits.compile import compile_circuit
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.config import ProtocolConfig
@@ -93,6 +93,8 @@ def test_default_device_without_cuda_raises(monkeypatch, capsys, tmp_path):
 
 
 def test_batched_provers_default_to_cuda(monkeypatch):
+    """The batched provers and the other graph makers (graphs.py) raise
+    without CUDA instead of holding their programs on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c = randomize(2, 7, seed=3)
     subset_init(c)
@@ -102,6 +104,15 @@ def test_batched_provers_default_to_cuda(monkeypatch):
         sharded.make_batched_prover(cc, plans, {})
     with pytest.raises(RuntimeError, match="CUDA"):
         sharded.make_batched_full_prover(cc, plans)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.make_e2e_prover(cc, plans)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused.make_fg_tape(1)
+    for staged in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            protocol.make_prover(cc, plans, staged=staged)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protocol.make_evaluator(cc)
 
 
 def test_sharded_runs_default_to_cuda(monkeypatch):

@@ -228,8 +228,9 @@ __global__ void sha3_chain_x64(const u64* __restrict__ xs, u64* __restrict__ out
 }
 
 constexpr int FOREST_THREADS = 128;
-constexpr int TREE_FIELDS = 5;  // per tree: leaf offset, log2 leaves, heap address,
-                                // first block, ticket (zero on entry)
+constexpr int TREE_FIELDS = 5;  // per tree: leaf offset, log2 leaves, heap offset (words
+                                // from `heaps`), first block, ticket (zero on entry;
+                                // the tree's last block sets it back to zero)
 
 // heap (4, stride) word-major: node p = H(node 2p || node 2p+1), on this
 // lane and its partner; only `write` pairs store it.  Reads go through L2
@@ -257,11 +258,13 @@ __device__ __forceinline__ void hash_level(u64* heap, size_t stride, size_t firs
 }
 
 // leaves: (4, total) leaf digests of all trees side by side; trees:
-// (n_trees, TREE_FIELDS).  Tree t of n = 2^lg leaves gets its heap (4, 2n):
-// node 0 = 0, root at 1, leaves at [n, 2n).
+// (n_trees, TREE_FIELDS).  Tree t of n = 2^lg leaves gets its heap (4, 2n)
+// at heaps + its heap offset: node 0 = 0, root at 1, leaves at [n, 2n).
+// The table holds no address and its tickets end at zero, so one table
+// serves every call on the same tree sizes, and a captured graph replays it.
 __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
-        const u64* __restrict__ leaves, long long total, long long* trees, int n_trees,
-        int sub_log) {
+        const u64* __restrict__ leaves, long long total, long long* trees, u64* heaps,
+        int n_trees, int sub_log) {
     __shared__ int last;
     int t = 0;
     while (t + 1 < n_trees && trees[(t + 1) * TREE_FIELDS + 3] <= blockIdx.x) ++t;
@@ -272,7 +275,7 @@ __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
     const size_t S = (size_t)1 << slg;         // leaves of this block's subtree
     const size_t nsub = n >> slg;
     const size_t sb = blockIdx.x - (size_t)row[3];
-    u64* heap = reinterpret_cast<u64*>(row[2]);
+    u64* heap = heaps + row[2];
     const size_t stride = 2 * n;
 
     const u64* src = leaves + row[0] + sb * S;
@@ -294,6 +297,7 @@ __global__ void __launch_bounds__(FOREST_THREADS) merkle_forest(
         last = atomicAdd(reinterpret_cast<unsigned long long*>(row + 4), 1ull) == nsub - 1;
     __syncthreads();
     if (!last) return;
+    if (threadIdx.x == 0) row[4] = 0;  // every block of the tree has taken its ticket
     __threadfence();
     for (int h = slg + 1; h <= lg; ++h) {
         const size_t cnt = n >> h;  // nodes of this level, heap [cnt, 2 cnt)
@@ -326,11 +330,11 @@ extern "C" int vpt_sha3_chain_x64(const u64* xs, u64* out, int steps, int n,
 
 // One launch of n_blocks = sum over trees of 2^(lg - min(lg, sub_log)) blocks.
 extern "C" int vpt_merkle_forest(const u64* leaves, long long total, long long* trees,
-                                 int n_trees, int n_blocks, int sub_log,
+                                 u64* heaps, int n_trees, int n_blocks, int sub_log,
                                  void* stream_ptr) {
     if (n_blocks <= 0) return 0;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-    merkle_forest<<<n_blocks, FOREST_THREADS, 0, stream>>>(leaves, total, trees, n_trees,
-                                                           sub_log);
+    merkle_forest<<<n_blocks, FOREST_THREADS, 0, stream>>>(leaves, total, trees, heaps,
+                                                           n_trees, sub_log);
     return (int)cudaGetLastError();
 }

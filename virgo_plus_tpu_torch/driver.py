@@ -37,7 +37,7 @@ from .utils import metrics
 from .utils.glibc_rand import GlibcRandom
 from .circuits.pws import parse_pws
 from .circuits.layered import dag_to_layered, subset_init, LayeredCircuit
-from .circuits.compile import compile_circuit, evaluate, input_buffer
+from .circuits.compile import compile_circuit, input_buffer
 from .gkr import fs, protocol
 from .pc import fft_gkr, virgo_pc, vpd
 
@@ -93,9 +93,11 @@ class CompiledProver:
     cc: object
     plans: object
     arrs: dict           # prover index/coefficient tensors on the device
+    evaluator: object    # protocol.make_evaluator's graphs
+    prover: object       # protocol.make_prover's graphs
     verifier: object
     pc: object           # pc.interface.VirgoPC
-    pc_fns: dict
+    pc_fns: dict         # its per-size graphs
     device: torch.device
     fs_prover: object = None   # fs.make_fs_prover's, made at first prove_fs
 
@@ -118,8 +120,10 @@ def load_circuit(pws_path: str, bug_compat: bool = True,
 
 def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
                    device=None) -> CompiledProver:
-    """Compile the circuit and move its tables to the device.  pc defaults
-    to the Virgo VPD (the reference's USE_VIRGO branch)."""
+    """Compile the circuit and move its tables to the device.  The
+    evaluator, the GKR prover and the PC's programs are graphs, captured at
+    their first call (graphs.py).  pc defaults to the Virgo VPD (the
+    reference's USE_VIRGO branch)."""
     from .pc.interface import DEFAULT_PC
 
     dev = _device.resolve(device)
@@ -128,6 +132,8 @@ def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
     pc = pc or DEFAULT_PC
     return CompiledProver(
         cc=cc, plans=plans, arrs=protocol.circuit_arrays(cc, plans, dev),
+        evaluator=protocol.make_evaluator(cc, dev),
+        prover=protocol.make_prover(cc, plans, dev),
         verifier=protocol.make_verifier(cc, dev),
         pc=pc, pc_fns=pc.compile(cc.layers[0].bit_length, dev), device=dev)
 
@@ -162,13 +168,13 @@ def prove(circuit: LayeredCircuit, compiled: Optional[CompiledProver] = None,
     t0 = time.time()
 
     inputs = input_buffer(cc, witness, cp.device)
-    values = evaluate(cc, inputs, cp.arrs)
+    values = cp.evaluator(inputs)
     _check_asserts(cc, values)
     rng = GlibcRandom(seed)
 
     pc_state, root_l = cp.pc.commit_private(cp.pc_fns, inputs)
     ch = protocol.make_challenges(cc, rng, cp.device)
-    proof = protocol.prove(cc, cp.plans, values, ch, cp.arrs)
+    proof = cp.prover(values, ch)
     final_point = ch.layers[1].r_liu[:, :bl0]
 
     fields, pc_proof_size, flags = cp.pc.open(cp.pc_fns, pc_state,
@@ -256,7 +262,7 @@ def prove_fs(circuit: LayeredCircuit,
     pt = metrics.PhaseTimer()
     with pt.span("eval_commit", sync):
         inputs = input_buffer(cc, witness, dev)
-        values = evaluate(cc, inputs, cp.arrs)
+        values = cp.evaluator(inputs)
         l_oracle, root_l_np = cp.pc.commit_private(cp.pc_fns, inputs)
 
     with pt.span("gkr", sync):

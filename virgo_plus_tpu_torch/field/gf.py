@@ -43,15 +43,15 @@ def zeros(shape=(), device="cpu"):
 
 
 def ones(shape=(), device="cpu"):
-    o = zeros(shape, device)
-    o[0] = 1
-    return o
+    return full(shape, 1, 0, device)
 
 
 def full(shape, real, img=0, device="cpu"):
-    e = zeros(shape, device)
-    e[0] = real
-    e[1] = img
+    """Python-int planes written as fills: a CUDA graph captures a fill,
+    but not the host copy that item assignment makes."""
+    e = torch.empty((2,) + tuple(shape), dtype=torch.int64, device=device)
+    e[0].fill_(real)
+    e[1].fill_(img)
     return e
 
 

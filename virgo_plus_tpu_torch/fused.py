@@ -16,6 +16,8 @@ from contextlib import nullcontext
 
 import torch
 
+from . import device as _device
+from . import graphs
 from .circuits.compile import CompiledCircuit, evaluate
 from .field import gf
 from .gkr import protocol
@@ -74,3 +76,32 @@ def fg_tape(n_folds: int, schedule: dict, device):
     """The fft_gkr prover-message tape (pc/fft_gkr.prove_messages) for a
     draw_schedule dict."""
     return fft_gkr.prove_messages(n_folds, schedule, device)
+
+
+def make_fg_tape(n_folds: int, device=None):
+    """Returns tape(schedule) -> fg_tape's message list, one graph per
+    shape (graphs.py).  The schedule's numpy draws go into the graph's
+    static device buffers in the copy-in, so prove_messages sees
+    tensors."""
+    dev = _device.resolve(device)
+    return graphs.Graphed(lambda d: fft_gkr.prove_messages(n_folds, d, dev),
+                          dev, "fg_tape")
+
+
+def make_e2e_prover(cc: CompiledCircuit, plans, device=None):
+    """Returns run(inputs, ch, fold_rands) -> the same tuple as prove_e2e,
+    as one graph of the whole prove (graphs.py) with the circuit's tables
+    made here.  fold_rands: bl0 - LOG_SLICE (2,) challenges.  No timer:
+    its spans synchronise the device."""
+    dev = _device.resolve(device)
+    arrs = protocol.circuit_arrays(cc, plans, dev)
+    prove = graphs.Graphed(
+        lambda inputs, ch, fold_rands: prove_e2e(cc, plans, inputs, ch,
+                                                 list(fold_rands), arrs),
+        dev, "e2e_prover")
+
+    def run(inputs, ch, fold_rands):
+        return prove(inputs, ch, tuple(fold_rands))
+
+    run.graphs = (prove,)
+    return run

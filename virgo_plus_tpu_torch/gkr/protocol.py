@@ -25,9 +25,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import device as _device
+from .. import graphs
 from ..field import gf
 from ..utils.glibc_rand import GlibcRandom
-from ..circuits.compile import CompiledCircuit, coeffs, index
+from ..circuits.compile import (CompiledCircuit, coeffs, eval_arrays,
+                                evaluate, index)
 from .beta import beta_table, beta_tables_batched
 from .sumcheck import (ScatterPlan, apply_scatter_arrays,
                        concat_scatter_plans, eval_quad, mle_fold,
@@ -275,13 +278,24 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
     values (2, T) gives one proof; a batch (2, B, T) of witnesses of the
     same circuit, proved under the same challenges, gives one Proof whose
     arrays carry the batch first (vres (B, 2), p1_polys (B, bl, 2, 3), ...),
-    with each batch's tables folded as more tables of the same K1 calls."""
-    depth = cc.depth
-    n_lead = values.dim() - 2
-    p1_groups, p2_groups = _groups(cc)
+    with each batch's tables folded as more tables of the same K1 calls.
+    Four stages, which make_prover(staged=True) replays as four graphs."""
     vres, p1_stacked, liu_stacked = _prove_inits(cc, plans, values, ch, arrs)
-    # p1 and Liu tables are both ready after the inits, so same-size jobs
-    # from both phases merge into one fold launch
+    p1_res, liu_res = _prove_folds(cc, p1_stacked, liu_stacked)
+    p2_stacked = _prove_p2_inits(cc, plans, values, ch, _claims(p1_res), arrs)
+    p2_out = _prove_p2(cc, ch, p2_stacked, tuple(values.shape[1:-1]))
+    return _assemble(cc, vres, p1_res, liu_res, p2_out, values.dim() - 2)
+
+
+def _claims(p1_res):
+    return {i: res[1] for i, res in p1_res.items()}
+
+
+def _prove_folds(cc, p1_stacked, liu_stacked):
+    """Every phase-1 and Liu fold.  Both kinds of table are ready after
+    the inits, so the same-size jobs of both phases merge into one K1
+    launch.  Returns (p1_res, liu_res), each {layer: (polys, bound v)}."""
+    p1_groups, _ = _groups(cc)
     m_stacked, m_groups = {}, {}
     for bl in sorted(set(p1_stacked) | set(liu_stacked)):
         parts, tags = [], []
@@ -299,14 +313,22 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
               for i in p1_groups[bl]}
     liu_res = {i: m_res[("liu", i)] for bl in liu_stacked
                for i in p1_groups[bl]}
-    claims = {i: p1_res[i][1] for i in p1_res}
-    p2_stacked = _prove_p2_inits(cc, plans, values, ch, claims, arrs)
-    p2_scan = _apply_grouped(p2_stacked, p2_groups, bounds=True)
-    p2_out = _prove_p2_combine(cc, ch, p2_scan, values.shape[1:-1])
+    return p1_res, liu_res
 
+
+def _prove_p2(cc, ch, p2_stacked, lead):
+    """The phase-2 folds, one K1 launch per table size, and the combine
+    into per-layer messages and claims.  lead: the batch shape."""
+    _, p2_groups = _groups(cc)
+    p2_scan = _apply_grouped(p2_stacked, p2_groups, bounds=True)
+    return _prove_p2_combine(cc, ch, p2_scan, lead)
+
+
+def _assemble(cc, vres, p1_res, liu_res, p2_out, n_lead) -> Proof:
+    """The Proof of the stages' results, batch axes first."""
     lead = lambda t, axis: None if t is None else _lead_first(t, axis, n_lead)
-    layer_proofs: List[Optional[LayerProof]] = [None] * depth
-    for i in range(depth - 1, 0, -1):
+    layer_proofs: List[Optional[LayerProof]] = [None] * cc.depth
+    for i in range(cc.depth - 1, 0, -1):
         p2_polys, claims_v = p2_out.get(i, (None, None))
         layer_proofs[i] = LayerProof(
             p1_polys=lead(p1_res[i][0], 2), claim_u=lead(p1_res[i][1], 1),
@@ -314,6 +336,61 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
             liu_polys=lead(liu_res[i][0], 2),
             liu_claim=lead(liu_res[i][1], 1))
     return Proof(vres=lead(vres, 1), layers=layer_proofs)
+
+
+def make_prover(cc: CompiledCircuit, plans, device=None, staged=True):
+    """Returns prove(values, ch) -> Proof, equal to ``prove`` bit for bit,
+    replayed as graphs (graphs.py) with the circuit's tables made here.
+    staged=True keeps the JAX package's stage boundaries, so that each
+    stage's device time can be read apart: the inits, the merged phase-1
+    and Liu folds, the phase-2 inits, and the phase-2 folds with the
+    combine, four graphs replayed in order, each stage's outputs copied
+    into the next one's buffers.  staged=False: one graph of ``prove``."""
+    dev = _device.resolve(device)
+    arrs = circuit_arrays(cc, plans, dev)
+    if not staged:
+        return graphs.Graphed(
+            lambda values, ch: prove(cc, plans, values, ch, arrs), dev,
+            "prover")
+
+    inits = graphs.Graphed(
+        lambda values, ch: _prove_inits(cc, plans, values, ch, arrs), dev,
+        "prover inits")
+    folds = graphs.Graphed(
+        lambda p1_stacked, liu_stacked: _prove_folds(cc, p1_stacked,
+                                                     liu_stacked),
+        dev, "prover p1+liu folds")
+    p2_inits = graphs.Graphed(
+        lambda values, ch, claims: _prove_p2_inits(cc, plans, values, ch,
+                                                   claims, arrs),
+        dev, "prover p2 inits")
+    p2 = graphs.Graphed(
+        lambda ch, p2_stacked, lead: _prove_p2(cc, ch, p2_stacked, lead),
+        dev, "prover p2 folds+combine")
+    has_p2 = bool(_p2_layout(cc, plans))
+
+    def run(values, ch):
+        vres, p1_stacked, liu_stacked = inits.call((values, ch), False)
+        p1_res, liu_res = folds.call((p1_stacked, liu_stacked), False)
+        p2_out = {}
+        if has_p2:
+            p2_stacked = p2_inits.call((values, ch, _claims(p1_res)), False)
+            p2_out = p2.call((ch, p2_stacked, tuple(values.shape[1:-1])),
+                             False)
+        return graphs.clone(_assemble(cc, vres, p1_res, liu_res, p2_out,
+                                      values.dim() - 2))
+
+    run.graphs = (inits, folds, p2_inits, p2)
+    return run
+
+
+def make_evaluator(cc: CompiledCircuit, device=None):
+    """Returns evaluate(inputs) -> the circuit's values, as one graph of
+    ``circuits.compile.evaluate`` with its tables made here."""
+    dev = _device.resolve(device)
+    arrs = eval_arrays(cc, dev)
+    return graphs.Graphed(lambda inputs: evaluate(cc, inputs, arrs), dev,
+                          "evaluator")
 
 
 def _unstack(raw, groups, bounds=False):

@@ -199,15 +199,23 @@ def _sm_count(dev) -> int:
 
 
 _TICKETS = {}   # (device, stream) -> K1's ticket words
+_RETIRED = []   # outgrown ticket words: a captured graph may still use them
 
 
 def _tickets(dev, k: int) -> int:
     """Address of K1's `k` ticket words on the current stream: zeroed once
     here, and left zero by every call, since the last block of each table
-    wraps its ticket back to 0."""
+    wraps its ticket back to 0.  None is made inside a capture: the eager
+    call on the capturing stream before it makes them (graphs.py)."""
     key = (dev, kernels.stream_ptr())
     t = _TICKETS.get(key)
     if t is None or t.numel() < k:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("sumcheck_fold: no ticket words for this "
+                               "shape on the capturing stream; an eager "
+                               "call on that stream makes them first")
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros((max(k, 64),), dtype=torch.int32, device=dev)
         _TICKETS[key] = t
     return t.data_ptr()

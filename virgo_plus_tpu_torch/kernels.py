@@ -41,7 +41,8 @@ SOURCES = {
     "keccak": {
         "sha3_256_x64": ("vpt_sha3_256_x64", [_P, _P, _I, _P]),
         "sha3_chain_x64": ("vpt_sha3_chain_x64", [_P, _P, _I, _I, _P]),
-        "merkle_forest": ("vpt_merkle_forest", [_P, _L, _P, _I, _I, _I, _P]),
+        "merkle_forest": ("vpt_merkle_forest",
+                          [_P, _L, _P, _P, _I, _I, _I, _P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}

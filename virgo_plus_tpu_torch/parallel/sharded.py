@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import fused
+from .. import fused, graphs
 from ..circuits.compile import evaluate, input_buffer
 from ..gkr import protocol
 from ..gkr.sumcheck import scan_sumcheck_batched
@@ -112,15 +112,24 @@ def make_batched_prover(cc, plans, arrs, device=None, mesh=None):
     """GKR only.  Returns fn(inputs_batch (B, 2, N), ch) -> a
     ``protocol.Proof`` whose arrays carry the batch first (vres (B, 2),
     layers[i].p1_polys (B, bl, 2, 3), ...).  arrs: the circuit's
-    ``protocol.circuit_arrays`` on the device (the mesh's, with a mesh)."""
+    ``protocol.circuit_arrays`` on the device (the mesh's, with a mesh).
+    Without a mesh the prove is one graph per B (graphs.py); with one it
+    runs eagerly, since its collectives are not captured."""
     _check_mesh(mesh)
     dev = mesh.device if mesh is not None else _device.resolve(device)
 
+    def prove(inputs, ch):
+        return protocol.prove(cc, plans, evaluate(cc, inputs, arrs), ch,
+                              arrs)
+
+    if mesh is None:
+        prove = graphs.Graphed(prove, dev, "batched prover")
+
     def fn(inputs_batch, ch):
         inputs = _inputs(cc, inputs_batch, dev, mesh)
-        return _gathered_proof(protocol.prove(
-            cc, plans, evaluate(cc, inputs, arrs), ch, arrs), mesh)
+        return _gathered_proof(prove(inputs, ch), mesh)
 
+    fn.graphs = (prove,) if mesh is None else ()
     return fn
 
 
@@ -134,7 +143,8 @@ def make_batched_full_prover(cc, plans, device=None, mesh=None):
     level_roots (B, L, 4), final_codewords (B, 2, 65, 2^RATE)), all int64
     tensors of u64 bit patterns on the device; ``proofs`` as
     ``make_batched_prover``'s.  ch, final_point and fold_rands are shared
-    by the batch and must be on the device.  With a mesh, every rank
+    by the batch and must be on the device.  Without a mesh the prove is
+    one graph per B (graphs.py); with one, every rank runs it eagerly and
     returns all B instances."""
     _check_mesh(mesh)
     dev = mesh.device if mesh is not None else _device.resolve(device)
@@ -143,15 +153,23 @@ def make_batched_full_prover(cc, plans, device=None, mesh=None):
     def root(oracle):
         return oracle.tree[..., 1].movedim(0, -1)       # (4, B) -> (B, 4)
 
-    def run(inputs_batch, ch, final_point, fold_rands):
-        inputs = _inputs(cc, inputs_batch, dev, mesh)
+    def prove(inputs, ch, final_point, fold_rands):
         proofs, l_oracle, h_oracle, all_sum, _q, ldt = fused.prove_e2e(
             cc, plans, inputs, ch, list(fold_rands), arrs,
             final_point=final_point)
         level_roots = torch.stack([root(o) for o in ldt.oracles], dim=1)
-        return (_gathered_proof(proofs, mesh),) + tuple(
-            _gathered(t, mesh) for t in (
-                root(l_oracle), root(h_oracle), all_sum.movedim(0, 1),
-                level_roots, ldt.final_codeword.movedim(0, 1)))
+        return (proofs, root(l_oracle), root(h_oracle),
+                all_sum.movedim(0, 1), level_roots,
+                ldt.final_codeword.movedim(0, 1))
 
+    if mesh is None:
+        prove = graphs.Graphed(prove, dev, "batched full prover")
+
+    def run(inputs_batch, ch, final_point, fold_rands):
+        inputs = _inputs(cc, inputs_batch, dev, mesh)
+        proofs, *arrays = prove(inputs, ch, final_point, tuple(fold_rands))
+        return (_gathered_proof(proofs, mesh),) + tuple(
+            _gathered(t, mesh) for t in arrays)
+
+    run.graphs = (prove,) if mesh is None else ()
     return run

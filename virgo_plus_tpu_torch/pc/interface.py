@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import graphs
 from ..field import gf
 from ..field.ref import Fq2
 from ..gkr.beta import beta_table
@@ -30,31 +31,47 @@ class VirgoPC:
     name = "virgo"
 
     def compile(self, bl0: int, device):
-        """Per-input-size settings; the port runs eagerly, so there is
-        nothing to trace ahead of time."""
-        return dict(bl0=bl0, device=device)
+        """The per-input-size programs, each a graph per argument shape
+        (graphs.py), as the JAX package's four jits: ``commit``
+        (private commit), ``commit_pub`` (public commit), ``folds`` (every
+        LDT fold and its oracles) and ``q_prepare``.  fft_gkr.run, the
+        challenge draws and the query answers stay host-driven."""
+        srec_lg = bl0 - virgo_pc.LOG_SLICE
+
+        def q_prepare(fp):
+            q_values = beta_table(fp, bl0, gf.ones((), fp.device))
+            coefs = ifft(q_values.reshape(2, virgo_pc.SLICES, 1 << srec_lg),
+                         gf.root_of_unity_int(srec_lg))
+            return q_values, coefs
+
+        return dict(
+            bl0=bl0, device=device,
+            commit=graphs.Graphed(
+                lambda v: virgo_pc.commit_private(v, bl0), device,
+                "pc commit"),
+            commit_pub=graphs.Graphed(
+                lambda l_eval, q: virgo_pc.commit_public(l_eval, q, bl0),
+                device, "pc commit_pub"),
+            folds=graphs.Graphed(
+                lambda vo, rands: virgo_pc.commit_phase(vo, bl0, list(rands)),
+                device, "pc folds"),
+            q_prepare=graphs.Graphed(q_prepare, device, "pc q_prepare"))
 
     @staticmethod
     def q_prepare(fns, final_point):
         """Verifier-side q: beta table at the final point and its per-slice
         IFFT coefficients (verifier.cpp:348-361)."""
-        bl0 = fns["bl0"]
-        q_values = beta_table(final_point, bl0,
-                              gf.ones((), final_point.device))
-        srec_lg = bl0 - virgo_pc.LOG_SLICE
-        coefs = ifft(q_values.reshape(2, virgo_pc.SLICES, 1 << srec_lg),
-                     gf.root_of_unity_int(srec_lg))
-        return q_values, coefs
+        return fns["q_prepare"](final_point)
 
     def commit_private(self, fns, inputs):
-        l_oracle, _ = virgo_pc.commit_private(inputs, fns["bl0"])
+        l_oracle, _ = fns["commit"](inputs)
         return l_oracle, gf.to_numpy(l_oracle.tree[:, 1])
 
     def open(self, fns, l_oracle, final_point, rng):
         bl0, dev = fns["bl0"], fns["device"]
         q_values, _ = self.q_prepare(fns, final_point)
-        h_oracle, _q_eval, _q_coefs, all_sum, vo = virgo_pc.commit_public(
-            l_oracle.codeword, q_values, bl0)
+        h_oracle, _q_eval, _q_coefs, all_sum, vo = fns["commit_pub"](
+            l_oracle.codeword, q_values)
 
         n_folds = bl0 - virgo_pc.LOG_SLICE
         fg = fft_gkr.run(n_folds, rng, device=dev)
@@ -64,7 +81,7 @@ class VirgoPC:
             r, i = rng.field_element()
             randomness.append(gf.from_u64(np.uint64(r), np.uint64(i),
                                           dev).reshape(2))
-        ldt = virgo_pc.commit_phase(vo, bl0, randomness)
+        ldt = fns["folds"](vo, randomness)
 
         l_host = vpd.OracleHost.of(l_oracle)
         h_host = vpd.OracleHost.of(h_oracle)

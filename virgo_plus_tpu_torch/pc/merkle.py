@@ -58,32 +58,55 @@ def forest_plain(leaves, sizes):
     return [_heap(lv) for lv in levels]
 
 
+_TABLES = {}   # (device, stream, tree sizes) -> the forest kernel's tree table
+
+
+def _tree_table(dev, sizes):
+    """The forest kernel's (trees, 5) table for these tree sizes on the
+    current stream: leaf offset, log2 leaves, heap offset, first block and
+    ticket of each tree, and the grid's block count.  The table holds no
+    address and the kernel leaves its tickets at zero, so it is made once
+    and stays resident: a captured graph replays it (graphs.py), and no
+    host copy runs inside a capture."""
+    key = (dev, kernels.stream_ptr(), tuple(sizes))
+    if key not in _TABLES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"merkle_forest: no tree table for sizes "
+                               f"{list(sizes)} on the capturing stream; an "
+                               f"eager call on that stream makes it first")
+        rows, off, blocks = [], 0, 0
+        for n in sizes:
+            lg = n.bit_length() - 1
+            rows.append([off, lg, 8 * off, blocks, 0])
+            off += n
+            blocks += n >> min(lg, FOREST_SUB_LOG)
+        kernels.check_int("merkle_forest", trees=len(sizes), blocks=blocks)
+        _TABLES[key] = (torch.tensor(rows, dtype=torch.int64).to(dev), blocks)
+    return _TABLES[key]
+
+
 def forest_cuda(leaves, sizes):
     """The forest kernel on the card, one launch: same arguments and bits
     as forest_plain.  A block builds a subtree of up to 2^FOREST_SUB_LOG
-    leaves; the last block of a tree to finish builds the levels above."""
+    leaves; the last block of a tree to finish builds the levels above.
+    The heaps are views of one buffer, heap t at 8 * (the leaves before
+    tree t) words."""
     total = leaves.shape[1]
     kernels.check_cuda("merkle_forest", (leaves,), [(4, total)])
     if sum(sizes) != total or any(n < 1 or n & (n - 1) for n in sizes):
         raise ValueError(f"merkle_forest: tree sizes {sizes} are not powers "
                          f"of two summing to {total}")
     dev = leaves.device
-    heaps = [torch.empty((4, 2 * n), dtype=torch.int64, device=dev)
-             for n in sizes]
-    rows, off, blocks = [], 0, 0
-    for n, heap in zip(sizes, heaps):
-        lg = n.bit_length() - 1
-        # leaf offset, log2 leaves, heap address, first block, ticket
-        rows.append([off, lg, heap.data_ptr(), blocks, 0])
+    flat = torch.empty((8 * total,), dtype=torch.int64, device=dev)
+    heaps, off = [], 0
+    for n in sizes:
+        heaps.append(flat[8 * off:8 * (off + n)].view(4, 2 * n))
         off += n
-        blocks += n >> min(lg, FOREST_SUB_LOG)
-    kernels.check_int("merkle_forest", trees=len(sizes), blocks=blocks)
-    if blocks:
-        trees = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
-            dev, non_blocking=True)
+    if total:
+        trees, blocks = _tree_table(dev, sizes)
         kernels.launch("merkle_forest", 1, leaves.data_ptr(), total,
-                       trees.data_ptr(), len(sizes), blocks, FOREST_SUB_LOG,
-                       kernels.stream_ptr())
+                       trees.data_ptr(), flat.data_ptr(), len(sizes), blocks,
+                       FOREST_SUB_LOG, kernels.stream_ptr())
     return heaps
 
 
