@@ -19,11 +19,14 @@ package.  Phases, one line each, any failure exits non-zero:
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
-5. full width, ``randomize(14, 13, seed=0)``: prove and verify through the
-   driver with the launch counters reset just before and read just after,
-   while every kernel call's inputs, outputs and launches are recorded;
-   each recorded call is then held against its plain twin on the same
-   inputs.  A tampered proof is rejected.  The timed prove (fused.prove_e2e
+5. full width, ``randomize(14, 13, seed=0)``: a first driver prove (which
+   builds the driver's graphs) with every kernel call's inputs, outputs
+   and launches recorded, each recorded call then held against its plain
+   twin on the same inputs; then the main path, one more prove (through
+   the graphs' replays) and its verify, with the launch counters reset
+   just before and read just after; both proofs are equal, the verify
+   accepts, and the end's profile of a driver.prove must see exactly the
+   prove's counted launches.  A tampered proof is rejected.  The timed prove (fused.prove_e2e
    + the fft_gkr tape) is recorded and held the same way, and must launch
    K1 and K2's chain and forest kernels (these once each) with no plain
    twin call.  Wall times of the timed prove, verify and driver prove,
@@ -61,20 +64,27 @@ package.  Phases, one line each, any failure exits non-zero:
    walls of every rank and each rank's peak device memory are printed;
 10. the compiled programs as CUDA graphs (``graphs.py``): the replays of
    ``fused.make_e2e_prover`` + ``make_fg_tape``, the driver's
-   ``make_evaluator``, ``make_prover`` (staged, and unstaged), the four
-   ``VirgoPC.compile`` programs and ``make_batched_full_prover`` at every B
-   each equal the eager call in every array, with launches per replay equal
-   to the eager call's, no plain twin call, and each graph's kernel nodes
-   (read from the cudaGraph_t through the driver API) equal to the
-   launches its capture counted; capture + instantiate seconds and pool
-   bytes per graph; walls of 10 timed-prove replays, of ``driver.prove``
-   through the graphs and eagerly, and of the batched replays at every B.
+   ``make_evaluator`` and (unstaged) ``make_prover``, a staged
+   ``make_prover``, the driver's four ``VirgoPC.compile`` programs and
+   ``make_batched_full_prover`` at every B each equal the eager call
+   (``graphed=False`` makers) in every array, with launches per replay
+   equal to the eager call's, no plain twin call, and each graph's kernel
+   nodes (read from the cudaGraph_t through the driver API) equal to the
+   launches its capture counted; the e2e + tape graphs and the batched
+   graph at B = 4 replayed on another witness and other challenges equal
+   the eager call on those, and leave the earlier replay's result as it
+   was; capture + instantiate seconds and pool bytes per graph; each
+   prover stage's replay time against the one graph's; the device memory
+   ``graphs.release`` gives back; walls of 10 timed-prove replays, of
+   ``driver.prove`` through the graphs and eagerly, of compile_prover +
+   one prove (graphed and eager, as a process that proves once), and of
+   the batched replays at every B.
 
 ``driver.prove`` runs through the graphs of ``driver.compile_prover``, so
 phases 4-5 check them too: the first prove of a compiled circuit makes an
 eager warm-up call, the capture and a replay, and the kernel calls the
 Recorder holds against their twins are the warm-up's.  Phase 8 drives the
-eager batched function (the graph's own), phase 10 its replays.
+eager batched prover (``graphed=False``), phase 10 its graphs.
 
 Phase 4 starts by building the native C++ frontend into ``build/native/``
 and holding its small1200 circuit against the Python frontend's, field by
@@ -84,8 +94,10 @@ sharded paths gave it, from the profiler, beside its bound and its plain
 twin (a sharded shape on random inputs of that shape: rank 0's calls are
 held in its own process), and last
 the whole-call profiles (three eager calls, then one replay of the timed
-prove's graphs and one batched replay at B = 16): a large trace makes
-every later short profile miss launches.  The last lines are the card line, one JSON object
+prove's graphs, one batched replay at B = 16 and one ``driver.prove``
+through its graphs, each failing unless the profiler's kernels of every
+port entry equal the counted launches): a large trace makes every later
+short profile miss launches.  The last lines are the card line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
 ``{"ok": true, "device": {...}}``.
@@ -793,26 +805,46 @@ def main():
     subset_init(c)
     cp = driver.compile_prover(c)
     cc = cp.cc
+    # the first prove of a compiled circuit builds its graphs (an eager
+    # warm-up call, the capture, a replay): the warm-up's kernel calls are
+    # the ones recorded and held against the twins
     with Recorder(kernels, wrappers) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
         full, info = driver.prove(c, cp)
         torch.cuda.synchronize()
         t_prove_first = time.perf_counter() - t0
-        rep = driver.verify(c, full, cp)
-        launches = dict(kernels.LAUNCHES)
-        plain = dict(kernels.PLAIN_CALLS)
+        first_launches = dict(kernels.LAUNCHES)
+        check_path("the first prove", first_launches,
+                   dict(kernels.PLAIN_CALLS))
+    # the main path: one more prove, through the graphs' replays, and its
+    # verify; the end's profile of a driver.prove holds these counts
+    kernels.reset_counts()
+    full_main, _ = driver.prove(c, cp)
+    torch.cuda.synchronize()
+    prove_launches = dict(kernels.LAUNCHES)
+    rep = driver.verify(c, full_main, cp)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    plain = dict(kernels.PLAIN_CALLS)
     if not rep.ok:
         fail(f"full-width proof rejected: {rep}")
     check_path("the main path", launches, plain)
-    say(f"phase 5 main path ok: randomize(14, 13) proved and verified "
-        f"(first prove {t_prove_first:.3f} s); device launches {launches}, "
-        f"plain twin calls {plain}; transcript hash "
+    a, b = (proof_arrays(proof_io, np, f) for f in (full, full_main))
+    if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k]) for k in a):
+        fail("the main path's prove differs from the first prove")
+    del full_main
+    say(f"phase 5 main path ok: randomize(14, 13) proved and verified; the "
+        f"first prove ({t_prove_first:.3f} s, with the graphs' warm-up calls "
+        f"and captures: launches {first_launches}) == the next one in all "
+        f"{len(a)} proof arrays; device launches of the next prove "
+        f"{prove_launches}, with its verify {launches}, plain twin calls "
+        f"{plain}; transcript hash "
         f"{transcript_hash(cc, full)}")
     driver_shapes = check_calls(rec.calls, "driver prove")
-    say(f"phase 5 recorded calls ok: every kernel call of the driver prove "
-        f"== its plain twin on the same inputs, launches as the rule says; "
-        f"calls per shape: {listing(driver_shapes)}")
+    say(f"phase 5 recorded calls ok: every kernel call of the first driver "
+        f"prove == its plain twin on the same inputs, launches as the rule "
+        f"says; calls per shape: {listing(driver_shapes)}")
 
     lp = full.layers[cc.depth - 1]
     saved = lp["p1_polys"].copy()
@@ -826,14 +858,21 @@ def main():
     # the timed prove: fused.prove_e2e + the fft_gkr tape
     bl0 = cc.layers[0].bit_length
     n_folds = bl0 - virgo_pc.LOG_SLICE
-    grng = GlibcRandom(3396)
-    ch = protocol.make_challenges(cc, grng, dev)
-    sched = fft_gkr.draw_schedule(n_folds, grng)
-    fold_rands = []
-    for _ in range(n_folds):
-        r, i = grng.field_element()
-        fold_rands.append(gf.from_u64(np.uint64(r), np.uint64(i),
-                                      dev).reshape(2))
+
+    def draws(seed):
+        """The challenges, the fft_gkr schedule and the fold challenges of
+        a prove, drawn from GlibcRandom(seed)."""
+        grng = GlibcRandom(seed)
+        ch = protocol.make_challenges(cc, grng, dev)
+        sched = fft_gkr.draw_schedule(n_folds, grng)
+        fold_rands = []
+        for _ in range(n_folds):
+            r, i = grng.field_element()
+            fold_rands.append(gf.from_u64(np.uint64(r), np.uint64(i),
+                                          dev).reshape(2))
+        return ch, sched, fold_rands
+
+    ch, sched, fold_rands = draws(3396)
     inputs = input_buffer(cc, None, dev)
 
     def timed_prove():
@@ -965,9 +1004,8 @@ def main():
     # ---- phase 8: batched proving -----------------------------------------
     t8 = time.perf_counter()
     final_point = ch.layers[1].r_liu[:, :bl0]
-    run_batch = make_batched_full_prover(cc, cp.plans)
-    # phase 8 holds the eager batched prove; phase 10 replays its graphs
-    eager_batch = run_batch.graphs[0].fn
+    # phase 8 holds the eager batched prove; phase 10 its graphs
+    run_batch = make_batched_full_prover(cc, cp.plans, graphed=False)
     base = gf.to_numpy(inputs)
 
     def witness_batch(b):
@@ -979,8 +1017,7 @@ def main():
         return xs
 
     def batched(xs):
-        return eager_batch(input_buffer(cc, xs, dev), ch, final_point,
-                           tuple(fold_rands))
+        return run_batch(xs, ch, final_point, fold_rands)
 
     def single_arrays(out):
         proof, l_or, h_or, a_sum, _q, ldt = out
@@ -1202,76 +1239,142 @@ def main():
                 f"{h.pool_bytes / 2 ** 20:.1f} MiB" for h in new))
         return got
 
+    def other_inputs_check(label, first_out, replay, eager):
+        """A replay on other inputs == the eager call on those inputs, its
+        result differs from the earlier replay's, and the earlier replay's
+        result is unchanged after it."""
+        kept = graphs.clone(first_out)
+        got = replay()
+        want = eager()
+        n, ok = same_arrays(torch, got, want)
+        if not ok:
+            fail(f"phase 10 {label}: a replay on other inputs differs from "
+                 f"the eager call on them")
+        if same_arrays(torch, got, first_out)[1]:
+            fail(f"phase 10 {label}: other inputs gave the same result")
+        if not same_arrays(torch, first_out, kept)[1]:
+            fail(f"phase 10 {label}: a later replay changed the result an "
+                 f"earlier one returned")
+        say(f"phase 10 ok: {label} on another witness, other challenges and "
+            f"fold challenges: the replay == the eager call in all {n} "
+            f"arrays; the earlier replay's result is unchanged")
+
     e2e = fused.make_e2e_prover(cc, cp.plans)
     tape = fused.make_fg_tape(n_folds)
-    graph_check("make_e2e_prover + make_fg_tape", (e2e, tape),
-                lambda: (e2e(inputs, ch, fold_rands), tape(sched)),
-                lambda: (fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands,
-                                         cp.arrs),
-                         fused.fg_tape(n_folds, sched, dev)))
+    first10 = graph_check(
+        "make_e2e_prover + make_fg_tape", (e2e, tape),
+        lambda: (e2e(inputs, ch, fold_rands), tape(sched)),
+        lambda: (fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands,
+                                 cp.arrs),
+                 fused.fg_tape(n_folds, sched, dev)))
+    ch2, sched2, fold_rands2 = draws(4242)
+    final_point2 = ch2.layers[1].r_liu[:, :bl0]
+    inputs2 = input_buffer(cc, witness_batch(2)[1], dev)
+    other_inputs_check(
+        "make_e2e_prover + make_fg_tape", first10,
+        lambda: (e2e(inputs2, ch2, fold_rands2), tape(sched2)),
+        lambda: (fused.prove_e2e(cc, cp.plans, inputs2, ch2, fold_rands2,
+                                 cp.arrs),
+                 fused.fg_tape(n_folds, sched2, dev)))
+    del first10
     values10 = graph_check("make_evaluator (driver's)", (cp.evaluator,),
                            lambda: cp.evaluator(inputs),
                            lambda: evaluate(cc, inputs, cp.arrs))
-    unstaged = protocol.make_prover(cc, cp.plans, staged=False)
-    for label, prover in (("make_prover staged (driver's)", cp.prover),
-                          ("make_prover unstaged", unstaged)):
+    staged = protocol.make_prover(cc, cp.plans)
+    for label, prover in (("make_prover unstaged (driver's)", cp.prover),
+                          ("make_prover staged", staged)):
         graph_check(label, (prover,), lambda: prover(values10, ch),
                     lambda: protocol.prove(cc, cp.plans, values10, ch,
                                            cp.arrs))
+    # each stage's time apart: its graph replayed on the buffers of the
+    # call above, between CUDA events
+    stage_ms = {h.name: event_ms(torch, h.replay, 5)
+                for h in graphs.holders(staged) + graphs.holders(cp.prover)}
+    one_graph = stage_ms.pop(graphs.holders(cp.prover)[0].name)
+    say(f"phase 10 timing ({card}): the prover's stages, ms per replay "
+        f"(CUDA events over 5 replays): {stage_ms}; together "
+        f"{sum(stage_ms.values()):.3f} against {one_graph:.3f} for the one "
+        f"graph")
     fns = cp.pc_fns
-    l_oracle10, _ = graph_check(
-        "VirgoPC commit (driver's)", (fns["commit"],),
-        lambda: fns["commit"](inputs),
-        lambda: virgo_pc.commit_private(inputs, bl0))
-    q10 = graph_check("VirgoPC q_prepare (driver's)", (fns["q_prepare"],),
-                      lambda: fns["q_prepare"](final_point),
-                      lambda: fns["q_prepare"].fn(final_point))
-    pub10 = graph_check(
-        "VirgoPC commit_pub (driver's)", (fns["commit_pub"],),
-        lambda: fns["commit_pub"](l_oracle10.codeword, q10[0]),
-        lambda: virgo_pc.commit_public(l_oracle10.codeword, q10[0], bl0))
-    graph_check("VirgoPC folds (driver's)", (fns["folds"],),
-                lambda: fns["folds"](pub10[4], fold_rands),
-                lambda: virgo_pc.commit_phase(pub10[4], bl0, fold_rands))
+    eager_fns = cp.pc.compile(bl0, dev, graphed=False)
+
+    def pc_check(name, *args):
+        return graph_check(f"VirgoPC {name} (driver's)", (fns[name],),
+                           lambda: fns[name](*args),
+                           lambda: eager_fns[name](*args))
+
+    l_oracle10, _ = pc_check("commit", inputs)
+    q10 = pc_check("q_prepare", final_point)
+    pub10 = pc_check("commit_pub", l_oracle10.codeword, q10[0])
+    pc_check("folds", pub10[4], fold_rands)
     del values10, l_oracle10, q10, pub10
-    used = {h.name: h.replays for obj in (cp.evaluator, cp.prover, fns)
-            for h in graphs.holders(obj)}
-    if len(used) != 9 or not all(used.values()) or any(
-            h.graph is None for obj in (cp.evaluator, cp.prover, fns)
-            for h in graphs.holders(obj)):
-        fail(f"phase 10: driver.prove did not run through its 9 graphs: "
+    driver_graphs = [h for obj in (cp.evaluator, cp.prover, fns)
+                     for h in graphs.holders(obj)]
+    used = {h.name: h.replays for h in driver_graphs}
+    if len(used) != 6 or not all(used.values()) or any(
+            h.graph is None for h in driver_graphs):
+        fail(f"phase 10: driver.prove did not run through its 6 graphs: "
              f"replays {used}")
     say(f"phase 10 driver ok: driver.prove runs through the graphs of "
         f"compile_prover (so phases 4-5 held them: small1200 pins, card "
         f"proof == CPU proof, full width verified); replays by graph {used}")
 
+    run_graphs = make_batched_full_prover(cc, cp.plans)
     replay_batch = {}
     for b in BATCHES:
         xs = witness_batch(b)
-        graph_check(f"make_batched_full_prover at B = {b}", (run_batch,),
-                    lambda: run_batch(xs, ch, final_point, fold_rands),
-                    lambda: batched(xs))
-        ts = wall_ms(torch, lambda: run_batch(xs, ch, final_point,
-                                              fold_rands), BATCH_RUNS)
+        got = graph_check(f"make_batched_full_prover at B = {b}",
+                          (run_graphs,),
+                          lambda: run_graphs(xs, ch, final_point, fold_rands),
+                          lambda: batched(xs))
+        if b == 4:
+            xs2 = witness_batch(5)[1:]
+            other_inputs_check(
+                "make_batched_full_prover at B = 4", got,
+                lambda: run_graphs(xs2, ch2, final_point2, fold_rands2),
+                lambda: run_batch(xs2, ch2, final_point2, fold_rands2))
+        del got
+        ts = wall_ms(torch, lambda: run_graphs(xs, ch, final_point,
+                                               fold_rands), BATCH_RUNS)
         replay_batch[b] = dict(wall_ms=ts, proofs_per_s=b / statistics.median(
             ts) * 1e3)
         say(f"phase 10 timing ({card}): B = {b}: batched replay {spread(ts)};"
             f" {replay_batch[b]['proofs_per_s']:.3f} proofs/s at the median "
             f"against {per_b[b]['proofs_per_s']:.3f} eager (phase 8)")
+    pools = sum(h.pool_bytes for h in graphs.holders(run_graphs))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    graphs.release(run_graphs)
+    torch.cuda.empty_cache()
+    released = reserved - torch.cuda.memory_reserved()
+    say(f"phase 10 release: graphs.release of the batched maker gave back "
+        f"{released / 2 ** 20:.1f} MiB of reserved device memory; its "
+        f"graphs' pools at B = {BATCHES} were {pools / 2 ** 20:.1f} MiB")
 
     t_replay = wall_ms(torch, lambda: (e2e(inputs, ch, fold_rands),
                                        tape(sched)), TIMED_RUNS)
-    eager_cp = dataclasses.replace(
-        cp, evaluator=lambda x: evaluate(cc, x, cp.arrs),
-        prover=lambda v, chl: protocol.prove(cc, cp.plans, v, chl, cp.arrs),
-        pc_fns={k: getattr(f, "fn", f) for k, f in fns.items()})
+    eager_cp = driver.compile_prover(c, graphed=False)
     t_driver_eager = wall_ms(torch, lambda: driver.prove(c, eager_cp),
                              VERIFY_RUNS)
     t_driver_graphs = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
+
+    def one_shot(graphed):
+        """compile_prover and one prove, as a process that proves once."""
+        t0 = time.perf_counter()
+        driver.prove(c, driver.compile_prover(c, graphed=graphed))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t_one_shot = {"graphed": [], "eager": []}
+    for _ in range(2):
+        for k in t_one_shot:
+            t_one_shot[k].append(one_shot(k == "graphed"))
     say(f"phase 10 timing ({card}): timed prove replayed (e2e + tape) "
         f"{spread(t_replay)} against eager {statistics.median(t_e2e):.3f} "
         f"(phase 5); driver.prove through the graphs {spread(t_driver_graphs)}"
-        f", eager {spread(t_driver_eager)}")
+        f", eager {spread(t_driver_eager)}; compile_prover + one prove "
+        f"(ms): graphed {t_one_shot['graphed']}, eager {t_one_shot['eager']}")
     say(f"phase 10 ok in {time.perf_counter() - t10:.1f} s: {len(held_graphs)}"
         f" graphs held against their eager calls")
 
@@ -1449,40 +1552,55 @@ def main():
             "(device busy share not measured)")
 
     # phase 10's replays, profiled last: one replay of the timed prove's
-    # two graphs (e2e + tape), and one batched replay at B = 16
+    # two graphs (e2e + tape), one batched replay at B = 16 (its graph made
+    # anew, since phase 10 released the maker's), and one driver.prove
+    # through its graphs (the main path).  The profiler's kernels of each
+    # port entry must equal the launches the holders added (and the eager
+    # calls counted); a profile that missed some is repeated, up to 5 tries.
+    xs = witness_batch(PROFILED_BATCH)
     replay_prof = {}
     for label, fn, walls in (
             ("timed prove replay", lambda: (e2e(inputs, ch, fold_rands),
                                             tape(sched)), t_replay),
             (f"batched replay at B = {PROFILED_BATCH}",
-             lambda: run_batch(witness_batch(PROFILED_BATCH), ch,
-                               final_point, fold_rands),
-             replay_batch[PROFILED_BATCH]["wall_ms"])):
-        kernels.reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        r_launches = dict(kernels.LAUNCHES)
-        r_rows = [(device_us(e), e.count, e.key)
-                  for e in prof.key_averages() if is_device_row(e)]
+             lambda: run_graphs(xs, ch, final_point, fold_rands),
+             replay_batch[PROFILED_BATCH]["wall_ms"]),
+            ("driver.prove through the graphs",
+             lambda: driver.prove(c, cp), t_driver_graphs)):
+        fn()
+        torch.cuda.synchronize()
+        for r_try in range(1, 6):
+            kernels.reset_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            r_launches = dict(kernels.LAUNCHES)
+            r_rows = [(device_us(e), e.count, e.key)
+                      for e in prof.key_averages() if is_device_row(e)]
+            ours = {e: sum(cnt for _, cnt, key in r_rows
+                           if any(n in key for n in KERNEL_NAMES[e]))
+                    for e in KERNEL_NAMES}
+            if ours == r_launches:
+                break
+        else:
+            fail(f"phase 10 profile of one {label}: the profiler's kernels "
+                 f"of the port {ours} differ from the counted launches "
+                 f"{r_launches} in 5 tries")
         r_busy = sum(r[0] for r in r_rows) / 1e3
-        ours = {e: sum(cnt for _, cnt, key in r_rows
-                       if any(n in key for n in KERNEL_NAMES[e]))
-                for e in KERNEL_NAMES}
         med = statistics.median(walls)
         replay_prof[label] = dict(
-            busy_ms=r_busy or None, launches=sum(r[1] for r in r_rows),
-            idle_share=(1 - r_busy / med) if r_busy else None)
-        if not r_busy:
-            say(f"phase 10 profile of one {label}: the profiler recorded no "
-                f"device time (device busy share not measured)")
-            continue
-        say(f"phase 10 profile of one {label}: "
-            f"{replay_prof[label]['launches']} kernels, device busy "
+            busy_ms=r_busy, kernels=sum(r[1] for r in r_rows),
+            idle_share=1 - r_busy / med, port_kernels=ours)
+        say(f"phase 10 profile of one {label} (try {r_try}): "
+            f"{replay_prof[label]['kernels']} kernels, device busy "
             f"{r_busy:.3f} ms; idle share "
-            f"{replay_prof[label]['idle_share']:.4f} of the median replay "
-            f"wall {med:.1f} ms; the port's kernels {ours} against the "
-            f"replay's counted launches {r_launches}")
+            f"{replay_prof[label]['idle_share']:.4f} of the median wall "
+            f"{med:.1f} ms; the port's kernels {ours} == the counted "
+            f"launches")
+    main_prof = replay_prof["driver.prove through the graphs"]["port_kernels"]
+    if main_prof != prove_launches:
+        fail(f"phase 5's main-path prove launched {prove_launches} by the "
+             f"counters, a profiled driver.prove {main_prof}")
 
     def entry_json(entry):
         row = rows[entry]
@@ -1532,6 +1650,10 @@ def main():
               "driver_prove_graphs_ms": t_driver_graphs,
               "driver_prove_eager_ms": t_driver_eager,
               "batched_replay": {str(b): r for b, r in replay_batch.items()},
+              "batched_released_bytes": released,
+              "one_shot_prove_ms": t_one_shot,
+              "prover_stage_ms": stage_ms, "prover_one_graph_ms": one_graph,
+              "main_prove_launches": prove_launches,
               "replay_profiles": replay_prof,
               "sharded": {f"{tr} S={S}": {
                   "backend": r[0]["backend"],

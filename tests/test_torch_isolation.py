@@ -102,8 +102,9 @@ def test_batched_provers_default_to_cuda(monkeypatch):
     plans = protocol.build_plans(cc)
     with pytest.raises(RuntimeError, match="CUDA"):
         sharded.make_batched_prover(cc, plans, {})
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sharded.make_batched_full_prover(cc, plans)
+    for graphed in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sharded.make_batched_full_prover(cc, plans, graphed=graphed)
     with pytest.raises(RuntimeError, match="CUDA"):
         fused.make_e2e_prover(cc, plans)
     with pytest.raises(RuntimeError, match="CUDA"):

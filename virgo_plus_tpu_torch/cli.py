@@ -65,7 +65,9 @@ def main(argv=None):
         p.error(f"{exc} (on the command line: --device cpu)")
     circuit = driver.load_circuit(args.circuit,
                                   bug_compat=not args.no_bug_compat)
-    cp = driver.compile_prover(circuit, device=dev)
+    # one prove or verify per process: eager, since a graph's first call
+    # also pays an eager call and the capture (driver.compile_prover)
+    cp = driver.compile_prover(circuit, device=dev, graphed=False)
 
     if args.cmd == "prove":
         witness = None

@@ -93,11 +93,11 @@ class CompiledProver:
     cc: object
     plans: object
     arrs: dict           # prover index/coefficient tensors on the device
-    evaluator: object    # protocol.make_evaluator's graphs
-    prover: object       # protocol.make_prover's graphs
+    evaluator: object    # protocol.make_evaluator's
+    prover: object       # protocol.make_prover's, unstaged
     verifier: object
     pc: object           # pc.interface.VirgoPC
-    pc_fns: dict         # its per-size graphs
+    pc_fns: dict         # its per-size programs
     device: torch.device
     fs_prover: object = None   # fs.make_fs_prover's, made at first prove_fs
 
@@ -119,11 +119,13 @@ def load_circuit(pws_path: str, bug_compat: bool = True,
 
 
 def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
-                   device=None) -> CompiledProver:
+                   device=None, graphed: bool = True) -> CompiledProver:
     """Compile the circuit and move its tables to the device.  The
     evaluator, the GKR prover and the PC's programs are graphs, captured at
-    their first call (graphs.py).  pc defaults to the Virgo VPD (the
-    reference's USE_VIRGO branch)."""
+    their first call (graphs.py); graphed=False keeps them eager, which
+    costs less for a caller that proves once, since the first call of a
+    graph also pays an eager call and the capture.  pc defaults to the
+    Virgo VPD (the reference's USE_VIRGO branch)."""
     from .pc.interface import DEFAULT_PC
 
     dev = _device.resolve(device)
@@ -132,14 +134,16 @@ def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
     pc = pc or DEFAULT_PC
     return CompiledProver(
         cc=cc, plans=plans, arrs=protocol.circuit_arrays(cc, plans, dev),
-        evaluator=protocol.make_evaluator(cc, dev),
-        prover=protocol.make_prover(cc, plans, dev),
-        verifier=protocol.make_verifier(cc, dev),
-        pc=pc, pc_fns=pc.compile(cc.layers[0].bit_length, dev), device=dev)
+        evaluator=protocol.make_evaluator(cc, dev, graphed),
+        prover=protocol.make_prover(cc, plans, dev, staged=False,
+                                    graphed=graphed),
+        verifier=protocol.make_verifier(cc, dev), pc=pc,
+        pc_fns=pc.compile(cc.layers[0].bit_length, dev, graphed), device=dev)
 
 
 def _compiled(circuit, compiled, device) -> CompiledProver:
-    return compiled or compile_prover(circuit, device=device)
+    """The caller's compiled prover, or an eager one for a single call."""
+    return compiled or compile_prover(circuit, device=device, graphed=False)
 
 
 def _layer_proof_arrays(lp: protocol.LayerProof) -> dict:

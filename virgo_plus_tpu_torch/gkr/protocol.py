@@ -338,20 +338,23 @@ def _assemble(cc, vres, p1_res, liu_res, p2_out, n_lead) -> Proof:
     return Proof(vres=lead(vres, 1), layers=layer_proofs)
 
 
-def make_prover(cc: CompiledCircuit, plans, device=None, staged=True):
+def make_prover(cc: CompiledCircuit, plans, device=None, staged=True,
+                graphed=True):
     """Returns prove(values, ch) -> Proof, equal to ``prove`` bit for bit,
     replayed as graphs (graphs.py) with the circuit's tables made here.
     staged=True keeps the JAX package's stage boundaries, so that each
-    stage's device time can be read apart: the inits, the merged phase-1
-    and Liu folds, the phase-2 inits, and the phase-2 folds with the
-    combine, four graphs replayed in order, each stage's outputs copied
-    into the next one's buffers.  staged=False: one graph of ``prove``."""
+    stage's device time can be read apart (chip_smoke.py times each stage's
+    replay): the inits, the merged phase-1 and Liu folds, the phase-2
+    inits, and the phase-2 folds with the combine, four graphs replayed in
+    order, each stage's outputs copied into the next one's buffers.
+    staged=False: one graph of ``prove``, as the driver uses it.
+    graphed=False: ``prove`` itself, eager."""
     dev = _device.resolve(device)
     arrs = circuit_arrays(cc, plans, dev)
-    if not staged:
-        return graphs.Graphed(
+    if not (staged and graphed):
+        return graphs.program(
             lambda values, ch: prove(cc, plans, values, ch, arrs), dev,
-            "prover")
+            "prover", graphed)
 
     inits = graphs.Graphed(
         lambda values, ch: _prove_inits(cc, plans, values, ch, arrs), dev,
@@ -384,13 +387,14 @@ def make_prover(cc: CompiledCircuit, plans, device=None, staged=True):
     return run
 
 
-def make_evaluator(cc: CompiledCircuit, device=None):
+def make_evaluator(cc: CompiledCircuit, device=None, graphed=True):
     """Returns evaluate(inputs) -> the circuit's values, as one graph of
-    ``circuits.compile.evaluate`` with its tables made here."""
+    ``circuits.compile.evaluate`` with its tables made here (eager for
+    graphed=False)."""
     dev = _device.resolve(device)
     arrs = eval_arrays(cc, dev)
-    return graphs.Graphed(lambda inputs: evaluate(cc, inputs, arrs), dev,
-                          "evaluator")
+    return graphs.program(lambda inputs: evaluate(cc, inputs, arrs), dev,
+                          "evaluator", graphed)
 
 
 def _unstack(raw, groups, bounds=False):

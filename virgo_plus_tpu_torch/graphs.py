@@ -16,12 +16,19 @@ tuples, dicts and dataclasses (``protocol.Challenges``, ``Proof``, the PC's
 
 Building a holder on the card:
 
-* one eager call on a side stream, which builds the kernels at first use,
-  sets K1's shared-memory attribute, and makes K1's ticket words and the
-  Merkle forest's tree tables for that stream, so that none is born inside
-  the capture (both wrappers raise if one would be);
+* one eager call on the device's graph stream, which builds the kernels
+  at first use, sets K1's shared-memory attribute, and makes K1's ticket
+  words and the Merkle forest's tree tables for that stream, so that none
+  is born inside the capture (both wrappers raise if one would be);
 * the capture on that stream, in the default capture mode, then the
   instantiation.
+
+Every holder of a device captures and replays on that one stream
+(``graph_stream``), whatever the caller's current stream: the replay
+waits for the caller's stream and the caller's stream waits for the
+replay.  So the graphs that share K1's ticket words and the forest's
+tables, which are keyed by the stream, never run at the same time, and
+the port never launches an eager kernel on that stream.
 
 The kernel wrappers count launches on the host (``kernels.launch``), so a
 replay would count nothing.  The holder keeps the launches its capture
@@ -30,10 +37,11 @@ and adds them at every replay.  A capture that made a plain twin call
 raises.  On the CPU there is no graph: the holder runs the function eagerly
 on its static buffers, with the same copy-in and clone-out.  The maker's
 device decides which path runs; a tensor argument on another device raises.
-Nothing falls back: a capture or replay that fails raises.  A graph
-replays on the caller's current stream; graphs captured on one stream
-share K1's ticket words and the forest's tables, so replay them one at a
-time, as every caller here does.
+Nothing falls back: a capture or replay that fails raises.
+
+A holder keeps its graph's memory pool as long as it lives, one per shape;
+``release`` drops a maker's holders.  Makers that take ``graphed=False``
+return the eager function instead, for a caller that proves once.
 """
 
 from __future__ import annotations
@@ -150,6 +158,17 @@ def _normal(device) -> torch.device:
     return dev
 
 
+_STREAMS = {}   # device -> the stream its graphs capture and replay on
+
+
+def graph_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The one stream on which the graphs of `dev` are captured and
+    replayed (and their warm-up calls run)."""
+    if dev not in _STREAMS:
+        _STREAMS[dev] = torch.cuda.Stream(dev)
+    return _STREAMS[dev]
+
+
 # ---------------------------------------------------------------------------
 # Holders
 # ---------------------------------------------------------------------------
@@ -196,19 +215,19 @@ class Holder:
 
     def _capture(self):
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+        s = graph_stream(dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(s):
             self.fn(*self.args)
-        side.synchronize()
+        s.synchronize()
         self.warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = _new_graph()
         t0 = time.perf_counter()
         with capture_counts(self.name) as counted:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=s):
                 out = self.fn(*self.args)
         if _keeps_graph():
             graph.instantiate()
@@ -217,14 +236,25 @@ class Holder:
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph, self.out, self.launches = graph, out, counted.launches
 
+    def replay(self):
+        """Replay the graph on its buffers as they are, on the graph
+        stream, ordered after the caller's stream's work and before its
+        later work; count the capture's launches."""
+        cur = torch.cuda.current_stream(self.device)
+        s = graph_stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            self.graph.replay()
+        cur.wait_stream(s)
+        for entry, n in self.launches.items():
+            kernels.LAUNCHES[entry] += n
+
     def __call__(self, leaves, clone_out: bool = True):
         self._copy_in(leaves)
         if self.graph is None:
             out = self.fn(*self.args)
         else:
-            self.graph.replay()
-            for entry, n in self.launches.items():
-                kernels.LAUNCHES[entry] += n
+            self.replay()
             out = self.out
         self.replays += 1
         return clone(out) if clone_out else out
@@ -272,12 +302,30 @@ class Graphed:
         return holder(leaves, clone_out)
 
 
-def holders(obj):
-    """Every holder of a maker's result: a Graphed, or a callable or dict
-    that carries its Graphed ones (``.graphs``, or dict values)."""
+def program(fn, device, name: str, graphed: bool = True):
+    """fn as a Graphed on `device`, or fn itself (eager) for
+    graphed=False."""
+    return Graphed(fn, device, name) if graphed else fn
+
+
+def _graphed(obj):
+    """The Graphed objects of a maker's result: a Graphed, or a callable
+    or dict that carries them (``.graphs``, or dict values)."""
     if isinstance(obj, Graphed):
-        return list(obj.holders.values())
+        return [obj]
     parts = (obj.values() if isinstance(obj, dict)
              else getattr(obj, "graphs", ()))
-    return [h for g in parts if isinstance(g, Graphed)
-            for h in g.holders.values()]
+    return [g for g in parts if isinstance(g, Graphed)]
+
+
+def holders(obj):
+    """Every holder of a maker's result."""
+    return [h for g in _graphed(obj) for h in g.holders.values()]
+
+
+def release(obj):
+    """Drop every holder of a maker's result, so that their graphs' pools
+    go back to PyTorch's allocator; a later call captures anew.  Results
+    already returned stay valid (they are clones)."""
+    for g in _graphed(obj):
+        g.holders.clear()

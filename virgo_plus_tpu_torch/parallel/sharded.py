@@ -108,13 +108,16 @@ def _gathered_proof(proof, mesh) -> protocol.Proof:
     return protocol.Proof(vres=_gathered(proof.vres, mesh), layers=layers)
 
 
-def make_batched_prover(cc, plans, arrs, device=None, mesh=None):
+def make_batched_prover(cc, plans, arrs, device=None, mesh=None,
+                        graphed=True):
     """GKR only.  Returns fn(inputs_batch (B, 2, N), ch) -> a
     ``protocol.Proof`` whose arrays carry the batch first (vres (B, 2),
     layers[i].p1_polys (B, bl, 2, 3), ...).  arrs: the circuit's
     ``protocol.circuit_arrays`` on the device (the mesh's, with a mesh).
-    Without a mesh the prove is one graph per B (graphs.py); with one it
-    runs eagerly, since its collectives are not captured."""
+    Without a mesh the prove is one graph per B (graphs.py), whose pool
+    lives as long as ``fn`` or until ``graphs.release(fn)``; eager with
+    graphed=False, or with a mesh, since its collectives are not
+    captured."""
     _check_mesh(mesh)
     dev = mesh.device if mesh is not None else _device.resolve(device)
 
@@ -122,18 +125,19 @@ def make_batched_prover(cc, plans, arrs, device=None, mesh=None):
         return protocol.prove(cc, plans, evaluate(cc, inputs, arrs), ch,
                               arrs)
 
-    if mesh is None:
-        prove = graphs.Graphed(prove, dev, "batched prover")
+    prove = graphs.program(prove, dev, "batched prover",
+                           graphed and mesh is None)
 
     def fn(inputs_batch, ch):
         inputs = _inputs(cc, inputs_batch, dev, mesh)
         return _gathered_proof(prove(inputs, ch), mesh)
 
-    fn.graphs = (prove,) if mesh is None else ()
+    fn.graphs = (prove,)
     return fn
 
 
-def make_batched_full_prover(cc, plans, device=None, mesh=None):
+def make_batched_full_prover(cc, plans, device=None, mesh=None,
+                             graphed=True):
     """Batched FULL proving: GKR plus the whole polynomial commitment
     (private commit, public commit, every LDT fold and every oracle hash)
     of a witness batch, as ``fused.prove_e2e`` on (2, B, N) inputs.
@@ -144,8 +148,9 @@ def make_batched_full_prover(cc, plans, device=None, mesh=None):
     tensors of u64 bit patterns on the device; ``proofs`` as
     ``make_batched_prover``'s.  ch, final_point and fold_rands are shared
     by the batch and must be on the device.  Without a mesh the prove is
-    one graph per B (graphs.py); with one, every rank runs it eagerly and
-    returns all B instances."""
+    one graph per B (graphs.py), whose pool lives as long as ``run`` or
+    until ``graphs.release(run)``; eager with graphed=False.  With a mesh,
+    every rank runs it eagerly and returns all B instances."""
     _check_mesh(mesh)
     dev = mesh.device if mesh is not None else _device.resolve(device)
     arrs = protocol.circuit_arrays(cc, plans, dev)
@@ -162,8 +167,8 @@ def make_batched_full_prover(cc, plans, device=None, mesh=None):
                 all_sum.movedim(0, 1), level_roots,
                 ldt.final_codeword.movedim(0, 1))
 
-    if mesh is None:
-        prove = graphs.Graphed(prove, dev, "batched full prover")
+    prove = graphs.program(prove, dev, "batched full prover",
+                           graphed and mesh is None)
 
     def run(inputs_batch, ch, final_point, fold_rands):
         inputs = _inputs(cc, inputs_batch, dev, mesh)
@@ -171,5 +176,5 @@ def make_batched_full_prover(cc, plans, device=None, mesh=None):
         return (_gathered_proof(proofs, mesh),) + tuple(
             _gathered(t, mesh) for t in arrays)
 
-    run.graphs = (prove,) if mesh is None else ()
+    run.graphs = (prove,)
     return run

@@ -30,12 +30,13 @@ class VirgoPC:
 
     name = "virgo"
 
-    def compile(self, bl0: int, device):
+    def compile(self, bl0: int, device, graphed: bool = True):
         """The per-input-size programs, each a graph per argument shape
         (graphs.py), as the JAX package's four jits: ``commit``
         (private commit), ``commit_pub`` (public commit), ``folds`` (every
-        LDT fold and its oracles) and ``q_prepare``.  fft_gkr.run, the
-        challenge draws and the query answers stay host-driven."""
+        LDT fold and its oracles) and ``q_prepare``; eager functions for
+        graphed=False.  fft_gkr.run, the challenge draws and the query
+        answers stay host-driven."""
         srec_lg = bl0 - virgo_pc.LOG_SLICE
 
         def q_prepare(fp):
@@ -46,16 +47,17 @@ class VirgoPC:
 
         return dict(
             bl0=bl0, device=device,
-            commit=graphs.Graphed(
+            commit=graphs.program(
                 lambda v: virgo_pc.commit_private(v, bl0), device,
-                "pc commit"),
-            commit_pub=graphs.Graphed(
+                "pc commit", graphed),
+            commit_pub=graphs.program(
                 lambda l_eval, q: virgo_pc.commit_public(l_eval, q, bl0),
-                device, "pc commit_pub"),
-            folds=graphs.Graphed(
+                device, "pc commit_pub", graphed),
+            folds=graphs.program(
                 lambda vo, rands: virgo_pc.commit_phase(vo, bl0, list(rands)),
-                device, "pc folds"),
-            q_prepare=graphs.Graphed(q_prepare, device, "pc q_prepare"))
+                device, "pc folds", graphed),
+            q_prepare=graphs.program(q_prepare, device, "pc q_prepare",
+                                     graphed))
 
     @staticmethod
     def q_prepare(fns, final_point):
