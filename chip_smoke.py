@@ -35,13 +35,15 @@ package.  Phases, one line each, any failure exits non-zero:
    the end) a profile of one timed prove;
 7. Fiat-Shamir: on ``randomize(3, 7, seed=9)`` and small1200 the card's
    ``driver.prove_fs`` equals the CPU's in every proof array and the card's
-   ``verify_fs`` accepts it.  Full width: ``prove_fs`` and ``verify_fs``
-   with the counts reset just before and read just after, every kernel
-   call recorded and held against its plain twin; the FS prove must launch
+   ``verify_fs`` accepts it.  Full width: a first ``prove_fs`` and
+   ``verify_fs`` (which build the FS and verifier graphs) with every kernel
+   call recorded and held against its plain twin, then the main path, one
+   more ``prove_fs`` (equal to the first) and its ``verify_fs``, with the
+   counts reset just before and read just after; the FS prove must launch
    all four entries (the sponge's SHA3 at N = 1) with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
-   rejected; wall times of 3 ``prove_fs`` and 3 ``verify_fs`` runs, their
-   spans, and (at the end) a profile of one ``prove_fs``;
+   rejected; eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
+   their spans, and (at the end) a profile of one eager ``prove_fs``;
 8. batched proving (``parallel.sharded.make_batched_full_prover``, i.e.
    ``fused.prove_e2e`` on a (2, B, N) witness batch) at full width: a B = 1
    batched call equals ``prove_e2e`` on the same witness in every array,
@@ -49,7 +51,7 @@ package.  Phases, one line each, any failure exits non-zero:
    witness; every kernel call of one batched call at B = 4 and at B = 64 is
    recorded and held against its plain twin, with no plain twin call; the
    launches per batched call are the same at every B in (1, 4, 16, 64)
-   (one chain, one forest); wall times (3 runs after a warm-up), proofs
+   (one chain, one forest); wall times (2 runs after a warm-up), proofs
    per second and peak device memory at each B, and (at the end) a
    profile of one batched call at B = 16;
 9. the sharded provers (``parallel/gkr_sharded``, ``parallel/fs_sharded``)
@@ -75,16 +77,32 @@ package.  Phases, one line each, any failure exits non-zero:
    the eager call on those, and leave the earlier replay's result as it
    was; capture + instantiate seconds and pool bytes per graph; each
    prover stage's replay time against the one graph's; the device memory
-   ``graphs.release`` gives back; walls of 10 timed-prove replays, of
+   ``graphs.release`` gives back; walls of 5 timed-prove replays, of
    ``driver.prove`` through the graphs and eagerly, of compile_prover +
    one prove (graphed and eager, as a process that proves once), and of
-   the batched replays at every B.
+   the batched replays at every B;
+11. the FS and verifier programs as CUDA graphs: ``fs.make_fs_prover`` and
+   ``make_fs_pc_prover``, staged and unstaged, each replay equal to the
+   ``graphed=False`` call in every array (launches and kernel nodes
+   checked as in phase 10) and, on another witness, to the eager call on
+   it, leaving the earlier result as it was; the same for
+   ``protocol.make_verifier`` staged and unstaged, with and without an
+   output block, on phase 5's proof; each graphed verifier rejects a proof
+   with one p1_polys coefficient changed and a wrong output block by a
+   replay (no new holder), and the graphed ``verify_fs`` a tampered FS
+   proof; walls of each FS program's replays and of 5 ``driver.prove_fs``,
+   ``driver.verify`` (with ``last_split``) and ``driver.verify_fs`` through
+   the graphed ``compile_prover``, beside phases 5 and 7's eager walls; the
+   memory ``graphs.release`` gives back.
 
-``driver.prove`` runs through the graphs of ``driver.compile_prover``, so
-phases 4-5 check them too: the first prove of a compiled circuit makes an
-eager warm-up call, the capture and a replay, and the kernel calls the
-Recorder holds against their twins are the warm-up's.  Phase 8 drives the
-eager batched prover (``graphed=False``), phase 10 its graphs.
+``driver.prove``, ``prove_fs``, ``verify`` and ``verify_fs`` run through
+the graphs of ``driver.compile_prover``, so phases 4-7 check them too: the
+first call on a compiled circuit makes an eager warm-up call, the capture
+and a replay, and the kernel calls the Recorder holds against their twins
+are the warm-up's; the main paths' counts are read from a second call.
+Phases 5-7 time the eager walls through a ``graphed=False`` twin of the
+compiled prover.  Phase 8 drives the eager batched prover
+(``graphed=False``), phase 10 its graphs.
 
 Phase 4 starts by building the native C++ frontend into ``build/native/``
 and holding its small1200 circuit against the Python frontend's, field by
@@ -94,10 +112,10 @@ sharded paths gave it, from the profiler, beside its bound and its plain
 twin (a sharded shape on random inputs of that shape: rank 0's calls are
 held in its own process), and last
 the whole-call profiles (three eager calls, then one replay of the timed
-prove's graphs, one batched replay at B = 16 and one ``driver.prove``
-through its graphs, each failing unless the profiler's kernels of every
-port entry equal the counted launches): a large trace makes every later
-short profile miss launches.  The last lines are the card line, one JSON object
+prove's graphs, one batched replay at B = 16 and one ``driver.prove`` and
+one ``driver.prove_fs`` through their graphs, each failing unless the
+profiler's kernels of every port entry equal the counted launches): a
+large trace makes every later short profile miss launches.  The last lines are the card line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
 ``{"ok": true, "device": {...}}``.
@@ -153,14 +171,15 @@ PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
 CHAIN_STEPS = 65
 
-TIMED_RUNS = 10              # wall-clock runs of the timed prove
-VERIFY_RUNS = 5              # ... of driver.verify and driver.prove
-FS_RUNS = 3                  # ... of driver.prove_fs and driver.verify_fs
+TIMED_RUNS = 5               # wall-clock runs of the timed prove
+VERIFY_RUNS = 5              # ... of driver.prove and the graphed paths
+EAGER_VERIFY_RUNS = 3        # ... of the eager driver.verify
+FS_RUNS = 2                  # ... of the eager prove_fs and verify_fs
 BATCHES = (1, 4, 16, 64)     # witnesses per batched call (phase 8)
-BATCH_RUNS = 3               # wall-clock runs of a batched call per B
+BATCH_RUNS = 2               # wall-clock runs of a batched call per B
 PROFILED_BATCH = 16          # B of the profiled batched call
 SHARDED = ((2, ("glibc", "fs")), (4, ("glibc",)))   # S, transcripts
-SHARDED_RUNS = 2             # timed proves per rank after the recorded one
+SHARDED_RUNS = 1             # timed proves per rank after the recorded one
 # K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
 # five table groups at S = 2 and 4, and tails of 1-3 bits
 K1_SHARDED = ([(bl - s, k) for s in (1, 2) for bl, k in
@@ -173,8 +192,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def say(msg):
-    print(msg, flush=True)
+T_START = time.perf_counter()
+
+
+def say(msg, stamp=True):
+    """Print a line, stamped with the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}" if stamp else msg,
+          flush=True)
 
 
 def nvidia_smi(fields):
@@ -628,7 +652,7 @@ def main():
     from virgo_plus_tpu_torch.circuits.compile import evaluate, input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import gf
-    from virgo_plus_tpu_torch.gkr import protocol
+    from virgo_plus_tpu_torch.gkr import fs, protocol
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.parallel import mesh as pmesh
     from virgo_plus_tpu_torch.parallel.sharded import make_batched_full_prover
@@ -804,6 +828,8 @@ def main():
     c = randomize(14, 13, seed=0)
     subset_init(c)
     cp = driver.compile_prover(c)
+    # the eager twin of cp: phases 5-7 time the eager walls through it
+    eager_cp = driver.compile_prover(c, graphed=False)
     cc = cp.cc
     # the first prove of a compiled circuit builds its graphs (an eager
     # warm-up call, the capture, a replay): the warm-up's kernel calls are
@@ -899,10 +925,12 @@ def main():
         f"shape: {listing(timed_shapes)}; l-oracle root == driver.prove's")
 
     t_e2e = wall_ms(torch, timed_prove, TIMED_RUNS)
-    t_verify = wall_ms(torch, lambda: driver.verify(c, full, cp), VERIFY_RUNS)
+    t_verify = wall_ms(torch, lambda: driver.verify(c, full, eager_cp),
+                       EAGER_VERIFY_RUNS)
     t_driver = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
     say(f"phase 5 timing ({card}): timed prove {spread(t_e2e)}; "
-        f"driver.verify {spread(t_verify)}; driver.prove {spread(t_driver)}")
+        f"driver.verify (eager) {spread(t_verify)}; driver.prove "
+        f"{spread(t_driver)}")
 
 
     # ---- phase 6: where the time goes ------------------------------------
@@ -916,11 +944,11 @@ def main():
             fused.fg_tape(n_folds, sched, dev)
     spans = {k: round(v / runs * 1e3, 3) for k, v in pt.report().items()}
     say(f"phase 6 prove spans (ms, mean of {runs}, synchronised): {spans}")
-    rep = driver.verify(c, full, cp)
+    rep = driver.verify(c, full, eager_cp)
     vph = {k: round(v * 1e3, 3) for k, v in rep.details["phases"].items()}
-    say(f"phase 6 verify spans (ms): {vph}; GKR fast "
-        f"{cp.verifier.last_split[0] * 1e3:.3f}, predicate sweeps "
-        f"{cp.verifier.last_split[1] * 1e3:.3f}")
+    say(f"phase 6 verify spans, eager (ms): {vph}; GKR fast "
+        f"{eager_cp.verifier.last_split[0] * 1e3:.3f}, predicate sweeps "
+        f"{eager_cp.verifier.last_split[1] * 1e3:.3f}")
 
     # ---- phase 7: Fiat-Shamir ---------------------------------------------
     small = randomize(3, 7, seed=9)
@@ -943,30 +971,48 @@ def main():
         say(f"phase 7 ok: {label} card FS proof == CPU FS proof in all "
             f"{len(got)} arrays; verify_fs accepts")
 
+    # the first prove_fs and verify_fs of the compiled circuit build their
+    # graphs (phase 11): the warm-up calls' kernel calls are the ones
+    # recorded and held against the twins
     with Recorder(kernels, wrappers) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
-        full_fs, _ = driver.prove_fs(c, cp)
+        full_fs_first, _ = driver.prove_fs(c, cp)
         torch.cuda.synchronize()
         t_fs_first = time.perf_counter() - t0
-        fs_launches = dict(kernels.LAUNCHES)
-        fs_plain = dict(kernels.PLAIN_CALLS)
-        rep_fs = driver.verify_fs(c, full_fs, cp)
-        fs_path_launches = dict(kernels.LAUNCHES)
-        fs_path_plain = dict(kernels.PLAIN_CALLS)
+        first_fs_launches = dict(kernels.LAUNCHES)
+        if not driver.verify_fs(c, full_fs_first, cp).ok:
+            fail("the first full-width FS proof is rejected")
+    # the main path: one more prove_fs (through the replays) and its
+    # verify_fs, the counts reset just before and read just after
+    kernels.reset_counts()
+    full_fs, _ = driver.prove_fs(c, cp)
+    torch.cuda.synchronize()
+    fs_launches = dict(kernels.LAUNCHES)
+    fs_plain = dict(kernels.PLAIN_CALLS)
+    rep_fs = driver.verify_fs(c, full_fs, cp)
+    torch.cuda.synchronize()
+    fs_path_launches = dict(kernels.LAUNCHES)
+    fs_path_plain = dict(kernels.PLAIN_CALLS)
     if not rep_fs.ok:
         fail(f"the full-width FS proof is rejected: {rep_fs}")
     missing = [e for e in KERNEL_NAMES if fs_launches[e] == 0]
     if missing or any(fs_path_plain.values()):
         fail(f"the FS prove did not run through every kernel: launches "
              f"{fs_launches}, plain twin calls {fs_path_plain}")
-    say(f"phase 7 FS path ok: randomize(14, 13) prove_fs and verify_fs "
-        f"(first prove {t_fs_first:.3f} s); prove_fs device launches "
-        f"{fs_launches}, plain twin calls {fs_plain}; with verify_fs "
-        f"{fs_path_launches}, plain {fs_path_plain}")
+    a, b = (proof_arrays(proof_io, np, f) for f in (full_fs_first, full_fs))
+    if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k]) for k in a):
+        fail("the main path's prove_fs differs from the first prove_fs")
+    del full_fs_first
+    say(f"phase 7 FS path ok: randomize(14, 13) prove_fs and verify_fs; the "
+        f"first prove_fs ({t_fs_first:.3f} s, with the FS graphs' warm-up "
+        f"calls and captures: launches {first_fs_launches}) == the next one "
+        f"in all {len(a)} proof arrays; device launches of the next "
+        f"prove_fs {fs_launches}, plain twin calls {fs_plain}; with its "
+        f"verify_fs {fs_path_launches}, plain {fs_path_plain}")
     fs_shapes = check_calls(rec.calls, "FS prove")
-    say(f"phase 7 recorded calls ok: every kernel call of prove_fs and "
-        f"verify_fs == its plain twin on the same inputs, launches as the "
+    say(f"phase 7 recorded calls ok: every kernel call of the first prove_fs "
+        f"and verify_fs == its plain twin on the same inputs, launches as the "
         f"rule says; calls per shape: {listing(fs_shapes)}")
 
     def bumped(a, idx):
@@ -989,17 +1035,17 @@ def main():
 
     fs_prove_spans, fs_verify_spans = [], []
     t_fs_prove = wall_ms(torch, lambda: fs_prove_spans.append(
-        driver.prove_fs(c, cp)[1]["phases"]), FS_RUNS)
+        driver.prove_fs(c, eager_cp)[1]["phases"]), FS_RUNS)
     t_fs_verify = wall_ms(torch, lambda: fs_verify_spans.append(
-        driver.verify_fs(c, full_fs, cp).details["phases"]), FS_RUNS)
-    say(f"phase 7 timing ({card}): prove_fs {spread(t_fs_prove)}; verify_fs "
-        f"{spread(t_fs_verify)}")
+        driver.verify_fs(c, full_fs, eager_cp).details["phases"]), FS_RUNS)
+    say(f"phase 7 timing ({card}), eager: prove_fs {spread(t_fs_prove)}; "
+        f"verify_fs {spread(t_fs_verify)}")
     for what, spans in (("prove_fs", fs_prove_spans),
                         ("verify_fs", fs_verify_spans)):
         mean = {k: round(sum(sp[k] for sp in spans[1:]) / FS_RUNS * 1e3, 3)
                 for k in spans[-1]}
-        say(f"phase 7 {what} spans (ms, mean of the {FS_RUNS} timed runs"
-            f"{', synchronised' if what == 'prove_fs' else ''}): {mean}")
+        say(f"phase 7 {what} spans, eager (ms, mean of the {FS_RUNS} timed "
+            f"runs{', synchronised' if what == 'prove_fs' else ''}): {mean}")
 
     # ---- phase 8: batched proving -----------------------------------------
     t8 = time.perf_counter()
@@ -1192,17 +1238,23 @@ def main():
     t10 = time.perf_counter()
     held_graphs = {}          # holder name -> its record
 
-    def graph_check(label, makers, first, eager):
-        """Build the makers' graphs by calling them once (on a new shape: a
-        warm-up call, the capture, a replay), then hold one more replay
-        against the eager call: every array equal, launches per replay
-        equal to the eager call's, no plain twin call, and each graph's
-        kernel nodes by entry equal to the launches its capture counted.
-        Returns the replayed outputs."""
+    def eager_call(eager):
+        """(result, launches) of one eager call."""
         kernels.reset_counts()
         want = eager()
         torch.cuda.synchronize()
-        eager_launches = dict(kernels.LAUNCHES)
+        return want, dict(kernels.LAUNCHES)
+
+    def graph_check(label, makers, first, eager, phase="phase 10"):
+        """Build the makers' graphs by calling them once (on a new shape: a
+        warm-up call, the capture, a replay), then hold one more replay
+        against the eager call (eager: the function, or eager_call's
+        result): every array equal, launches per replay equal to the eager
+        call's, no plain twin call, and each graph's kernel nodes by entry
+        equal to the launches its capture counted.  Returns the replayed
+        outputs."""
+        want, eager_launches = (eager if isinstance(eager, tuple)
+                                else eager_call(eager))
         first()
         new = [h for m in makers for h in graphs.holders(m)
                if h.name not in held_graphs]
@@ -1213,25 +1265,26 @@ def main():
         plain = dict(kernels.PLAIN_CALLS)
         n, ok = same_arrays(torch, got, want)
         if not ok:
-            fail(f"phase 10 {label}: the replay differs from the eager call")
+            fail(f"{phase} {label}: the replay differs from the eager call")
         if replay_launches != eager_launches or any(plain.values()):
-            fail(f"phase 10 {label}: launches per replay {replay_launches} "
+            fail(f"{phase} {label}: launches per replay {replay_launches} "
                  f"against {eager_launches} eager, plain twin calls {plain}")
         for h in new:
             nodes = graph_kernel_nodes(h.graph)
             if nodes is None:
-                fail(f"phase 10 {h.name}: this PyTorch keeps no cudaGraph_t, "
+                fail(f"{phase} {h.name}: this PyTorch keeps no cudaGraph_t, "
                      f"so its kernel nodes cannot be counted")
             ours = {e: nodes[e] for e in KERNEL_NAMES if nodes[e]}
             if ours != h.launches:
-                fail(f"phase 10 {h.name}: kernel nodes {ours} against the "
+                fail(f"{phase} {h.name}: kernel nodes {ours} against the "
                      f"capture's launches {h.launches}")
             held_graphs[h.name] = dict(
                 launches=h.launches, kernel_nodes=sum(nodes.values()),
                 capture_s=h.capture_s, warmup_s=h.warmup_s,
                 pool_bytes=h.pool_bytes)
-        say(f"phase 10 ok: {label}: the replay == the eager call in all {n} "
-            f"arrays; launches per replay {replay_launches} == the eager "
+        say(f"{phase} ok ({card}): {label}: the replay == the eager call "
+            f"in all {n} arrays; launches per replay {replay_launches} == the "
+            f"eager "
             f"call's, plain twin calls 0; graphs " + "; ".join(
                 f"{h.name}: {held_graphs[h.name]['kernel_nodes']} kernel "
                 f"nodes (the port's {h.launches} == the capture's count), "
@@ -1239,7 +1292,9 @@ def main():
                 f"{h.pool_bytes / 2 ** 20:.1f} MiB" for h in new))
         return got
 
-    def other_inputs_check(label, first_out, replay, eager):
+    def other_inputs_check(label, first_out, replay, eager,
+                           phase="phase 10", other="another witness, other "
+                           "challenges and fold challenges"):
         """A replay on other inputs == the eager call on those inputs, its
         result differs from the earlier replay's, and the earlier replay's
         result is unchanged after it."""
@@ -1248,16 +1303,15 @@ def main():
         want = eager()
         n, ok = same_arrays(torch, got, want)
         if not ok:
-            fail(f"phase 10 {label}: a replay on other inputs differs from "
+            fail(f"{phase} {label}: a replay on other inputs differs from "
                  f"the eager call on them")
         if same_arrays(torch, got, first_out)[1]:
-            fail(f"phase 10 {label}: other inputs gave the same result")
+            fail(f"{phase} {label}: other inputs gave the same result")
         if not same_arrays(torch, first_out, kept)[1]:
-            fail(f"phase 10 {label}: a later replay changed the result an "
+            fail(f"{phase} {label}: a later replay changed the result an "
                  f"earlier one returned")
-        say(f"phase 10 ok: {label} on another witness, other challenges and "
-            f"fold challenges: the replay == the eager call in all {n} "
-            f"arrays; the earlier replay's result is unchanged")
+        say(f"{phase} ok: {label} on {other}: the replay == the eager call "
+            f"in all {n} arrays; the earlier replay's result is unchanged")
 
     e2e = fused.make_e2e_prover(cc, cp.plans)
     tape = fused.make_fg_tape(n_folds)
@@ -1354,7 +1408,6 @@ def main():
 
     t_replay = wall_ms(torch, lambda: (e2e(inputs, ch, fold_rands),
                                        tape(sched)), TIMED_RUNS)
-    eager_cp = driver.compile_prover(c, graphed=False)
     t_driver_eager = wall_ms(torch, lambda: driver.prove(c, eager_cp),
                              VERIFY_RUNS)
     t_driver_graphs = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
@@ -1377,6 +1430,163 @@ def main():
         f"(ms): graphed {t_one_shot['graphed']}, eager {t_one_shot['eager']}")
     say(f"phase 10 ok in {time.perf_counter() - t10:.1f} s: {len(held_graphs)}"
         f" graphs held against their eager calls")
+
+    # ---- phase 11: the FS and verifier programs as CUDA graphs -----------
+    t11 = time.perf_counter()
+    p11 = "phase 11"
+    graphed11 = {}            # maker label -> maker, released at the end
+
+    def fs_inputs(inp):
+        """(values, root_l, l codeword) of a witness, through the driver's
+        evaluator and commit graphs."""
+        values = cp.evaluator(inp)
+        l_or, _ = cp.pc.commit_private(cp.pc_fns, inp)
+        return values, l_or.tree[:, 1], l_or.codeword
+
+    # each eager call once, on the two witnesses; the PC half's inputs come
+    # from the GKR walk's
+    eager_fs = fs.make_fs_prover(cc, cp.plans, cp.arrs, dev, graphed=False)
+    eager_pc = fs.make_fs_pc_prover(bl0, dev, graphed=False)
+    fs_in = {1: fs_inputs(inputs), 2: fs_inputs(inputs2)}
+    gkr_ref = {k: eager_call(lambda: eager_fs(v, r))
+               for k, (v, r, _) in fs_in.items()}
+    pc_in = {k: (fs_in[k][2], gkr_ref[k][0][1].layers[1].r_liu[:, :bl0],
+                 gkr_ref[k][0][2]) for k in fs_in}
+    pc_ref = {k: eager_call(lambda: eager_pc(*a)) for k, a in pc_in.items()}
+    replay_ms = {}
+    for what, make, args, ref in (
+            ("make_fs_prover",
+             lambda st: fs.make_fs_prover(cc, cp.plans, cp.arrs, dev, st),
+             {k: v[:2] for k, v in fs_in.items()}, gkr_ref),
+            ("make_fs_pc_prover",
+             lambda st: fs.make_fs_pc_prover(bl0, dev, st), pc_in, pc_ref)):
+        for staged in (True, False):
+            ours = staged == driver.FS_STAGED
+            maker = ((cp.fs_prover if what == "make_fs_prover"
+                      else cp.fs_pc_prover) if ours else make(staged))
+            mine = " (driver's)" if ours else ""
+            label = f"{what} {'staged' if staged else 'unstaged'}{mine}"
+            if not ours:
+                graphed11[label] = maker
+            got = graph_check(label, (maker,), lambda: maker(*args[1]),
+                              ref[1], p11)
+            other_inputs_check(label, got, lambda: maker(*args[2]),
+                               lambda: ref[2][0], p11, "another witness")
+            del got
+            replay_ms[label] = wall_ms(torch, lambda: maker(*args[1]),
+                                       VERIFY_RUNS)
+            say(f"{p11} timing ({card}): {label} replay "
+                f"{spread(replay_ms[label])}")
+    del gkr_ref, pc_in, pc_ref
+
+    # the verifier, on phase 5's proof under the glibc stream
+    def port_proof(layers):
+        return protocol.Proof(vres=gf.tensor(full.vres, dev), layers=[None] + [
+            driver._layer_proof_from(layers[i], dev)
+            for i in range(1, cc.depth)])
+
+    vch = protocol.make_challenges(cc, GlibcRandom(3396), dev)
+    vproof = port_proof(full.layers)
+    bad_layers = list(full.layers)
+    bad_layers[-1] = dict(bad_layers[-1], p1_polys=bumped(
+        bad_layers[-1]["p1_polys"], (0, 0, 1)))
+    bad_proof = port_proof(bad_layers)
+    out_block = fs_in[1][0][:, int(cc.value_off[cc.depth - 1]):]
+    wrong_block = out_block.roll(1, dims=1)
+    eager_v = protocol.make_verifier(cc, dev, graphed=False)
+
+    def with_ok(r):
+        """A verifier's (ok, claim, point) with ok as a tensor, so that
+        same_arrays holds it too."""
+        return (torch.tensor(r[0]),) + tuple(r[1:])
+
+    v_ref = {out is None: eager_call(
+        lambda: with_ok(eager_v(vproof, vch, out)))
+        for out in (None, out_block)}
+    for staged in (True, False):
+        ours = staged      # compile_prover's verifier is the staged one
+        v = cp.verifier if ours else protocol.make_verifier(cc, dev, False)
+        mine = " (driver's)" if ours else ""
+        label = f"make_verifier {'staged' if staged else 'unstaged'}{mine}"
+        if not ours:
+            graphed11[label] = v
+        for out in (None, out_block):
+            which = f"{label}, {'no' if out is None else 'with'} output block"
+            got = graph_check(which, (v,),
+                              lambda: with_ok(v(vproof, vch, out)),
+                              v_ref[out is None], p11)
+            if not bool(got[0]):
+                fail(f"{p11} {which}: the proof is rejected")
+        n_holders = len(graphs.holders(v))
+        rejects = {"p1_polys coefficient": v(bad_proof, vch, None)[0],
+                   "p1_polys coefficient, with the block":
+                       v(bad_proof, vch, out_block)[0],
+                   "wrong output block": v(vproof, vch, wrong_block)[0]}
+        if any(rejects.values()) or len(graphs.holders(v)) != n_holders:
+            fail(f"{p11} {label}: accepted a tampered proof {rejects}, or "
+                 f"built a holder for it")
+        say(f"{p11} ok: {label} rejects a proof with one p1_polys "
+            f"coefficient changed (with and without the output block) and a "
+            f"wrong output block, by replaying its {n_holders} graphs")
+    del fs_in
+
+    # verify_fs through the graphs rejects a tampered FS proof
+    layers = list(full_fs.layers)
+    layers[-1] = dict(layers[-1],
+                      p1_polys=bumped(layers[-1]["p1_polys"], (0, 0, 1)))
+    replays = sum(h.replays for h in graphs.holders(cp.verifier))
+    if driver.verify_fs(c, dataclasses.replace(full_fs, layers=layers),
+                        cp).ok:
+        fail(f"{p11}: graphed verify_fs accepted a tampered FS proof")
+    if sum(h.replays for h in graphs.holders(cp.verifier)) == replays:
+        fail(f"{p11}: verify_fs did not run through the verifier's graphs")
+    say(f"{p11} ok: verify_fs through the graphs rejects an FS proof with "
+        f"one p1_polys coefficient changed")
+
+    # the driver's paths through a graphed compile_prover, beside phases
+    # 5 and 7's eager runs
+    splits = []
+
+    def verify_split(fn):
+        def run():
+            fn()
+            splits.append(cp.verifier.last_split)
+        return run
+
+    t_fs_graphs = wall_ms(torch, lambda: driver.prove_fs(c, cp), VERIFY_RUNS)
+    t_verify_graphs = wall_ms(torch, verify_split(
+        lambda: driver.verify(c, full, cp)), VERIFY_RUNS)
+    verify_splits = splits[1:]
+    splits.clear()
+    t_fs_verify_graphs = wall_ms(torch, verify_split(
+        lambda: driver.verify_fs(c, full_fs, cp)), VERIFY_RUNS)
+    fs_verify_splits = splits[1:]
+    fmt = lambda sp: [[round(f * 1e3, 3), round(s_ * 1e3, 3)]
+                      for f, s_ in sp]
+    say(f"{p11} timing ({card}): through a graphed compile_prover: prove_fs "
+        f"{spread(t_fs_graphs)} against eager median "
+        f"{statistics.median(t_fs_prove):.3f} (phase 7); driver.verify "
+        f"{spread(t_verify_graphs)} against eager median "
+        f"{statistics.median(t_verify):.3f} (phase 5), its last_split (ms, "
+        f"fast/slow) by run {fmt(verify_splits)}; verify_fs "
+        f"{spread(t_fs_verify_graphs)} against eager median "
+        f"{statistics.median(t_fs_verify):.3f} (phase 7), last_split "
+        f"{fmt(fs_verify_splits)}")
+    pools = sum(h.pool_bytes for m in graphed11.values()
+                for h in graphs.holders(m))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for m in graphed11.values():
+        graphs.release(m)
+    torch.cuda.empty_cache()
+    released11 = reserved - torch.cuda.memory_reserved()
+    say(f"{p11} release ({card}): graphs.release of {list(graphed11)} gave "
+        f"back "
+        f"{released11 / 2 ** 20:.1f} MiB of reserved device memory; their "
+        f"pools were {pools / 2 ** 20:.1f} MiB")
+    del graphed11
+    say(f"{p11} ok in {time.perf_counter() - t11:.1f} s ({card})")
 
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
@@ -1487,8 +1697,9 @@ def main():
         say("phase 8 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only, as the other whole-call profiles: only device
+    # rows are read, and CPU-side op events took most of this profile's time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         timed_prove()
         torch.cuda.synchronize()
     prof_rows = sorted(((device_us(e), e.count, e.key)
@@ -1522,7 +1733,7 @@ def main():
     # events, and a trace of 400k launches took the profiler over 100 s
     # (scripts/torch_profiler_probe.py)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        driver.prove_fs(c, cp)
+        driver.prove_fs(c, eager_cp)
         torch.cuda.synchronize()
     fs_rows = [(device_us(e), e.count, e.key)
                for e in prof.key_averages() if is_device_row(e)]
@@ -1538,7 +1749,7 @@ def main():
                     fs_profiled[entry][0] += us / 1e3
                     fs_profiled[entry][1] += cnt
         held = all(fs_profiled[e][1] == fs_launches[e] for e in KERNEL_NAMES)
-        say(f"phase 7 profile of one prove_fs: "
+        say(f"phase 7 profile of one eager prove_fs: "
             f"{sum(r[1] for r in fs_rows)} kernel launches, device busy "
             f"{fs_busy:.3f} ms; idle share {fs_idle:.4f} of the median wall "
             f"{med:.1f} ms; the port's kernels (device ms, launches): "
@@ -1551,10 +1762,11 @@ def main():
         say("phase 7 profile: the profiler recorded no device time "
             "(device busy share not measured)")
 
-    # phase 10's replays, profiled last: one replay of the timed prove's
-    # two graphs (e2e + tape), one batched replay at B = 16 (its graph made
-    # anew, since phase 10 released the maker's), and one driver.prove
-    # through its graphs (the main path).  The profiler's kernels of each
+    # phases 10 and 11's replays, profiled last: one replay of the timed
+    # prove's two graphs (e2e + tape), one batched replay at B = 16 (its
+    # graph made anew, since phase 10 released the maker's), one
+    # driver.prove and one driver.prove_fs through their graphs (the main
+    # paths of phases 5 and 7).  The profiler's kernels of each
     # port entry must equal the launches the holders added (and the eager
     # calls counted); a profile that missed some is repeated, up to 5 tries.
     xs = witness_batch(PROFILED_BATCH)
@@ -1566,7 +1778,9 @@ def main():
              lambda: run_graphs(xs, ch, final_point, fold_rands),
              replay_batch[PROFILED_BATCH]["wall_ms"]),
             ("driver.prove through the graphs",
-             lambda: driver.prove(c, cp), t_driver_graphs)):
+             lambda: driver.prove(c, cp), t_driver_graphs),
+            ("driver.prove_fs through the graphs",
+             lambda: driver.prove_fs(c, cp), t_fs_graphs)):
         fn()
         torch.cuda.synchronize()
         for r_try in range(1, 6):
@@ -1583,7 +1797,7 @@ def main():
             if ours == r_launches:
                 break
         else:
-            fail(f"phase 10 profile of one {label}: the profiler's kernels "
+            fail(f"phase 10-11 profile of one {label}: the profiler's kernels "
                  f"of the port {ours} differ from the counted launches "
                  f"{r_launches} in 5 tries")
         r_busy = sum(r[0] for r in r_rows) / 1e3
@@ -1591,7 +1805,7 @@ def main():
         replay_prof[label] = dict(
             busy_ms=r_busy, kernels=sum(r[1] for r in r_rows),
             idle_share=1 - r_busy / med, port_kernels=ours)
-        say(f"phase 10 profile of one {label} (try {r_try}): "
+        say(f"phase 10-11 profile of one {label} (try {r_try}): "
             f"{replay_prof[label]['kernels']} kernels, device busy "
             f"{r_busy:.3f} ms; idle share "
             f"{replay_prof[label]['idle_share']:.4f} of the median wall "
@@ -1601,6 +1815,10 @@ def main():
     if main_prof != prove_launches:
         fail(f"phase 5's main-path prove launched {prove_launches} by the "
              f"counters, a profiled driver.prove {main_prof}")
+    fs_prof = replay_prof["driver.prove_fs through the graphs"]["port_kernels"]
+    if fs_prof != fs_launches:
+        fail(f"phase 7's main-path prove_fs launched {fs_launches} by the "
+             f"counters, a profiled driver.prove_fs {fs_prof}")
 
     def entry_json(entry):
         row = rows[entry]
@@ -1655,17 +1873,24 @@ def main():
               "prover_stage_ms": stage_ms, "prover_one_graph_ms": one_graph,
               "main_prove_launches": prove_launches,
               "replay_profiles": replay_prof,
+              "fs_prove_graphs_ms": t_fs_graphs,
+              "verify_graphs_ms": t_verify_graphs,
+              "verify_graphs_splits": verify_splits,
+              "fs_verify_graphs_ms": t_fs_verify_graphs,
+              "fs_verify_graphs_splits": fs_verify_splits,
+              "fs_program_replay_ms": replay_ms,
+              "phase11_released_bytes": released11,
               "sharded": {f"{tr} S={S}": {
                   "backend": r[0]["backend"],
                   "first_prove_s": [x["first_s"] for x in r],
                   "wall_ms": [x["wall_ms"] for x in r],
                   "peak_bytes": [x["peak_bytes"] for x in r]}
                   for (tr, S), r in sharded.items()}}
-    say(f"card: {card}")
-    say(json.dumps(report))
+    say(f"card: {card}", stamp=False)
+    say(json.dumps(report), stamp=False)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), stamp=False)
 
 
 if __name__ == "__main__":

@@ -88,6 +88,12 @@ def gkr_proof_size_bytes(cc) -> int:
     return total
 
 
+# the form of the FS programs that prove_fs makes for a compiled prover:
+# staged (a graph a layer, a graph a FRI level), whose replays were the
+# faster on the H100 (PERF.md section 6)
+FS_STAGED = True
+
+
 @dataclass
 class CompiledProver:
     cc: object
@@ -99,7 +105,10 @@ class CompiledProver:
     pc: object           # pc.interface.VirgoPC
     pc_fns: dict         # its per-size programs
     device: torch.device
-    fs_prover: object = None   # fs.make_fs_prover's, made at first prove_fs
+    graphed: bool = True       # whether the programs are graphs
+    # fs.make_fs_prover's and make_fs_pc_prover's, made at first prove_fs
+    fs_prover: object = None
+    fs_pc_prover: object = None
 
 
 def load_circuit(pws_path: str, bug_compat: bool = True,
@@ -121,11 +130,12 @@ def load_circuit(pws_path: str, bug_compat: bool = True,
 def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
                    device=None, graphed: bool = True) -> CompiledProver:
     """Compile the circuit and move its tables to the device.  The
-    evaluator, the GKR prover and the PC's programs are graphs, captured at
-    their first call (graphs.py); graphed=False keeps them eager, which
-    costs less for a caller that proves once, since the first call of a
-    graph also pays an eager call and the capture.  pc defaults to the
-    Virgo VPD (the reference's USE_VIRGO branch)."""
+    evaluator, the GKR prover, the verifier, the PC's programs and (made at
+    the first ``prove_fs``) the FS programs are graphs, captured at their
+    first call (graphs.py); graphed=False keeps them eager, which costs
+    less for a caller that proves once, since the first call of a graph
+    also pays an eager call and the capture.  pc defaults to the Virgo VPD
+    (the reference's USE_VIRGO branch)."""
     from .pc.interface import DEFAULT_PC
 
     dev = _device.resolve(device)
@@ -137,8 +147,9 @@ def compile_prover(c: LayeredCircuit, pc: Optional[object] = None,
         evaluator=protocol.make_evaluator(cc, dev, graphed),
         prover=protocol.make_prover(cc, plans, dev, staged=False,
                                     graphed=graphed),
-        verifier=protocol.make_verifier(cc, dev), pc=pc,
-        pc_fns=pc.compile(cc.layers[0].bit_length, dev, graphed), device=dev)
+        verifier=protocol.make_verifier(cc, dev, graphed=graphed), pc=pc,
+        pc_fns=pc.compile(cc.layers[0].bit_length, dev, graphed), device=dev,
+        graphed=graphed)
 
 
 def _compiled(circuit, compiled, device) -> CompiledProver:
@@ -271,12 +282,18 @@ def prove_fs(circuit: LayeredCircuit,
 
     with pt.span("gkr", sync):
         if cp.fs_prover is None:
-            cp.fs_prover = fs.make_fs_prover(cc, cp.plans, cp.arrs, dev)
+            cp.fs_prover = fs.make_fs_prover(cc, cp.plans, cp.arrs, dev,
+                                             staged=FS_STAGED,
+                                             graphed=cp.graphed)
+            cp.fs_pc_prover = fs.make_fs_pc_prover(bl0, dev,
+                                                   staged=FS_STAGED,
+                                                   graphed=cp.graphed)
         proof, ch, D = cp.fs_prover(values, l_oracle.tree[:, 1])
 
     with pt.span("pc", sync):
-        h_oracle, all_sum, fft_msgs, oracles, final_cw, D = fs.fs_pc_prove(
-            l_oracle.codeword, ch.layers[1].r_liu[:, :bl0], D, bl0)
+        (h_oracle, all_sum, _q_coefs, fft_msgs, oracles, final_cw,
+         _fold_rands, D) = cp.fs_pc_prover(l_oracle.codeword,
+                                           ch.layers[1].r_liu[:, :bl0], D)
 
     with pt.span("queries", sync):
         sp = fs.HostSponge.from_device_state(D)

@@ -19,11 +19,8 @@ import torch
 from . import device as _device
 from . import graphs
 from .circuits.compile import CompiledCircuit, evaluate
-from .field import gf
 from .gkr import protocol
-from .gkr.beta import beta_table
 from .pc import fft_gkr, virgo_pc
-from .pc.fft import ifft
 
 
 def prove_e2e(cc: CompiledCircuit, plans, inputs, ch, fold_rands, arrs,
@@ -56,10 +53,7 @@ def prove_e2e(cc: CompiledCircuit, plans, inputs, ch, fold_rands, arrs,
     with span("public_commit"):
         if final_point is None:
             final_point = ch.layers[1].r_liu[:, :bl0]
-        q_values = beta_table(final_point, bl0, gf.ones((), inputs.device))
-        srec_lg = bl0 - virgo_pc.LOG_SLICE
-        q_coefs = ifft(q_values.reshape(2, virgo_pc.SLICES, 1 << srec_lg),
-                       gf.root_of_unity_int(srec_lg))
+        q_values, q_coefs = virgo_pc.q_tables(final_point, bl0)
         h_full, _q_eval, _q_coefs2, all_sum, vo = \
             virgo_pc.commit_public_eval(l_eval, q_values, bl0)
     with span("fri_folds"):

@@ -28,6 +28,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import device as _device
+from .. import graphs
 from ..field import gf
 from ..pc import fft_gkr, virgo_pc
 from ..pc.keccak import sha3_256_x64
@@ -44,6 +46,9 @@ DOMAIN_TAG = b"virgo_plus_tpu.fs.v1\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\
 # ---------------------------------------------------------------------------
 
 def init_state(device):
+    """The domain-tag state on `device`.  It is a host-to-device copy, which
+    a capture refuses: the FS makers make it once, outside any capture, as
+    ``fs_arrays``' "D0"."""
     h = hashlib.sha3_256(DOMAIN_TAG).digest()
     return torch.from_numpy(np.frombuffer(h, dtype=np.int64).copy()).to(device)
 
@@ -69,9 +74,12 @@ def absorb_elems(D, elems):
 
 
 def _pad_block(D, tag: int):
-    pad = torch.zeros(4, dtype=torch.int64, device=D.device)
-    pad[0] = tag
-    return torch.cat([D, pad])
+    """D || tag || 0 as 8 words, from a copy and a fill (item assignment of
+    a Python int would be a host copy, which a capture refuses)."""
+    blk = torch.zeros(8, dtype=torch.int64, device=D.device)
+    blk[:4] = D
+    blk[4].fill_(tag)
+    return blk
 
 
 def squeeze(D):
@@ -193,9 +201,9 @@ def fs_arrays(cc, plans, device) -> dict:
     """Per-layer scatter plans of the FS walk, made once per circuit on the
     device: p1P{i} and p2P{i} scatter the add and the mult contributions
     of layer i in one pass (the plan twice, side by side); liuP{i} is the
-    Liu plan.  The gather and coefficient tables are the glibc prover's
-    (protocol.circuit_arrays)."""
-    arrs = {}
+    Liu plan; D0 is the sponge's initial state.  The gather and
+    coefficient tables are the glibc prover's (protocol.circuit_arrays)."""
+    arrs = {"D0": init_state(device)}
     for i in range(1, cc.depth):
         L = cc.layers[i]
         P = plans[i]
@@ -290,37 +298,77 @@ def _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs, fsa):
     return lp, chl, D
 
 
-def make_fs_prover(cc, plans, arrs, device):
-    """Returns prove(values, root_l) -> (Proof, Challenges, final state):
-    the non-interactive GKR proof of ``values`` with every challenge
+def _fs_init(cc, values, root_l, D0):
+    """The walk's start: absorb the input commitment root_l, squeeze the
+    output claim point (it depends only on root_l), then compute vres and
+    absorb it.  Returns (vres, r_out, D)."""
+    D = absorb_elems(D0, torch.stack([root_l[:2], root_l[2:]], dim=1))
+    r_out, D = squeeze_vec(D, cc.layers[cc.depth - 1].bit_length)
+    vres = mle_fold(protocol._values_block(cc, values, cc.depth - 1), r_out)
+    return vres, r_out, absorb_elems(D, vres[:, None])
+
+
+def _fs_walk(cc, plans, values, root_l, init, layer):
+    """The FS walk through init(values, root_l) and layer(i, values, r_cur,
+    D, rvs) for i from the top down (the eager functions or their graphs).
+    Returns (Proof, Challenges, final state)."""
+    vres, r_out, D = init(values, root_l)
+    layer_proofs: List[Optional[protocol.LayerProof]] = [None] * cc.depth
+    ch_layers: List[Optional[protocol.LayerChallenges]] = [None] * cc.depth
+    r_cur = r_out
+    for i in range(cc.depth - 1, 0, -1):
+        # the Liu sums of layer i need r_v of its consumers j > i
+        rvs = {j: ch_layers[j].r_v for (j, *_rest) in plans[i].liu_consumers
+               if j != i}
+        layer_proofs[i], ch_layers[i], D = layer(i, values, r_cur, D, rvs)
+        r_cur = ch_layers[i].r_liu
+    return (protocol.Proof(vres=vres, layers=layer_proofs),
+            protocol.Challenges(r_out=r_out, layers=ch_layers), D)
+
+
+def fs_prove(cc, plans, values, root_l, arrs, fsa):
+    """The non-interactive GKR proof of ``values`` with every challenge
     squeezed from the device sponge, seeded by the input commitment root
-    root_l ((4,) digest words).  arrs: protocol.circuit_arrays."""
-    fsa = fs_arrays(cc, plans, device)
-    depth = cc.depth
+    root_l ((4,) digest words).  arrs: protocol.circuit_arrays; fsa:
+    fs_arrays.  Returns (Proof, Challenges, final state)."""
+    return _fs_walk(
+        cc, plans, values, root_l,
+        lambda values, root_l: _fs_init(cc, values, root_l, fsa["D0"]),
+        lambda i, values, r_cur, D, rvs: _fs_layer(cc, plans, i, values,
+                                                   r_cur, D, rvs, arrs, fsa))
 
-    def prove(values, root_l):
-        D = absorb_elems(init_state(values.device),
-                         torch.stack([root_l[:2], root_l[2:]], dim=1))
-        # the output claim point depends only on the input commitment;
-        # vres is computed, then absorbed
-        r_out, D = squeeze_vec(D, cc.layers[depth - 1].bit_length)
-        vres = mle_fold(protocol._values_block(cc, values, depth - 1), r_out)
-        D = absorb_elems(D, vres[:, None])
-        layer_proofs: List[Optional[protocol.LayerProof]] = [None] * depth
-        ch_layers: List[Optional[protocol.LayerChallenges]] = [None] * depth
-        r_cur = r_out
-        for i in range(depth - 1, 0, -1):
-            rvs = {j: ch_layers[j].r_v for (j, *_rest) in plans[i].liu_consumers
-                   if j != i}
-            lp, chl, D = _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs,
-                                   fsa)
-            layer_proofs[i] = lp
-            ch_layers[i] = chl
-            r_cur = chl.r_liu
-        return (protocol.Proof(vres=vres, layers=layer_proofs),
-                protocol.Challenges(r_out=r_out, layers=ch_layers), D)
 
-    return prove
+def make_fs_prover(cc, plans, arrs, device=None, staged=True, graphed=True):
+    """Returns prove(values, root_l) -> (Proof, Challenges, final state),
+    equal to ``fs_prove`` bit for bit, with the FS tables made here.
+    staged=True: the JAX package's stages, each a graph (graphs.py): the
+    init (sponge init, r_out, vres) and one graph per layer, whose
+    arguments are (values, r_cur, D, rvs), chained on the graphs' own
+    outputs and cloned once at the end.  staged=False: one graph of
+    ``fs_prove``.  graphed=False: ``fs_prove`` itself, eager."""
+    dev = _device.resolve(device)
+    fsa = fs_arrays(cc, plans, dev)
+    if not (staged and graphed):
+        return graphs.program(
+            lambda values, root_l: fs_prove(cc, plans, values, root_l, arrs,
+                                            fsa), dev, "fs prover", graphed)
+
+    init = graphs.Graphed(
+        lambda values, root_l: _fs_init(cc, values, root_l, fsa["D0"]), dev,
+        "fs prover init")
+    layers = {i: graphs.Graphed(
+        lambda values, r_cur, D, rvs, i=i: _fs_layer(
+            cc, plans, i, values, r_cur, D, rvs, arrs, fsa),
+        dev, f"fs prover layer {i}") for i in range(cc.depth - 1, 0, -1)}
+
+    def run(values, root_l):
+        return graphs.clone(_fs_walk(
+            cc, plans, values, root_l,
+            lambda *args: init.call(args, clone_out=False),
+            lambda i, *args: layers[i].call(args, clone_out=False)))
+
+    run.graphs = (init, *layers.values())
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -347,34 +395,101 @@ def _fs_fft_schedule(D, lg: int):
     return d, D
 
 
-def fs_pc_prove(l_codeword, final_point, D, bl0: int):
-    """The PC half of the non-interactive prover on the device: public
-    commit, absorb root_h and all_sum, the fft_gkr message tape, then per
-    FRI level squeeze r, fold, hash the level (one chain and one forest
-    launch) and absorb its root before the next challenge.  Returns
-    (h_oracle, all_sum, fft_gkr messages, level oracles, final codeword,
-    D')."""
-    lg = bl0 - virgo_pc.LOG_SLICE
-    q_values = beta_table(final_point, bl0, gf.ones((), l_codeword.device))
+def _fs_pc_commit(l_codeword, final_point, D, bl0: int):
+    """Public commit, absorb root_h and all_sum, squeeze the fft_gkr
+    schedule.  Returns (h_oracle, all_sum, q_coefs, schedule, virtual
+    oracle, D')."""
+    q_values, q_coefs = virgo_pc.q_tables(final_point, bl0)
     h_oracle, _q_eval, _q_coefs, all_sum, vo = virgo_pc.commit_public(
         l_codeword, q_values, bl0)
     rt = h_oracle.tree[:, 1]
     D = absorb_pair(D, rt[:2], rt[2:])
     D = absorb_elems(D, all_sum)
-    sched, D = _fs_fft_schedule(D, lg)
-    msgs = fft_gkr.prove_messages(lg, sched, l_codeword.device)
-    cur = vo
+    sched, D = _fs_fft_schedule(D, bl0 - virgo_pc.LOG_SLICE)
+    return h_oracle, all_sum, q_coefs, sched, vo, D
+
+
+def _fs_fold(cur, D, lgc: int):
+    """One FRI level: squeeze r, fold, hash the level (one chain and one
+    forest launch), absorb its root.  Returns (oracle, r, codeword, D')."""
+    r, D = squeeze(D)
+    cur = virgo_pc.fold_step(cur, r, lgc)
+    o = virgo_pc.make_oracle(cur)
+    ort = o.tree[:, 1]
+    return o, r, cur, absorb_pair(D, ort[:2], ort[2:])
+
+
+def _fs_pc_walk(l_codeword, final_point, D, bl0: int, commit, messages,
+                fold):
+    """The PC half through commit(l_codeword, final_point, D),
+    messages(schedule) and fold(codeword, D, lgc) (the eager functions or
+    their graphs); the FRI levels run from lgc = bl0 + RATE - LOG_SLICE
+    down."""
+    h_oracle, all_sum, q_coefs, sched, cur, D = commit(l_codeword,
+                                                       final_point, D)
+    msgs = messages(sched)
     lgc = bl0 + virgo_pc.RATE - virgo_pc.LOG_SLICE
-    oracles = []
-    for _ in range(lg):
-        r, D = squeeze(D)
-        cur = virgo_pc.fold_step(cur, r, lgc)
-        o = virgo_pc.make_oracle(cur)
-        ort = o.tree[:, 1]
-        D = absorb_pair(D, ort[:2], ort[2:])
+    oracles, rands = [], []
+    for _ in range(bl0 - virgo_pc.LOG_SLICE):
+        o, r, cur, D = fold(cur, D, lgc)
         lgc -= 1
         oracles.append(o)
-    return h_oracle, all_sum, msgs, oracles, cur, D
+        rands.append(r)
+    return (h_oracle, all_sum, q_coefs, msgs, oracles, cur,
+            torch.stack(rands, dim=1), D)
+
+
+def fs_pc_prove(l_codeword, final_point, D, bl0: int):
+    """The PC half of the non-interactive prover on the device: public
+    commit, absorb root_h and all_sum, the fft_gkr message tape, then per
+    FRI level squeeze r, fold, hash the level and absorb its root before
+    the next challenge.  Returns (h_oracle, all_sum, q_coefs (the q table's
+    per-slice IFFT), fft_gkr messages, level oracles, final codeword,
+    fold_rands (2, levels), D')."""
+    lg = bl0 - virgo_pc.LOG_SLICE
+    dev = l_codeword.device
+    return _fs_pc_walk(
+        l_codeword, final_point, D, bl0,
+        lambda l_codeword, final_point, D: _fs_pc_commit(
+            l_codeword, final_point, D, bl0),
+        lambda sched: fft_gkr.prove_messages(lg, sched, dev), _fs_fold)
+
+
+def make_fs_pc_prover(bl0: int, device=None, staged=True, graphed=True):
+    """Returns run(l_codeword, final_point, D) -> fs_pc_prove's 8-tuple,
+    bit for bit.  staged=True: the JAX package's stages, each a graph: the
+    public commit with its absorbs and the schedule's squeezes, the fft_gkr
+    message tape (``fft_gkr.prove_messages``) and one graph per FRI level,
+    chained on the graphs' own outputs and cloned once at the end.
+    staged=False: one graph of ``fs_pc_prove``.  graphed=False:
+    ``fs_pc_prove`` itself, eager."""
+    dev = _device.resolve(device)
+    if not (staged and graphed):
+        return graphs.program(
+            lambda l_codeword, final_point, D: fs_pc_prove(
+                l_codeword, final_point, D, bl0),
+            dev, "fs pc prover", graphed)
+
+    lg = bl0 - virgo_pc.LOG_SLICE
+    commit = graphs.Graphed(
+        lambda l_codeword, final_point, D: _fs_pc_commit(
+            l_codeword, final_point, D, bl0), dev, "fs pc commit")
+    tape = graphs.Graphed(lambda sched: fft_gkr.prove_messages(lg, sched, dev),
+                          dev, "fs pc messages")
+    top = bl0 + virgo_pc.RATE - virgo_pc.LOG_SLICE
+    folds = {lgc: graphs.Graphed(
+        lambda cur, D, lgc=lgc: _fs_fold(cur, D, lgc), dev,
+        f"fs pc fold {lgc}") for lgc in range(top, top - lg, -1)}
+
+    def run(l_codeword, final_point, D):
+        return graphs.clone(_fs_pc_walk(
+            l_codeword, final_point, D, bl0,
+            lambda *args: commit.call(args, clone_out=False),
+            lambda sched: tape.call((sched,), clone_out=False),
+            lambda cur, D, lgc: folds[lgc].call((cur, D), clone_out=False)))
+
+    run.graphs = (commit, tape, *folds.values())
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -495,4 +610,5 @@ def fs_verify(cc, proof: protocol.Proof, root_l, output_values=None):
     Returns (ok, final_claim, final_point)."""
     dev = proof.vres.device
     ch, _sp = derive_challenges(cc, proof, root_l, dev)
-    return protocol.make_verifier(cc, dev)(proof, ch, output_values)
+    return protocol.make_verifier(cc, dev, graphed=False)(proof, ch,
+                                                          output_values)

@@ -31,7 +31,7 @@ from ..circuits.compile import compile_circuit, eval_arrays, evaluate, \
 from ..field import gf
 from ..gkr import fs, protocol
 from ..gkr.beta import beta_table
-from ..gkr.sumcheck import mle_fold, tree_sum
+from ..gkr.sumcheck import tree_sum
 from ..pc import fft_gkr, virgo_pc
 from . import pc_sharded
 from .gkr_sharded import (_gate_weight, _halves, _is_sharded, _liu_mult,
@@ -168,37 +168,28 @@ def _fs_layer(cc, plans, i: int, values, r_cur, D, rvs, arr, mesh: Mesh,
 
 def make_fs_sharded_prover(cc, plans, mesh: Mesh):
     """Returns prove(values, root_l) -> (Proof, Challenges, D), the sharded
-    fs.make_fs_prover: every rank returns the same."""
+    fs.make_fs_prover (eager: gloo collectives cannot be captured): every
+    rank returns the same."""
     log_s = _log_s(mesh)
-    depth = cc.depth
     arrs = {i: layer_plan_arrays(cc, plans, i, mesh.sp, log_s, mesh.sp_rank,
-                                 mesh.device) for i in range(1, depth)}
+                                 mesh.device) for i in range(1, cc.depth)}
+    D0 = fs.init_state(mesh.device)
 
     def prove(values, root_l):
-        D = fs.absorb_elems(fs.init_state(values.device),
-                            torch.stack([root_l[:2], root_l[2:]], dim=1))
-        r_out, D = fs.squeeze_vec(D, cc.layers[depth - 1].bit_length)
-        vres = mle_fold(protocol._values_block(cc, values, depth - 1), r_out)
-        D = fs.absorb_elems(D, vres[:, None])
-        layers = [None] * depth
-        ch_layers = [None] * depth
-        r_cur = r_out
-        for i in range(depth - 1, 0, -1):
-            rvs = {j: ch_layers[j].r_v
-                   for (j, *_rest) in plans[i].liu_consumers if j != i}
-            layers[i], ch_layers[i], D = _fs_layer(
-                cc, plans, i, values, r_cur, D, rvs, arrs[i], mesh, log_s)
-            r_cur = ch_layers[i].r_liu
-        return (protocol.Proof(vres=vres, layers=layers),
-                protocol.Challenges(r_out=r_out, layers=ch_layers), D)
+        return fs._fs_walk(
+            cc, plans, values, root_l,
+            lambda values, root_l: fs._fs_init(cc, values, root_l, D0),
+            lambda i, values, r_cur, D, rvs: _fs_layer(
+                cc, plans, i, values, r_cur, D, rvs, arrs[i], mesh, log_s))
 
     return prove
 
 
 def make_fs_sharded_pc(mesh: Mesh, bl0: int):
-    """The sharded fs.fs_pc_prove.  Returns run(l_local (2, 65, L),
+    """The sharded fs.fs_pc_prove, eager.  Returns run(l_local (2, 65, L),
     final_point, D) -> (h ShardedOracle, all_sum, fft_gkr messages, level
-    ShardedOracles, D')."""
+    ShardedOracles, D'): fs_pc_prove's outputs but q_coefs and fold_rands,
+    which a proof does not carry."""
     public = pc_sharded.sharded_commit_public(mesh, bl0)
     lg = bl0 - virgo_pc.LOG_SLICE
 

@@ -11,21 +11,50 @@ is the one implementation.  The call order follows the reference
    answers, consuming the shared challenge stream in that order;
 3. ``verify_opening`` checks those fields against the commitment root and
    the surviving claim.
+
+``PolynomialCommitment`` is that seam as an abstract class, as in the JAX
+package, so that a second commitment could plug in.
 """
 
 from __future__ import annotations
+
+import abc
+from typing import Tuple
 
 import numpy as np
 
 from .. import graphs
 from ..field import gf
 from ..field.ref import Fq2
-from ..gkr.beta import beta_table
 from . import fft_gkr, virgo_pc, vpd
-from .fft import ifft
 
 
-class VirgoPC:
+class PolynomialCommitment(abc.ABC):
+    """Commit/open/verify seam consumed by driver.py."""
+
+    name: str = "abstract"
+
+    @abc.abstractmethod
+    def compile(self, bl0: int, device, graphed: bool = True):
+        """Per-input-size programs on `device` (opaque to the driver)."""
+
+    @abc.abstractmethod
+    def commit_private(self, fns, inputs) -> Tuple[object, np.ndarray]:
+        """Commit the witness; returns (prover state, root digest words)."""
+
+    @abc.abstractmethod
+    def open(self, fns, state, final_point, rng) -> Tuple[dict, int, dict]:
+        """Produce the opening proof for the MLE claim at final_point.
+        Returns (FullProof PC fields, pc proof size in bytes, flags)."""
+
+    @abc.abstractmethod
+    def verify_opening(self, fns, full, final_point, previous_sum,
+                       rng) -> Tuple[bool, dict]:
+        """Check an opening against the committed root and the claim
+        value previous_sum.  Returns (ok, detail flags)."""
+
+
+class VirgoPC(PolynomialCommitment):
     """The Virgo VPD + aggregated-FRI commitment (eprint 2019/1482)."""
 
     name = "virgo"
@@ -37,14 +66,6 @@ class VirgoPC:
         LDT fold and its oracles) and ``q_prepare``; eager functions for
         graphed=False.  fft_gkr.run, the challenge draws and the query
         answers stay host-driven."""
-        srec_lg = bl0 - virgo_pc.LOG_SLICE
-
-        def q_prepare(fp):
-            q_values = beta_table(fp, bl0, gf.ones((), fp.device))
-            coefs = ifft(q_values.reshape(2, virgo_pc.SLICES, 1 << srec_lg),
-                         gf.root_of_unity_int(srec_lg))
-            return q_values, coefs
-
         return dict(
             bl0=bl0, device=device,
             commit=graphs.program(
@@ -56,8 +77,9 @@ class VirgoPC:
             folds=graphs.program(
                 lambda vo, rands: virgo_pc.commit_phase(vo, bl0, list(rands)),
                 device, "pc folds", graphed),
-            q_prepare=graphs.program(q_prepare, device, "pc q_prepare",
-                                     graphed))
+            q_prepare=graphs.program(
+                lambda fp: virgo_pc.q_tables(fp, bl0), device,
+                "pc q_prepare", graphed))
 
     @staticmethod
     def q_prepare(fns, final_point):

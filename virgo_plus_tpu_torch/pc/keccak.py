@@ -146,3 +146,10 @@ def sha3_chain_x64(xs):
     if on_cuda(xs, "SHA3 chain kernel"):
         return sha3_chain_x64_cuda(xs.contiguous())
     return sha3_chain_x64_plain(xs)
+
+
+def digest_to_bytes(d):
+    """(4,) digest words -> 32 bytes (host-side): u64 words, or a port
+    tensor of int64 words with the same bits."""
+    w = d.detach().cpu().numpy() if isinstance(d, torch.Tensor) else d
+    return b"".join((int(x) % 2 ** 64).to_bytes(8, "little") for x in w)

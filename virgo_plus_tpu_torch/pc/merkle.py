@@ -11,6 +11,7 @@ per level over every tree still active.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -126,3 +127,16 @@ def create_tree(leaves):
 
 def root_of(tree):
     return tree[:, 1]
+
+
+def merkle_path(tree, pos: int):
+    """Sibling digests from leaf `pos` (heap index N + pos) up to below the
+    root: a host-side helper for proof serialisation.  tree: (4, 2N) host
+    numpy (or a tensor); returns (4, depth) of the same kind."""
+    n = tree.shape[1] // 2
+    idx = []
+    p = n + pos
+    while p > 1:
+        idx.append(p ^ 1)
+        p //= 2
+    return tree[:, np.array(idx, dtype=np.int64)]

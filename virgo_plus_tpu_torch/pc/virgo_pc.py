@@ -20,6 +20,7 @@ from typing import List
 import torch
 
 from ..field import gf
+from ..gkr.beta import beta_table
 from .fft import fft, ifft, powers
 from . import merkle
 from .keccak import sha3_chain_x64
@@ -116,6 +117,16 @@ def commit_private(values, bl: int):
     Returns (Oracle, l_coefs) — root is oracle.tree[:, 1]."""
     l_eval, l_coefs = _slice_encode(values, bl)
     return make_oracle(l_eval), l_coefs
+
+
+def q_tables(final_point, bl: int):
+    """The q side of the opening at final_point (verifier.cpp:348-361):
+    q_values, the beta table (2, 2^bl), and its per-slice IFFT
+    coefficients (2, SLICES, 2^(bl - LOG_SLICE))."""
+    q_values = beta_table(final_point, bl, gf.ones((), final_point.device))
+    srec_lg = bl - LOG_SLICE
+    return q_values, ifft(q_values.reshape(2, SLICES, 1 << srec_lg),
+                          gf.root_of_unity_int(srec_lg))
 
 
 def commit_public_eval(l_eval, q_values, bl: int):
