@@ -15,7 +15,13 @@ package.  Phases, one line each, any failure exits non-zero:
    (also against hashlib), the fused 65-step leaf chain at the main path's
    widths, and the Merkle forest on the main path's forest, on one tree of
    8192 leaves (many subtree blocks under one top) and on other mixes, each
-   forest in one launch;
+   forest in one launch; then the field ops (X1: ``gf_mul``, and
+   ``gf_lin`` with each of its four op codes) against their plain versions
+   at the paths' call patterns (same shape, a (2, K, 1) challenge against
+   (2, K, n), strided ``x[..., 0::2]``, a scalar (2,), rank 5, empty, a
+   mesh's (bl, K, 2, 3) round polynomials for the sums, and sizes up to
+   2^18), on canonical and on any int64 inputs, one launch a call and none
+   for an empty output;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -26,10 +32,12 @@ package.  Phases, one line each, any failure exits non-zero:
    the graphs' replays) and its verify, with the launch counters reset
    just before and read just after; both proofs are equal, the verify
    accepts, and the end's profile of a driver.prove must see exactly the
-   prove's counted launches.  A tampered proof is rejected.  The timed prove (fused.prove_e2e
+   prove's counted launches.  The first verify, which builds the
+   verifier's graphs, is recorded with the first prove.  A tampered proof
+   is rejected.  The timed prove (fused.prove_e2e
    + the fft_gkr tape) is recorded and held the same way, and must launch
-   K1 and K2's chain and forest kernels (these once each) with no plain
-   twin call.  Wall times of the timed prove, verify and driver prove,
+   K1, K2's chain and forest kernels (these once each) and the field ops,
+   with no plain twin call.  Wall times of the timed prove, verify and driver prove,
    every run listed;
 6. where the time goes: synchronised prove spans, verify spans, and (at
    the end) a profile of one timed prove;
@@ -40,7 +48,7 @@ package.  Phases, one line each, any failure exits non-zero:
    call recorded and held against its plain twin, then the main path, one
    more ``prove_fs`` (equal to the first) and its ``verify_fs``, with the
    counts reset just before and read just after; the FS prove must launch
-   all four entries (the sponge's SHA3 at N = 1) with no plain twin call;
+   every entry (the sponge's SHA3 at N = 1) with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
    rejected; eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
    their spans, and (at the end) a profile of one eager ``prove_fs``;
@@ -48,7 +56,8 @@ package.  Phases, one line each, any failure exits non-zero:
    ``fused.prove_e2e`` on a (2, B, N) witness batch) at full width: a B = 1
    batched call equals ``prove_e2e`` on the same witness in every array,
    and at B = 16 instances 0 and 15 each equal ``prove_e2e`` of their own
-   witness; every kernel call of one batched call at B = 4 and at B = 64 is
+   witness; every kernel call of one batched call at B = 4, and every K1
+   and K2 call of one at B = 64, is
    recorded and held against its plain twin, with no plain twin call; the
    launches per batched call are the same at every B in (1, 4, 16, 64)
    (one chain, one forest); wall times (2 runs after a warm-up), proofs
@@ -61,8 +70,10 @@ package.  Phases, one line each, any failure exits non-zero:
    phase 5 or 7 in every array (meta adds ``mesh_shards``) and verify, and a
    tampered one is rejected; each rank proves with its launch counts reset
    just before and read just after, rank 0 recording every kernel call and
-   holding it against its plain twin; every rank makes the same launches
-   and no plain twin call; launches per rank per entry, the backend, the
+   holding it against its plain twin; every rank makes the same K1 and K2
+   launches (the field ops' follow each rank's share), launches every
+   entry, and makes no plain twin call; launches per rank per entry, the
+   backend, the
    walls of every rank and each rank's peak device memory are printed;
 10. the compiled programs as CUDA graphs (``graphs.py``): the replays of
    ``fused.make_e2e_prover`` + ``make_fg_tape``, the driver's
@@ -115,7 +126,10 @@ the whole-call profiles (three eager calls, then one replay of the timed
 prove's graphs, one batched replay at B = 16 and one ``driver.prove`` and
 one ``driver.prove_fs`` through their graphs, each failing unless the
 profiler's kernels of every port entry equal the counted launches): a
-large trace makes every later short profile miss launches.  The last lines are the card line, one JSON object
+large trace makes every later short profile miss launches.  The field
+ops' calls are grouped by their output's words, rounded up to a power of
+two, in the listings and in the profiles; a line lists every entry's
+launches on every path.  The last lines are the card line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
 ``{"ok": true, "device": {...}}``.
@@ -126,6 +140,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -154,19 +169,32 @@ IMAD_PER_PRODUCT = 4         # 64x64->128 from four 32x32->64 partials
 KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "sha3_256_x64": ("sha3_256_x64",),
                 "sha3_chain_x64": ("sha3_chain_x64",),
-                "merkle_forest": ("merkle_forest",)}
+                "merkle_forest": ("merkle_forest",),
+                "gf_mul": ("gf_mul",),
+                "gf_lin": ("gf_lin",)}
+GF_ENTRIES = ("gf_mul", "gf_lin")
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches all four)
-PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest")
+# sponge's: every FS prove launches all six)
+PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
+                *GF_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
 _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
        "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100")
+# X1 is no Pallas kernel: XLA's fusion of the JAX gf ops inside the jits
+_X1 = "virgo_plus_tpu_torch/csrc/gf_ops.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
-                       "sha3_chain_x64": _K2, "merkle_forest": _K2}
+                       "sha3_chain_x64": _K2, "merkle_forest": _K2,
+                       "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
+                       "gf_lin": (_X1, "virgo_plus_tpu/field/gf.py:131")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
-                "sha3_chain_x64": 5, "merkle_forest": 20}
+                "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
+                "gf_lin": 20}
+GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
+                             # partials an element of two words
+GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
+                             # compare and select
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
 CHAIN_STEPS = 65
@@ -405,9 +433,26 @@ def graph_kernel_nodes(graph):
     return counts
 
 
+def gf_words(entry, ins):
+    """The output's words (int64) of a gf_mul (x, y) or gf_lin (op, x, y)
+    call."""
+    from virgo_plus_tpu_torch.field import gf
+    if entry == "gf_mul":
+        return 2 * math.prod(gf._broadcast(ins[0].shape[1:],
+                                           ins[1].shape[1:]))
+    x, y = ins[1], (ins[2] if len(ins) > 2 else None)   # (op, x) if unary
+    return math.prod(tuple(x.shape) if y is None
+                     else gf._broadcast(x.shape, y.shape))
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
-    chain call; the tree sizes of a forest call."""
+    chain call; the tree sizes of a forest call; (2^k,) of a field op
+    whose output has more than 2^(k-1) and at most 2^k words ((0,) when
+    empty)."""
+    if entry in GF_ENTRIES:
+        n = gf_words(entry, ins)
+        return (1 << (n - 1).bit_length() if n else 0,)
     if entry == "sumcheck_fold":
         return (ins[3].shape[2], ins[0].shape[1])
     if entry == "sha3_256_x64":
@@ -444,9 +489,14 @@ def shape_label(entry, shp):
     return shp
 
 
-def cost(entry, shp):
-    """(bytes, 32-bit integer operations) one call needs: each input read
-    once, each output written once."""
+def cost(entry, shp, ins):
+    """(bytes, 32-bit integer operations) one call on inputs `ins` of shape
+    `shp` needs: each input read once, each output written once."""
+    if entry in GF_ENTRIES:
+        n = gf_words(entry, ins)
+        read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
+        ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
+        return 8 * (sum(t.numel() for t in read) + n), ops * n
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -462,8 +512,16 @@ def cost(entry, shp):
             KECCAK_INT32_OPS * (leaves - len(shp)))
 
 
+def kept(a):
+    """A copy of one wrapper argument: a tensor cloned, a list copied, an
+    op code or None as it is."""
+    if hasattr(a, "clone"):
+        return a.clone()
+    return list(a) if isinstance(a, (list, tuple)) else a
+
+
 class Recorder:
-    """While active, every call of the four kernel wrappers keeps a copy of
+    """While active, every call of the kernel wrappers keeps a copy of
     its inputs and outputs and the device launches it made, so that each
     call can be held against its plain twin afterwards.  The wrappers' own
     launch counts are untouched.  Calls made while a graph is captured are
@@ -482,8 +540,7 @@ class Recorder:
                 # a capture runs nothing: the eager call just before it on
                 # the same inputs is the one recorded (graphs.py)
                 return fn(*args)
-            ins = tuple(a.clone() if hasattr(a, "clone") else list(a)
-                        for a in args)
+            ins = tuple(kept(a) for a in args)
             before = self.kernels.LAUNCHES[entry]
             out = fn(*args)
             self.calls.append((entry, ins,
@@ -507,21 +564,28 @@ def kernel_tables():
     """The port's kernel wrappers and plain twins: (kernels module,
     {entry: (module, wrapper name)}, {entry: twin}, expected_launches)."""
     from virgo_plus_tpu_torch import kernels
+    from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.pc import keccak, merkle
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
                 "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
                 "sha3_chain_x64": (keccak, "sha3_chain_x64_cuda"),
-                "merkle_forest": (merkle, "forest_cuda")}
+                "merkle_forest": (merkle, "forest_cuda"),
+                "gf_mul": (gf, "mul_cuda"),
+                "gf_lin": (gf, "lin_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
-            "merkle_forest": merkle.forest_plain}
+            "merkle_forest": merkle.forest_plain,
+            "gf_mul": gf.mul_plain,
+            "gf_lin": gf.lin_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
             return sumcheck.fold_launches(ins[3].shape[2])
+        if entry in GF_ENTRIES:
+            return 1 if gf_words(entry, ins) else 0
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -539,6 +603,9 @@ def compare_calls(torch, calls, twin, expected_launches, what):
     shapes = {e: collections.Counter() for e in KERNEL_NAMES}
     err = {e: 0.0 for e in KERNEL_NAMES}
     example, sponge = {}, []
+    # the field ops' thousands of calls: every difference counted on the
+    # device, read once at the end
+    gf_diff = {e: [] for e in GF_ENTRIES}
     for entry, ins, outs, launched in calls:
         shp = shape_of(entry, ins)
         if launched != expected_launches(entry, ins):
@@ -548,6 +615,13 @@ def compare_calls(torch, calls, twin, expected_launches, what):
         example.setdefault((entry, shp), ins)
         if entry == "sha3_256_x64":
             sponge.append((ins[0], outs[0]))
+            continue
+        if entry in GF_ENTRIES:
+            want = twin[entry](*ins)
+            if want.shape != outs[0].shape:
+                fail(f"{entry} gave shape {tuple(outs[0].shape)} against its "
+                     f"plain twin's {tuple(want.shape)} on the {what}'s call")
+            gf_diff[entry].append((outs[0] != want).sum())
             continue
         e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
         if e != 0.0:
@@ -562,6 +636,11 @@ def compare_calls(torch, calls, twin, expected_launches, what):
             fail(f"sha3_256_x64 differs from its plain twin on one of the "
                  f"{what}'s {len(sponge)} calls")
         err["sha3_256_x64"] = e
+    for entry, diffs in gf_diff.items():
+        if diffs and int(torch.stack(diffs).sum()) != 0:
+            bad = next(i for i, d in enumerate(diffs) if int(d))
+            fail(f"{entry} differs from its plain twin on the {what}'s "
+                 f"call {bad} of {len(diffs)}")
     calls.clear()
     return shapes, err, example
 
@@ -577,6 +656,11 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
                          0, M, size=(2, k, bl), dtype=np.uint64), dev),)
     words = lambda *s: gf.tensor(rng.integers(0, 2 ** 64, size=s,
                                               dtype=np.uint64), dev)
+    if entry in GF_ENTRIES:        # a product or a sum on (2, n / 2) words
+        x, y = (gf.tensor(rng.integers(0, M, size=(2, max(shp[0] // 2, 1)),
+                                       dtype=np.uint64), dev)
+                for _ in range(2))
+        return (x, y) if entry == "gf_mul" else (gf.ADD, x, y)
     if entry == "sha3_256_x64":
         return (words(8, shp[0]),)
     if entry == "sha3_chain_x64":
@@ -746,6 +830,45 @@ def main():
         f"{CHAIN_STEPS} steps x leaves {chain_widths}; merkle_forest == plain "
         f"twin in one launch, trees {forests}")
 
+    # ---- phase 3, X1: the field ops against their plain versions ----------
+    # (label, x's shape, y's shape, x strided on its last axis): the paths'
+    # call patterns, a size past one grid of blocks, a ragged edge
+    gf_patterns = [
+        ("same shape", (2, 64), (2, 64), False),
+        ("(2, K, 1) against (2, K, n)", (2, 26, 1), (2, 26, 4096), False),
+        ("(2, K, n) against (2, K, 1)", (2, 26, 4096), (2, 26, 1), False),
+        ("strided x[..., 0::2]", (2, 63, 512), (2, 63, 512), True),
+        ("scalar (2,) against (2, n)", (2,), (2, 8192), False),
+        ("rank 5", (2, 4, 3, 5, 64), (2, 4, 3, 5, 64), False),
+        ("rank 5, broadcast", (2, 4, 1, 5, 1), (2, 1, 3, 1, 64), True),
+        ("empty", (2, 0), (2, 0), False),
+        ("2^18 elements", (2, 1 << 18), (2, 1 << 18), False),
+        ("3 * 2^17 + 7 elements", (2, 3 * 2 ** 17 + 7), (2, 1), False),
+        ("(bl, K, 2, 3) round polynomials (sums only)", (12, 26, 2, 3),
+         (12, 26, 2, 3), False)]
+    n_gf = 0
+    for high, values in ((M, "canonical"), (2 ** 64, "any int64")):
+        for label, sx, sy, strided in gf_patterns:
+            wx = sx[:-1] + (2 * sx[-1],) if strided else sx
+            x = gf.tensor(rng.integers(0, high, size=wx, dtype=np.uint64),
+                          dev)
+            x = x[..., 0::2] if strided else x
+            y = gf.tensor(rng.integers(0, high, size=sy, dtype=np.uint64),
+                          dev)
+            what = f"{label}, {values} inputs"
+            calls = [("gf_mul", (x, y))] if sx[0] == sy[0] == 2 else []
+            calls += [("gf_lin", (op, x, y if op in (gf.ADD, gf.SUB)
+                                  else None))
+                      for op in range(len(gf.LIN_OPS))
+                      if len(sx) == len(sy) or op not in (gf.ADD, gf.SUB)]
+            for entry, ins in calls:
+                held(entry, ins, what)
+                n_gf += 1
+    say(f"phase 3 X1 ok: gf_mul and gf_lin ({', '.join(gf.LIN_OPS)}) == "
+        f"their plain versions bit for bit in {n_gf} calls, on canonical and "
+        f"on any int64 inputs, at {[p[0] for p in gf_patterns]}; one launch "
+        f"a call, none for the empty output")
+
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
     t0 = time.perf_counter()
@@ -831,9 +954,9 @@ def main():
     # the eager twin of cp: phases 5-7 time the eager walls through it
     eager_cp = driver.compile_prover(c, graphed=False)
     cc = cp.cc
-    # the first prove of a compiled circuit builds its graphs (an eager
-    # warm-up call, the capture, a replay): the warm-up's kernel calls are
-    # the ones recorded and held against the twins
+    # the first prove and verify of a compiled circuit build their graphs
+    # (an eager warm-up call, the capture, a replay): the warm-up's kernel
+    # calls are the ones recorded and held against the twins
     with Recorder(kernels, wrappers) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
@@ -843,6 +966,16 @@ def main():
         first_launches = dict(kernels.LAUNCHES)
         check_path("the first prove", first_launches,
                    dict(kernels.PLAIN_CALLS))
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        if not driver.verify(c, full, cp).ok:
+            fail("the first full-width proof is rejected")
+        torch.cuda.synchronize()
+        t_verify_first = time.perf_counter() - t0
+        first_verify_launches = dict(kernels.LAUNCHES)
+        if any(kernels.PLAIN_CALLS.values()):
+            fail(f"the first verify made plain twin calls "
+                 f"{kernels.PLAIN_CALLS}")
     # the main path: one more prove, through the graphs' replays, and its
     # verify; the end's profile of a driver.prove holds these counts
     kernels.reset_counts()
@@ -853,6 +986,7 @@ def main():
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     plain = dict(kernels.PLAIN_CALLS)
+    verify_launches = {e: launches[e] - prove_launches[e] for e in launches}
     if not rep.ok:
         fail(f"full-width proof rejected: {rep}")
     check_path("the main path", launches, plain)
@@ -863,14 +997,15 @@ def main():
     say(f"phase 5 main path ok: randomize(14, 13) proved and verified; the "
         f"first prove ({t_prove_first:.3f} s, with the graphs' warm-up calls "
         f"and captures: launches {first_launches}) == the next one in all "
-        f"{len(a)} proof arrays; device launches of the next prove "
-        f"{prove_launches}, with its verify {launches}, plain twin calls "
-        f"{plain}; transcript hash "
-        f"{transcript_hash(cc, full)}")
-    driver_shapes = check_calls(rec.calls, "driver prove")
+        f"{len(a)} proof arrays; the first verify {t_verify_first:.3f} s "
+        f"(launches {first_verify_launches}); device launches of the next "
+        f"prove {prove_launches}, of its verify {verify_launches}, plain twin "
+        f"calls {plain}; transcript hash {transcript_hash(cc, full)}")
+    driver_shapes = check_calls(rec.calls, "driver prove and verify")
     say(f"phase 5 recorded calls ok: every kernel call of the first driver "
-        f"prove == its plain twin on the same inputs, launches as the rule "
-        f"says; calls per shape: {listing(driver_shapes)}")
+        f"prove and of the first (graphed) driver.verify == its plain twin on "
+        f"the same inputs, launches as the rule says; calls per shape: "
+        f"{listing(driver_shapes)}")
 
     lp = full.layers[cc.depth - 1]
     saved = lp["p1_polys"].copy()
@@ -1136,9 +1271,12 @@ def main():
 
     batched_shapes = {e: collections.Counter() for e in KERNEL_NAMES}
     recorded = {}
+    # the field ops' calls at B = 64 would keep copies of every
+    # intermediate of the prove: they are held at B = 4
+    k_wrappers = {e: w for e, w in wrappers.items() if e not in GF_ENTRIES}
     for b in (4, 64):
         xs = witness_batch(b)
-        with Recorder(kernels, wrappers) as rec:
+        with Recorder(kernels, wrappers if b == 4 else k_wrappers) as rec:
             kernels.reset_counts()
             batched(xs)
             torch.cuda.synchronize()
@@ -1148,7 +1286,8 @@ def main():
             batched_shapes[e].update(n)
     batched_launches, batched_plain = recorded[4]
     say(f"phase 8 recorded calls ok: every kernel call of one batched call "
-        f"at B = 4 and at B = 64 == its plain twin on the same inputs, "
+        f"at B = 4 and every K1 and K2 call at B = 64 == its plain twin on "
+        f"the same inputs, "
         f"launches as the rule says; B = 4 device launches "
         f"{batched_launches}, plain twin calls {batched_plain}; calls per "
         f"shape: {listing(batched_shapes, short=True)}")
@@ -1199,20 +1338,28 @@ def main():
               else driver.verify(c, r0["full"], cp)).ok
         if not ok:
             fail(f"{label}: the proof is rejected")
+        # K1 and K2 launch the same on every rank; the field ops follow
+        # each rank's share (a prefix sum over its own contributions, the
+        # eq factor of its own bits), so their counts differ by rank
         launches9 = [r["launches"] for r in per_rank]
+        k_launches9 = [{e: n for e, n in l.items() if e not in GF_ENTRIES}
+                       for l in launches9]
         if any(any(r["plain"].values()) for r in per_rank) or any(
-                l != launches9[0] for l in launches9) or any(
-                launches9[0][e] == 0 for e in KERNEL_NAMES):
+                l != k_launches9[0] for l in k_launches9) or any(
+                l[e] == 0 for l in launches9 for e in KERNEL_NAMES):
             fail(f"{label}: launches per rank {launches9}, plain twin calls "
-                 f"{[r['plain'] for r in per_rank]}: not the same on every "
-                 f"rank, or an entry not launched, or a plain twin call")
+                 f"{[r['plain'] for r in per_rank]}: K1 and K2 not the same "
+                 f"on every rank, or an entry not launched on a rank, or a "
+                 f"plain twin call")
         for e in KERNEL_NAMES:
             sharded_shapes[e].update(r0["shapes"][e])
             err[e] = max(err[e], r0["err"][e])
         say(f"phase 9 ok: {label} == the single-device card proof in all "
             f"{len(want)} arrays and verifies; every kernel call of rank 0 "
-            f"== its plain twin; launches per rank (the same on all {S}) "
-            f"{launches9[0]}, plain twin calls 0; calls per shape (rank 0): "
+            f"== its plain twin; K1 and K2 launches per rank (the same on "
+            f"all {S}) {k_launches9[0]}, field ops by rank "
+            f"{[{e: l[e] for e in GF_ENTRIES} for l in launches9]}, plain "
+            f"twin calls 0; calls per shape (rank 0): "
             f"{listing(r0['shapes'])}")
         say(f"phase 9 timing ({card}; {S} ranks sharing one card over "
             f"{r0['backend']}, not a scaling number): {label}: first prove "
@@ -1588,6 +1735,20 @@ def main():
     del graphed11
     say(f"{p11} ok in {time.perf_counter() - t11:.1f} s ({card})")
 
+    # ---- the launches of every path, by entry -----------------------------
+    fs_verify_launches = {e: fs_path_launches[e] - fs_launches[e]
+                          for e in KERNEL_NAMES}
+    paths = {"timed prove": timed_launches, "driver.prove": prove_launches,
+             "driver.verify": verify_launches, "prove_fs": fs_launches,
+             "verify_fs": fs_verify_launches,
+             "batched call (any B)": batched_launches}
+    for (tr, S), per_rank in sharded.items():
+        paths[f"{tr} S = {S}, per rank"] = per_rank[0]["launches"]
+    for entry in KERNEL_NAMES:
+        say(f"launches of {entry} by path (main paths through the graphs, "
+            f"counted alone; plain twin calls 0 on each): "
+            + ", ".join(f"{k} {v[entry]}" for k, v in paths.items()))
+
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
     for entry, names in KERNEL_NAMES.items():
@@ -1605,7 +1766,7 @@ def main():
                 fail(f"the profiler missed launches of {entry} at "
                      f"{list(shp)} in every try: its device time is not "
                      f"measured")
-            nbytes, ops = cost(entry, shp)
+            nbytes, ops = cost(entry, shp, ins)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_ops = ops / int32_rate * 1e3
             per[shp] = dict(driver=driver_shapes[entry][shp],
@@ -1632,18 +1793,20 @@ def main():
                 n * per[shp]["ms"] for shp, n in
                 sharded[(tr, S)][0]["shapes"][entry].items())
                 for tr, S in sharded})
-        say(f"kernel {entry} (profiled device time; calls in the driver "
-            f"prove / timed prove / FS prove / batched calls at B = 4 and "
-            f"64 / rank 0 of the sharded runs, ms per call, launches per "
-            f"call, bound ms): " + "; ".join(
+        say(f"kernel {entry} (profiled device time; calls in the first "
+            f"driver prove + verify / timed prove / first FS prove + "
+            f"verify_fs / batched calls at B = 4 "
+            f"{'' if entry in GF_ENTRIES else 'and 64 '}/ rank 0 of the "
+            f"sharded runs, ms per call, launches per call, bound ms): "
+            + "; ".join(
                 f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
                 f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
                 f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
                 for s, r in per.items())
             + f"; rank 0 of a sharded prove (ms): {rows[entry]['sharded_ms']}"
             + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
-            f"{rows[entry]['timed_bound']:.5f}), one driver prove "
-            f"{rows[entry]['driver_ms']:.4f} ms, one FS prove "
+            f"{rows[entry]['timed_bound']:.5f}), one driver prove + verify "
+            f"{rows[entry]['driver_ms']:.4f} ms, one FS prove + verify_fs "
             f"{rows[entry]['fs_ms']:.4f} ms (bound "
             f"{rows[entry]['fs_bound']:.5f}); top shape {list(top)}: plain "
             f"twin {plain_ms:.3f} ms")
@@ -1723,8 +1886,11 @@ def main():
                 if any(n in key for n in names):
                     profiled[entry][0] += us / 1e3
                     profiled[entry][1] += cnt
+        held = all(profiled[e][1] == timed_launches[e] for e in KERNEL_NAMES)
         say(f"phase 6 profile, the port's kernels in that prove (device ms, "
-            f"launches): {profiled}")
+            f"launches): {profiled}, " + (
+                "every launch of the counters held" if held else
+                f"against the counted {timed_launches}: launches missing"))
     else:
         say("phase 6 profile: the profiler recorded no device time "
             "(device busy share not measured)")
@@ -1839,6 +2005,9 @@ def main():
                 "timed_prove_bound_ms": row["timed_bound"],
                 "profiled_device_ms": profiled[entry][0],
                 "glibc_path_launches": launches[entry],
+                "driver_prove_launches": prove_launches[entry],
+                "verify_launches": verify_launches[entry],
+                "fs_verify_launches": fs_verify_launches[entry],
                 "fs_prove_launches": fs_launches[entry],
                 "fs_prove_kernel_ms": row["fs_ms"],
                 "fs_prove_profiled_ms": fs_profiled[entry][0],

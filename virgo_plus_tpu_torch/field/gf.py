@@ -17,12 +17,24 @@ arithmetic, so three rules keep int64 exact:
 Multiplication is the reference's 3-mult Karatsuba over four 32x32->64
 partials (fieldElement.cpp:49-78, 466-487), so canonical outputs are
 bit-identical to the JAX package and to the reference.
+
+The public ``mul``, ``add``, ``sub``, ``neg`` and ``reduce_lazy`` dispatch
+on the device of their first argument: a CUDA tensor goes to a kernel of
+``csrc/gf_ops.cu`` (``gf_mul``, or ``gf_lin`` with an op code), one launch
+a call, which reads broadcast and strided inputs in place; a CPU tensor to
+the plain version (``mul_plain``, ...), which counts
+``kernels.PLAIN_CALLS``.  The kernels repeat the plain versions' int64
+steps, so the two give the same bits on every input.  The sum family is
+elementwise, so its first axis need not be the plane axis (a mesh reduces
+(bl, K, 2, 3) round polynomials).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 MOD = (1 << 61) - 1  # the Mersenne prime 2^61-1
 MAX_ORDER = 62  # multiplicative group of GF(p^2) has order p^2-1 = 2^62*m
@@ -122,30 +134,35 @@ def _base_neg(x):
 
 
 # ---------------------------------------------------------------------------
-# Extension-field public ops
+# Extension-field ops: the plain versions
 # ---------------------------------------------------------------------------
 
-def add(x, y):
+def add_plain(x, y):
+    kernels.PLAIN_CALLS["gf_lin"] += 1
     return _cond_sub_p(x + y)
 
 
-def reduce_lazy(x):
+def reduce_lazy_plain(x):
     """Reduce a lazy sum of up to 8 canonical elements (< 2^64 as u64, so
     possibly negative as int64) to canonical [0, p): Mersenne fold with a
     logical shift, then one conditional subtract."""
+    kernels.PLAIN_CALLS["gf_lin"] += 1
     return _cond_sub_p(_srl(x, 61) + (x & MOD))
 
 
-def sub(x, y):
+def sub_plain(x, y):
+    kernels.PLAIN_CALLS["gf_lin"] += 1
     return _cond_sub_p(x + (y ^ MOD))
 
 
-def neg(x):
+def neg_plain(x):
+    kernels.PLAIN_CALLS["gf_lin"] += 1
     return _cond_sub_p(x ^ MOD)
 
 
-def mul(x, y):
+def mul_plain(x, y):
     """(a+bi)(c+di): 3-mult Karatsuba (fieldElement.cpp:49-78)."""
+    kernels.PLAIN_CALLS["gf_mul"] += 1
     a, b = x[0], x[1]
     c, d = y[0], y[1]
     all_prod = _mymult(a + b, c + d)        # may read negative
@@ -157,6 +174,105 @@ def mul(x, y):
     t_img = _cond_sub_p(_srl(t_img, 61) + (t_img & MOD))
     t_real = _cond_sub_p(_cond_sub_p(ac + nbd))
     return torch.stack([t_real, t_img])
+
+
+# gf_lin's op codes (csrc/gf_ops.cu)
+LIN_OPS = ("add", "sub", "neg", "reduce_lazy")
+ADD, SUB, NEG, REDUCE_LAZY = range(len(LIN_OPS))
+_LIN_PLAIN = (add_plain, sub_plain, lambda x, y: neg_plain(x),
+              lambda x, y: reduce_lazy_plain(x))
+
+
+def lin_plain(op: int, x, y=None):
+    """Plain twin of gf_lin: LIN_OPS[op] of x (and y for add and sub)."""
+    return _LIN_PLAIN[op](x, y)
+
+
+# ---------------------------------------------------------------------------
+# Extension-field ops on the card: one kernel launch a call
+# ---------------------------------------------------------------------------
+
+def _broadcast(p, q) -> tuple:
+    """torch.broadcast_shapes of two sizes, without its ~100 us of host
+    time a call."""
+    if p == q:
+        return tuple(p)
+    n = max(len(p), len(q))
+    p = (1,) * (n - len(p)) + tuple(p)
+    q = (1,) * (n - len(q)) + tuple(q)
+    out = []
+    for i, j in zip(p, q):
+        if i != j and i != 1 and j != 1:
+            raise ValueError(f"gf: shapes {p} and {q} do not broadcast")
+        out.append(j if i == 1 else i)
+    return tuple(out)
+
+
+def _launch(entry, op, shape, x, y):
+    """Output (shape, contiguous) of gf_mul or gf_lin over x and y (y is x
+    for a unary op), checked and launched on the current stream.  gf_mul
+    takes the output's elements (a plane's words), gf_lin all its words."""
+    mul = op is None
+    kernels.check_gf(entry, shape, x, y, mul)
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
+    n = out.numel() // 2 if mul else out.numel()
+    if n:
+        kernels.check_int(entry, words=out.numel())
+        sizes, xs, ys = kernels.gf_layout(shape, x, y, mul)
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), n, *sizes, *xs,
+                *ys, kernels.stream_ptr())
+        kernels.launch(entry, 1, *(args if mul else (op,) + args))
+    return out
+
+
+def mul_cuda(x, y):
+    """gf_mul on the card: same signature and bits as mul_plain."""
+    return _launch("gf_mul", None, (2,) + _broadcast(x.shape[1:], y.shape[1:]),
+                   x, y)
+
+
+def lin_cuda(op: int, x, y=None):
+    """gf_lin on the card: same bits as lin_plain(op, x, y)."""
+    if y is None:
+        return _launch("gf_lin", op, tuple(x.shape), x, x)
+    return _launch("gf_lin", op, _broadcast(x.shape, y.shape), x, y)
+
+
+# ---------------------------------------------------------------------------
+# Extension-field public ops
+# ---------------------------------------------------------------------------
+
+def _on_cuda(x) -> bool:
+    """Whether x goes to the kernels: a CUDA tensor does, a CPU tensor goes
+    to the plain versions, any other raises."""
+    t = x.device.type
+    if t == "cuda":
+        return True
+    if t == "cpu":
+        return False
+    raise ValueError(f"gf: no field kernels for device {x.device}")
+
+
+def add(x, y):
+    return lin_cuda(ADD, x, y) if _on_cuda(x) else add_plain(x, y)
+
+
+def reduce_lazy(x):
+    """See reduce_lazy_plain."""
+    return lin_cuda(REDUCE_LAZY, x) if _on_cuda(x) else reduce_lazy_plain(x)
+
+
+def sub(x, y):
+    return lin_cuda(SUB, x, y) if _on_cuda(x) else sub_plain(x, y)
+
+
+def neg(x):
+    return lin_cuda(NEG, x) if _on_cuda(x) else neg_plain(x)
+
+
+def mul(x, y):
+    """(a+bi)(c+di), elementwise over the broadcast shape."""
+    return mul_cuda(x, y) if _on_cuda(x) else mul_plain(x, y)
 
 
 def eq(x, y):

@@ -27,15 +27,17 @@ from .. import kernels
 # Field reductions
 # ---------------------------------------------------------------------------
 
-def tree_sum(x):
+def tree_sum(x, add=None):
     """Field sum along the last axis: (..., N) -> (...).  Exact log-tree;
-    an odd level is zero-padded."""
+    an odd level is zero-padded.  `add` is gf.add unless given (the plain
+    twins pass gf.add_plain)."""
+    add = add or gf.add
     if x.shape[-1] == 0:
         return torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
     while x.shape[-1] > 1:
         if x.shape[-1] % 2:
             x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        x = gf.add(x[..., 0::2], x[..., 1::2])
+        x = add(x[..., 0::2], x[..., 1::2])
     return x[..., 0]
 
 
@@ -138,8 +140,11 @@ def fold_launches(bl: int) -> int:
 def fold_plain(v, a, m, rs):
     """Plain PyTorch twin of K1.  v, a, m: (2, K, 2^bl); rs: (2, K, bl).
     Returns (polys (bl, K, 2, 3), bound (v, a, m) each (2, K)).  Natural
-    pair layout (2i, 2i+1); every round halves the tables."""
+    pair layout (2i, 2i+1); every round halves the tables.  Its field ops
+    are the plain versions, so on the card it launches no kernel of its
+    own and stays independent of gf_mul / gf_lin."""
     kernels.PLAIN_CALLS["sumcheck_fold"] += 1
+    add, sub, mul = gf.add_plain, gf.sub_plain, gf.mul_plain
     bl = rs.shape[2]
     cv, ca, cm = v, a, m
     polys = []
@@ -147,18 +152,18 @@ def fold_plain(v, a, m, rs):
         v0, v1 = cv[..., 0::2], cv[..., 1::2]
         a0, a1 = ca[..., 0::2], ca[..., 1::2]
         m0, m1 = cm[..., 0::2], cm[..., 1::2]
-        dv = gf.sub(v1, v0)
-        da = gf.sub(a1, a0)
-        dm = gf.sub(m1, m0)
-        pa = gf.mul(dm, dv)
-        pb = gf.add(gf.add(gf.mul(dm, v0), gf.mul(m0, dv)), da)
-        pc = gf.add(gf.mul(m0, v0), a0)
-        polys.append(torch.stack([tree_sum(pa), tree_sum(pb), tree_sum(pc)],
+        dv = sub(v1, v0)
+        da = sub(a1, a0)
+        dm = sub(m1, m0)
+        pa = mul(dm, dv)
+        pb = add(add(mul(dm, v0), mul(m0, dv)), da)
+        pc = add(mul(m0, v0), a0)
+        polys.append(torch.stack([tree_sum(p, add) for p in (pa, pb, pc)],
                                  dim=2))                        # (2, K, 3)
         r = rs[:, :, j:j + 1]
-        cv = gf.add(v0, gf.mul(dv, r))
-        ca = gf.add(a0, gf.mul(da, r))
-        cm = gf.add(m0, gf.mul(dm, r))
+        cv = add(v0, mul(dv, r))
+        ca = add(a0, mul(da, r))
+        cm = add(m0, mul(dm, r))
     out = torch.stack(polys, 0).permute(0, 2, 1, 3).contiguous()
     return out, (cv[:, :, 0], ca[:, :, 0], cm[:, :, 0])
 

@@ -11,9 +11,10 @@ partial library.
 
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
-its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry: one),
-and its plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs
-instead (CPU tensors only).  ``reset_counts`` zeroes both.
+its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry and
+each field op: one, none for an empty output), and its plain PyTorch twin
+adds one to ``PLAIN_CALLS[entry]`` when it runs instead (CPU tensors
+only).  ``reset_counts`` zeroes both.
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ SOURCES = {
         "sha3_chain_x64": ("vpt_sha3_chain_x64", [_P, _P, _I, _I, _P]),
         "merkle_forest": ("vpt_merkle_forest",
                           [_P, _L, _P, _P, _I, _I, _I, _P]),
+    },
+    # (gf_lin: its op code, then) x, y, out, the output's elements
+    # (gf_mul) or words (gf_lin), GF_AXES sizes, x's and y's
+    # 1 + GF_AXES strides, the stream
+    "gf_ops": {
+        "gf_mul": ("vpt_gf_mul", [_P] * 3 + [_I] * 5 + [_L] * 10 + [_P]),
+        "gf_lin": ("vpt_gf_lin", [_I] + [_P] * 3 + [_I] * 5 + [_L] * 10
+                   + [_P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
@@ -150,6 +159,49 @@ def check_cuda(name: str, tensors, shapes):
             raise ValueError(f"{name}: tensors must be contiguous")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+
+
+GF_AXES = 4   # axes after the first that gf_mul and gf_lin take
+
+
+def check_gf(name: str, shape, x, y, mul: bool):
+    """Wrapper-side checks of a field op of output `shape`: x and y on one
+    CUDA device, int64, 1 to 1 + GF_AXES axes; for the product a plane
+    axis of 2 first on each input.  The sums are elementwise, so their
+    first axis may have any size.  Any strides."""
+    if x.device.type != "cuda" or y.device != x.device:
+        raise ValueError(f"{name}: x and y must be on one CUDA device")
+    if x.dtype != torch.int64 or y.dtype != torch.int64:
+        raise TypeError(f"{name}: expected int64 tensors, got {x.dtype}, "
+                        f"{y.dtype}")
+    if mul and (x.dim() == 0 or y.dim() == 0 or x.shape[0] != 2
+                or y.shape[0] != 2):
+        raise ValueError(f"{name}: no plane axis of 2 in {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+    if not 1 <= len(shape) <= 1 + GF_AXES:
+        raise ValueError(f"{name}: {len(shape)} axes, 1 to {1 + GF_AXES} "
+                         f"taken")
+
+
+def gf_layout(shape, x, y, mul: bool):
+    """The size and stride descriptor of a field op of output `shape` (1 to
+    1 + GF_AXES axes; for the product the plane axis first): the output's
+    sizes after its first axis, padded at the front with 1 to GF_AXES; for
+    each input its stride on the first axis, then its element stride on
+    each of those GF_AXES axes, 0 where it is broadcast.  The inputs align
+    from the right, with the output (add, sub, ...) or, for the product,
+    plane axis with plane axis and the rest with the rest.  Offsets come
+    from ``data_ptr()``."""
+    r = len(shape) - 1
+    sizes = (1,) * (GF_AXES - r) + tuple(shape[1:])
+
+    def strides(t):
+        st = [0 if n == 1 else s for n, s in zip(t.shape, t.stride())]
+        if not mul:
+            st = [0] * (r + 1 - len(st)) + st
+        return (st[0],) + (0,) * (GF_AXES + 1 - len(st)) + tuple(st[1:])
+
+    return sizes, strides(x), strides(y)
 
 
 def check_int(name: str, **counts):
