@@ -21,7 +21,8 @@ package.  Phases, one line each, any failure exits non-zero:
    (2, K, n), strided ``x[..., 0::2]``, a scalar (2,), rank 5, empty, a
    mesh's (bl, K, 2, 3) round polynomials for the sums, and sizes up to
    2^18), on canonical and on any int64 inputs, one launch a call and none
-   for an empty output;
+   for an empty output; the wrappers' output shape against
+   ``torch.broadcast_shapes``, with the host time of each;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -56,9 +57,10 @@ package.  Phases, one line each, any failure exits non-zero:
    ``fused.prove_e2e`` on a (2, B, N) witness batch) at full width: a B = 1
    batched call equals ``prove_e2e`` on the same witness in every array,
    and at B = 16 instances 0 and 15 each equal ``prove_e2e`` of their own
-   witness; every kernel call of one batched call at B = 4, and every K1
-   and K2 call of one at B = 64, is
-   recorded and held against its plain twin, with no plain twin call; the
+   witness; every kernel call of one batched call at B = 4 and of one at
+   B = 64 is recorded and held against its plain twin (a field op's twin
+   runs as the call returns, keeping only a count of differing words on
+   the card), with no plain twin call; the
    launches per batched call are the same at every B in (1, 4, 16, 64)
    (one chain, one forest); wall times (2 runs after a warm-up), proofs
    per second and peak device memory at each B, and (at the end) a
@@ -128,8 +130,11 @@ one ``driver.prove_fs`` through their graphs, each failing unless the
 profiler's kernels of every port entry equal the counted launches): a
 large trace makes every later short profile miss launches.  The field
 ops' calls are grouped by their output's words, rounded up to a power of
-two, in the listings and in the profiles; a line lists every entry's
-launches on every path.  The last lines are the card line, one JSON object
+two, in the listings; a bucket is profiled on the first call recorded in
+it (its strides kept), and the field ops' device time on a path is the
+whole profile's.  Each path's bound sums every recorded call's.  A line
+lists every entry's launches on every path.  The last lines are the card
+line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
 ``{"ok": true, "device": {...}}``.
@@ -195,6 +200,7 @@ GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
                              # compare and select
+BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
 CHAIN_STEPS = 65
@@ -435,24 +441,35 @@ def graph_kernel_nodes(graph):
 
 def gf_words(entry, ins):
     """The output's words (int64) of a gf_mul (x, y) or gf_lin (op, x, y)
-    call."""
-    from virgo_plus_tpu_torch.field import gf
+    call, from torch's own broadcast rule."""
+    import torch
     if entry == "gf_mul":
-        return 2 * math.prod(gf._broadcast(ins[0].shape[1:],
-                                           ins[1].shape[1:]))
+        return 2 * math.prod(torch.broadcast_shapes(ins[0].shape[1:],
+                                                    ins[1].shape[1:]))
     x, y = ins[1], (ins[2] if len(ins) > 2 else None)   # (op, x) if unary
-    return math.prod(tuple(x.shape) if y is None
-                     else gf._broadcast(x.shape, y.shape))
+    return math.prod(x.shape if y is None
+                     else torch.broadcast_shapes(x.shape, y.shape))
+
+
+def gf_bucket(words):
+    """(2^k,) for a field op whose output has more than 2^(k-1) and at
+    most 2^k words ((0,) when empty)."""
+    return (1 << (words - 1).bit_length() if words else 0,)
+
+
+def gf_cost(entry, ins, words):
+    """(bytes, 32-bit integer operations) of one field-op call on `ins`
+    with an output of `words` words: each input (as the view the kernel
+    reads) read once, the output written once."""
+    read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
+    ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
+    return 8 * (sum(t.numel() for t in read) + words), ops * words
 
 
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
-    chain call; the tree sizes of a forest call; (2^k,) of a field op
-    whose output has more than 2^(k-1) and at most 2^k words ((0,) when
-    empty)."""
-    if entry in GF_ENTRIES:
-        n = gf_words(entry, ins)
-        return (1 << (n - 1).bit_length() if n else 0,)
+    chain call; the tree sizes of a forest call (a field op's is its
+    gf_bucket)."""
     if entry == "sumcheck_fold":
         return (ins[3].shape[2], ins[0].shape[1])
     if entry == "sha3_256_x64":
@@ -493,10 +510,7 @@ def cost(entry, shp, ins):
     """(bytes, 32-bit integer operations) one call on inputs `ins` of shape
     `shp` needs: each input read once, each output written once."""
     if entry in GF_ENTRIES:
-        n = gf_words(entry, ins)
-        read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
-        ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
-        return 8 * (sum(t.numel() for t in read) + n), ops * n
+        return gf_cost(entry, ins, gf_words(entry, ins))
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -513,39 +527,70 @@ def cost(entry, shp, ins):
 
 
 def kept(a):
-    """A copy of one wrapper argument: a tensor cloned, a list copied, an
-    op code or None as it is."""
-    if hasattr(a, "clone"):
+    """A copy of one wrapper argument: a tensor copied with its sizes and
+    strides (a strided or expanded view stays such a view, over a copy of
+    the storage it reads), a list copied, an op code or None as it is."""
+    if not hasattr(a, "clone"):
+        return list(a) if isinstance(a, (list, tuple)) else a
+    if a.numel() == 0 or a.is_contiguous():
         return a.clone()
-    return list(a) if isinstance(a, (list, tuple)) else a
+    span = 1 + sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
+    base = a.as_strided((span,), (1,)).clone()
+    return base.as_strided(a.shape, a.stride())
 
 
 class Recorder:
-    """While active, every call of the kernel wrappers keeps a copy of
-    its inputs and outputs and the device launches it made, so that each
-    call can be held against its plain twin afterwards.  The wrappers' own
-    launch counts are untouched.  Calls made while a graph is captured are
-    not recorded (they run nothing); a replay calls no wrapper."""
+    """While active, every call of the kernel wrappers is recorded, to be
+    held against its plain twin by compare_calls.  A K1 or K2 call keeps a
+    copy of its inputs and outputs and the device launches it made.  A
+    field-op call (thousands a prove, up to 2^26 words each in a batched
+    call at B = 64) runs its twin at once on the same inputs and keeps a
+    device-side count of the words that differ, its launches, its
+    output's words, its cost and, for the first call of its size bucket,
+    a copy of its inputs.  The wrappers' launch and plain-call counts are
+    left as the wrappers made them.  Calls made while a graph is captured
+    are not recorded (they run nothing); a replay calls no wrapper."""
 
-    def __init__(self, kernels, wrappers):
+    def __init__(self, kernels, wrappers, twin):
         self.kernels = kernels
         self.wrappers = wrappers     # entry -> (module, attribute name)
+        self.twin = twin
+        # (entry, inputs or None, outputs or (words, cost) of a field op,
+        # launches)
         self.calls = []
+        self.gf_diff = {e: [] for e in GF_ENTRIES}   # per call, on the card
 
     def _record(self, entry, fn):
         import torch
+        buckets = set()
 
         def rec(*args):
             if torch.cuda.is_current_stream_capturing():
                 # a capture runs nothing: the eager call just before it on
                 # the same inputs is the one recorded (graphs.py)
                 return fn(*args)
-            ins = tuple(kept(a) for a in args)
+            gf_call = entry in GF_ENTRIES
+            ins = None if gf_call else tuple(kept(a) for a in args)
             before = self.kernels.LAUNCHES[entry]
             out = fn(*args)
-            self.calls.append((entry, ins,
-                               tuple(t.clone() for t in flatten(out)),
-                               self.kernels.LAUNCHES[entry] - before))
+            launched = self.kernels.LAUNCHES[entry] - before
+            if not gf_call:
+                self.calls.append((entry, ins, tuple(
+                    t.clone() for t in flatten(out)), launched))
+                return out
+            plain = dict(self.kernels.PLAIN_CALLS)
+            want = self.twin[entry](*args)
+            self.kernels.PLAIN_CALLS.update(plain)
+            if want.shape != out.shape:
+                fail(f"{entry} gave shape {tuple(out.shape)} against its "
+                     f"plain twin's {tuple(want.shape)}")
+            self.gf_diff[entry].append((out != want).sum())
+            words = out.numel()
+            if gf_bucket(words) not in buckets:
+                buckets.add(gf_bucket(words))
+                ins = tuple(kept(a) for a in args)
+            self.calls.append((entry, ins, (words, gf_cost(entry, args,
+                                                            words)), launched))
             return out
         return rec
 
@@ -592,36 +637,38 @@ def kernel_tables():
     return kernels, wrappers, twin, expected_launches
 
 
-def compare_calls(torch, calls, twin, expected_launches, what):
-    """Hold every recorded call against its twin on the same inputs and its
-    launches against the rule; fail at the first difference.  The SHA3
-    twin hashes each message column on its own, so the recorded
-    sha3_256_x64 calls (thousands of one-message sponge calls in an FS
-    prove) are held together: one twin call on all their messages side by
-    side.  Returns ({entry: Counter of shapes}, {entry: max_abs_err},
-    {(entry, shape): the inputs of one call})."""
+def compare_calls(torch, rec, twin, expected_launches, what):
+    """Hold every call `rec` recorded against its twin on the same inputs
+    and its launches against the rule; fail at the first difference.  The
+    field ops were held as they ran: their counts of differing words are
+    read here, once.  The SHA3 twin hashes each message column on its
+    own, so the recorded sha3_256_x64 calls (thousands of one-message
+    sponge calls in an FS prove) are held together: one twin call on all
+    their messages side by side.  Returns ({entry: Counter of shapes},
+    {entry: max_abs_err}, {(entry, shape): the inputs of one call},
+    {entry: Counter of (bytes, operations) of each call})."""
     shapes = {e: collections.Counter() for e in KERNEL_NAMES}
+    costs = {e: collections.Counter() for e in KERNEL_NAMES}
     err = {e: 0.0 for e in KERNEL_NAMES}
     example, sponge = {}, []
-    # the field ops' thousands of calls: every difference counted on the
-    # device, read once at the end
-    gf_diff = {e: [] for e in GF_ENTRIES}
-    for entry, ins, outs, launched in calls:
-        shp = shape_of(entry, ins)
-        if launched != expected_launches(entry, ins):
+    for entry, ins, outs, launched in rec.calls:
+        if entry in GF_ENTRIES:
+            words, cst = outs
+            shp, want = gf_bucket(words), 1 if words else 0
+        else:
+            shp = shape_of(entry, ins)
+            want, cst = expected_launches(entry, ins), cost(entry, shp, ins)
+        if launched != want:
             fail(f"{entry} made {launched} launches on the {what}'s call at "
-                 f"shape {shp}, expected {expected_launches(entry, ins)}")
+                 f"shape {shp}, expected {want}")
         shapes[entry][shp] += 1
-        example.setdefault((entry, shp), ins)
+        costs[entry][cst] += 1
+        if ins is not None:
+            example.setdefault((entry, shp), ins)
+        if entry in GF_ENTRIES:
+            continue
         if entry == "sha3_256_x64":
             sponge.append((ins[0], outs[0]))
-            continue
-        if entry in GF_ENTRIES:
-            want = twin[entry](*ins)
-            if want.shape != outs[0].shape:
-                fail(f"{entry} gave shape {tuple(outs[0].shape)} against its "
-                     f"plain twin's {tuple(want.shape)} on the {what}'s call")
-            gf_diff[entry].append((outs[0] != want).sum())
             continue
         e = max_abs_err(torch, outs, flatten(twin[entry](*ins)))
         if e != 0.0:
@@ -636,13 +683,22 @@ def compare_calls(torch, calls, twin, expected_launches, what):
             fail(f"sha3_256_x64 differs from its plain twin on one of the "
                  f"{what}'s {len(sponge)} calls")
         err["sha3_256_x64"] = e
-    for entry, diffs in gf_diff.items():
+    for entry, diffs in rec.gf_diff.items():
         if diffs and int(torch.stack(diffs).sum()) != 0:
             bad = next(i for i, d in enumerate(diffs) if int(d))
             fail(f"{entry} differs from its plain twin on the {what}'s "
                  f"call {bad} of {len(diffs)}")
-    calls.clear()
-    return shapes, err, example
+        diffs.clear()
+    rec.calls.clear()
+    return shapes, err, example, costs
+
+
+def bound_ms(costs, int32_rate):
+    """The least device time of the calls counted in `costs` ((bytes,
+    operations) -> calls): each call bound by its bytes or its
+    operations, whichever takes longer."""
+    return sum(n * max(b / HBM_BYTES_S, o / int32_rate) * 1e3
+               for (b, o), n in costs.items())
 
 
 def random_inputs(torch, np, gf, entry, shp, dev, rng):
@@ -689,7 +745,8 @@ def sharded_rank(mesh, circuit, transcripts, runs):
             prove = lambda: gkr_sharded.prove_sharded(circuit, mesh,
                                                       compiled=comp)
         torch.cuda.synchronize()
-        with Recorder(kernels, wrappers if mesh.rank == 0 else {}) as rec:
+        with Recorder(kernels, wrappers if mesh.rank == 0 else {},
+                      twin) as rec:
             kernels.reset_counts()
             t0 = time.perf_counter()
             full, info = prove()
@@ -697,8 +754,8 @@ def sharded_rank(mesh, circuit, transcripts, runs):
             first = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             plain = dict(kernels.PLAIN_CALLS)
-        shapes, err, _ = compare_calls(
-            torch, rec.calls, twin, expected_launches,
+        shapes, err, _, _ = compare_calls(
+            torch, rec, twin, expected_launches,
             f"rank 0's sharded {tr} prove at S = {mesh.sp}")
         # rank 0's twin checks above hold the others in their first
         # collective: start the timed proves together
@@ -868,6 +925,27 @@ def main():
         f"their plain versions bit for bit in {n_gf} calls, on canonical and "
         f"on any int64 inputs, at {[p[0] for p in gf_patterns]}; one launch "
         f"a call, none for the empty output")
+    # the wrappers' output shape (gf._broadcast) against torch's rule, and
+    # the host time of one such computation, at the products' patterns
+    # (mul_cuda broadcasts the shapes after the plane axis)
+    pairs = [(torch.Size(sx[1:]), torch.Size(sy[1:]))
+             for _, sx, sy, _ in gf_patterns if sx[0] == sy[0] == 2]
+    for sx, sy in pairs:
+        if gf._broadcast(sx, sy) != tuple(torch.broadcast_shapes(sx, sy)):
+            fail(f"gf._broadcast{sx, sy} differs from torch.broadcast_shapes")
+    host_us = {}
+    for label, rule in (("gf._broadcast", gf._broadcast),
+                        ("torch.broadcast_shapes", torch.broadcast_shapes)):
+        t0 = time.perf_counter()
+        for _ in range(BROADCAST_REPS):
+            for sx, sy in pairs:
+                rule(sx, sy)
+        host_us[label] = ((time.perf_counter() - t0) * 1e6
+                          / (BROADCAST_REPS * len(pairs)))
+    say(f"phase 3 X1 host time of one output shape ({card} host), us a "
+        f"call over {BROADCAST_REPS} rounds of the {len(pairs)} patterns: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host_us.items())
+        + "; the same shapes")
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
@@ -931,16 +1009,16 @@ def main():
             fail(f"{what} did not run through the kernels: launches "
                  f"{launches}, plain twin calls {plain}")
 
-    def check_calls(calls, what):
+    def check_calls(rec, what):
         """compare_calls, keeping one call's inputs per shape and each
-        entry's largest error."""
-        shapes, e, ex = compare_calls(torch, calls, twin, expected_launches,
-                                      what)
+        entry's largest error; returns (shapes, costs)."""
+        shapes, e, ex, costs = compare_calls(torch, rec, twin,
+                                             expected_launches, what)
         for entry in err:
             err[entry] = max(err[entry], e[entry])
         for key, ins in ex.items():
             example.setdefault(key, ins)
-        return shapes
+        return shapes, costs
 
     def listing(shapes, short=False):
         return "; ".join(
@@ -957,7 +1035,7 @@ def main():
     # the first prove and verify of a compiled circuit build their graphs
     # (an eager warm-up call, the capture, a replay): the warm-up's kernel
     # calls are the ones recorded and held against the twins
-    with Recorder(kernels, wrappers) as rec:
+    with Recorder(kernels, wrappers, twin) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
         full, info = driver.prove(c, cp)
@@ -1001,7 +1079,7 @@ def main():
         f"(launches {first_verify_launches}); device launches of the next "
         f"prove {prove_launches}, of its verify {verify_launches}, plain twin "
         f"calls {plain}; transcript hash {transcript_hash(cc, full)}")
-    driver_shapes = check_calls(rec.calls, "driver prove and verify")
+    driver_shapes, _ = check_calls(rec, "driver prove and verify")
     say(f"phase 5 recorded calls ok: every kernel call of the first driver "
         f"prove and of the first (graphed) driver.verify == its plain twin on "
         f"the same inputs, launches as the rule says; calls per shape: "
@@ -1041,7 +1119,7 @@ def main():
         fused.fg_tape(n_folds, sched, dev)
         return out
 
-    with Recorder(kernels, wrappers) as rec:
+    with Recorder(kernels, wrappers, twin) as rec:
         kernels.reset_counts()
         out = timed_prove()
         torch.cuda.synchronize()
@@ -1051,7 +1129,7 @@ def main():
     if timed_launches["sha3_chain_x64"] + timed_launches["merkle_forest"] != 2:
         fail(f"the timed prove's leaf chains and trees took "
              f"{timed_launches} launches, not one each")
-    timed_shapes = check_calls(rec.calls, "timed prove")
+    timed_shapes, timed_costs = check_calls(rec, "timed prove")
     root_l_fused = [int(x) for x in gf.to_numpy(out[1].tree[:, 1])]
     if root_l_fused != [int(x) for x in full.root_l]:
         fail("fused.prove_e2e's l-oracle root differs from driver.prove's")
@@ -1109,7 +1187,7 @@ def main():
     # the first prove_fs and verify_fs of the compiled circuit build their
     # graphs (phase 11): the warm-up calls' kernel calls are the ones
     # recorded and held against the twins
-    with Recorder(kernels, wrappers) as rec:
+    with Recorder(kernels, wrappers, twin) as rec:
         kernels.reset_counts()
         t0 = time.perf_counter()
         full_fs_first, _ = driver.prove_fs(c, cp)
@@ -1145,7 +1223,7 @@ def main():
         f"in all {len(a)} proof arrays; device launches of the next "
         f"prove_fs {fs_launches}, plain twin calls {fs_plain}; with its "
         f"verify_fs {fs_path_launches}, plain {fs_path_plain}")
-    fs_shapes = check_calls(rec.calls, "FS prove")
+    fs_shapes, fs_costs = check_calls(rec, "FS prove")
     say(f"phase 7 recorded calls ok: every kernel call of the first prove_fs "
         f"and verify_fs == its plain twin on the same inputs, launches as the "
         f"rule says; calls per shape: {listing(fs_shapes)}")
@@ -1271,23 +1349,19 @@ def main():
 
     batched_shapes = {e: collections.Counter() for e in KERNEL_NAMES}
     recorded = {}
-    # the field ops' calls at B = 64 would keep copies of every
-    # intermediate of the prove: they are held at B = 4
-    k_wrappers = {e: w for e, w in wrappers.items() if e not in GF_ENTRIES}
     for b in (4, 64):
         xs = witness_batch(b)
-        with Recorder(kernels, wrappers if b == 4 else k_wrappers) as rec:
+        with Recorder(kernels, wrappers, twin) as rec:
             kernels.reset_counts()
             batched(xs)
             torch.cuda.synchronize()
             recorded[b] = (dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS))
         check_path(f"the batched call at B = {b}", *recorded[b])
-        for e, n in check_calls(rec.calls, f"batched call at B = {b}").items():
+        for e, n in check_calls(rec, f"batched call at B = {b}")[0].items():
             batched_shapes[e].update(n)
     batched_launches, batched_plain = recorded[4]
     say(f"phase 8 recorded calls ok: every kernel call of one batched call "
-        f"at B = 4 and every K1 and K2 call at B = 64 == its plain twin on "
-        f"the same inputs, "
+        f"at B = 4 and of one at B = 64 == its plain twin on the same inputs, "
         f"launches as the rule says; B = 4 device launches "
         f"{batched_launches}, plain twin calls {batched_plain}; calls per "
         f"shape: {listing(batched_shapes, short=True)}")
@@ -1783,33 +1857,41 @@ def main():
                                       per[s]["fs"] * per[s]["ms"]))
         plain_ms = event_ms(torch, lambda: twin[entry](*example[(entry, top)]),
                             3)
+        # a field op's bucket holds calls of up to twice the size and of
+        # other broadcast patterns: its paths' device times are the whole
+        # profiles' (phases 6 and 7), not a bucket's time times its calls
+        exact = entry not in GF_ENTRIES
         rows[entry] = dict(
             per=per, top=top, plain_ms=plain_ms,
             **{f"{k}_ms": sum(r[k] * r["ms"] for r in per.values())
-               for k in ("timed", "driver", "fs")},
-            timed_bound=sum(r["timed"] * r["bound"] for r in per.values()),
-            fs_bound=sum(r["fs"] * r["bound"] for r in per.values()),
+               if exact else None for k in ("timed", "driver", "fs")},
+            timed_bound=bound_ms(timed_costs[entry], int32_rate),
+            fs_bound=bound_ms(fs_costs[entry], int32_rate),
             sharded_ms={f"{tr} S={S}": sum(
                 n * per[shp]["ms"] for shp, n in
                 sharded[(tr, S)][0]["shapes"][entry].items())
-                for tr, S in sharded})
-        say(f"kernel {entry} (profiled device time; calls in the first "
+                for tr, S in sharded} if exact else None)
+        paths = (f"; rank 0 of a sharded prove (ms): "
+                 f"{rows[entry]['sharded_ms']}; one timed prove "
+                 f"{rows[entry]['timed_ms']:.4f} ms, one "
+                 f"driver prove + verify {rows[entry]['driver_ms']:.4f} ms, "
+                 f"one FS prove + verify_fs {rows[entry]['fs_ms']:.4f} ms"
+                 if exact else "; device time by path: the whole profiles")
+        say(f"kernel {entry} (profiled device time"
+            f"{'' if exact else ' of the first call of each size bucket'}; "
+            f"calls in the first "
             f"driver prove + verify / timed prove / first FS prove + "
-            f"verify_fs / batched calls at B = 4 "
-            f"{'' if entry in GF_ENTRIES else 'and 64 '}/ rank 0 of the "
+            f"verify_fs / batched calls at B = 4 and 64 / rank 0 of the "
             f"sharded runs, ms per call, launches per call, bound ms): "
             + "; ".join(
                 f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
                 f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
                 f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
                 for s, r in per.items())
-            + f"; rank 0 of a sharded prove (ms): {rows[entry]['sharded_ms']}"
-            + f"; one timed prove {rows[entry]['timed_ms']:.4f} ms (bound "
-            f"{rows[entry]['timed_bound']:.5f}), one driver prove + verify "
-            f"{rows[entry]['driver_ms']:.4f} ms, one FS prove + verify_fs "
-            f"{rows[entry]['fs_ms']:.4f} ms (bound "
-            f"{rows[entry]['fs_bound']:.5f}); top shape {list(top)}: plain "
-            f"twin {plain_ms:.3f} ms")
+            + paths + f"; bound of every recorded call summed: one timed "
+            f"prove {rows[entry]['timed_bound']:.5f} ms, one FS prove + "
+            f"verify_fs {rows[entry]['fs_bound']:.5f} ms; top shape "
+            f"{list(top)}: plain twin {plain_ms:.3f} ms")
     example.clear()
 
     # ---- whole-call profiles, after every per-shape profile: a large
@@ -2001,7 +2083,9 @@ def main():
                 "bound_by": top["by"], "library_ms": None,
                 "shape": list(row["top"]),
                 "timed_prove_launches": timed_launches[entry],
-                "timed_prove_kernel_ms": row["timed_ms"],
+                # the field ops': the timed prove's whole profile
+                "timed_prove_kernel_ms": row["timed_ms"] if entry not in
+                GF_ENTRIES else profiled[entry][0] or None,
                 "timed_prove_bound_ms": row["timed_bound"],
                 "profiled_device_ms": profiled[entry][0],
                 "glibc_path_launches": launches[entry],
@@ -2010,6 +2094,7 @@ def main():
                 "fs_verify_launches": fs_verify_launches[entry],
                 "fs_prove_launches": fs_launches[entry],
                 "fs_prove_kernel_ms": row["fs_ms"],
+                "fs_prove_bound_ms": row["fs_bound"],
                 "fs_prove_profiled_ms": fs_profiled[entry][0],
                 "batched_call_launches": batched_launches[entry],
                 "batched_profiled_ms": b_profiled[entry][0],

@@ -89,9 +89,10 @@ def gkr_proof_size_bytes(cc) -> int:
 
 
 # the form of the FS programs that prove_fs makes for a compiled prover:
-# staged (a graph a layer, a graph a FRI level), whose replays were the
-# faster on the H100 (PERF.md section 6)
-FS_STAGED = True
+# unstaged (one graph a half), whose replays were the faster on the H100
+# once the field ops were kernels, at half the capture time of the staged
+# form (a graph a layer, a graph a FRI level; PERF.md section 5)
+FS_STAGED = False
 
 
 @dataclass

@@ -193,8 +193,9 @@ def lin_plain(op: int, x, y=None):
 # ---------------------------------------------------------------------------
 
 def _broadcast(p, q) -> tuple:
-    """torch.broadcast_shapes of two sizes, without its ~100 us of host
-    time a call."""
+    """torch.broadcast_shapes of two sizes, at a fraction of its host
+    time (0.47 against 8.0 us a call on an H100 machine's host, timed by
+    chip_smoke.py's phase 3)."""
     if p == q:
         return tuple(p)
     n = max(len(p), len(q))
