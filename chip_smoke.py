@@ -22,7 +22,14 @@ package.  Phases, one line each, any failure exits non-zero:
    mesh's (bl, K, 2, 3) round polynomials for the sums, and sizes up to
    2^18), on canonical and on any int64 inputs, one launch a call and none
    for an empty output; the wrappers' output shape against
-   ``torch.broadcast_shapes``, with the host time of each;
+   ``torch.broadcast_shapes``, with the host time of each; then the field
+   chains (X1: ``gf_table``, ``gf_segsum``) against their plain twins on
+   canonical inputs: beta tables of 2^0 to 2^20 entries (strided
+   challenges, 3 and 63 tables), power tables of a by-value base (n up to
+   2^20 - 3, not a power of two) and of tensor bases, tree sums of 0 to
+   2^18 terms (rank 2 and 3, transposed), scatter plans with empty
+   segments, one segment of 2^18 terms, a skewed plan and mean segment
+   lengths on either side of the summers' thresholds;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -128,11 +135,12 @@ the whole-call profiles (three eager calls, then one replay of the timed
 prove's graphs, one batched replay at B = 16 and one ``driver.prove`` and
 one ``driver.prove_fs`` through their graphs, each failing unless the
 profiler's kernels of every port entry equal the counted launches): a
-large trace makes every later short profile miss launches.  The field
-ops' calls are grouped by their output's words, rounded up to a power of
-two, in the listings; a bucket is profiled on the first call recorded in
-it (its strides kept), and the field ops' device time on a path is the
-whole profile's.  Each path's bound sums every recorded call's.  A line
+large trace makes every later short profile miss launches.  The X1
+calls (field ops and chains) are grouped by their output's words (a
+segment sum's by the words it reads), rounded up to a power of two, in
+the listings; a bucket is profiled on the first call recorded in it (its
+strides kept), and X1's device time on a path is the whole profile's.
+Each path's bound sums every recorded call's.  A line
 lists every entry's launches on every path.  The last lines are the card
 line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
@@ -176,30 +184,45 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "sha3_chain_x64": ("sha3_chain_x64",),
                 "merkle_forest": ("merkle_forest",),
                 "gf_mul": ("gf_mul",),
-                "gf_lin": ("gf_lin",)}
-GF_ENTRIES = ("gf_mul", "gf_lin")
+                "gf_lin": ("gf_lin",),
+                "gf_table": ("gf_table",),
+                "gf_segsum": ("gf_segsum",)}
+# X1: the elementwise field ops and the field chains, called thousands of
+# times a prove: each call's twin runs as it returns (Recorder), and its
+# calls are grouped in size buckets
+ELEMENTWISE = ("gf_mul", "gf_lin")
+GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum")
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches all six)
+# sponge's: every FS prove launches all eight)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
                 *GF_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
 _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
        "virgo_plus_tpu/pallas_kernels/keccak_chain.py:100")
-# X1 is no Pallas kernel: XLA's fusion of the JAX gf ops inside the jits
+# X1 is no Pallas kernel: XLA's fusion of the JAX gf ops (and of their
+# chains: the beta tables' doubling loop, the scatter's prefix sum) inside
+# the jits
 _X1 = "virgo_plus_tpu_torch/csrc/gf_ops.cu"
+_X1C = "virgo_plus_tpu_torch/csrc/gf_chains.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
-                       "gf_lin": (_X1, "virgo_plus_tpu/field/gf.py:131")}
+                       "gf_lin": (_X1, "virgo_plus_tpu/field/gf.py:131"),
+                       "gf_table": (_X1C, "virgo_plus_tpu/gkr/beta.py:30"),
+                       "gf_segsum": (_X1C,
+                                     "virgo_plus_tpu/gkr/sumcheck.py:96")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
-                "gf_lin": 20}
+                "gf_lin": 20, "gf_table": 20, "gf_segsum": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
-                             # compare and select
+                             # compare and select (gf_segsum: a term of a
+                             # row)
+GF_TABLE_INT32_OPS = 6       # an output word of a table: one product an
+                             # entry, as gf_mul
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
@@ -284,7 +307,8 @@ def proof_arrays(proof_io, np, full):
 def event_ms(torch, fn, reps):
     """Time of one call between CUDA events around `reps` calls back to
     back: the plain twins' time, whose many small kernels wait on the
-    host's issue rate; never a kernel's device time."""
+    host's issue rate, and the device time of a call that takes longer on
+    the card than its host issue; never a short kernel's device time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -439,28 +463,68 @@ def graph_kernel_nodes(graph):
     return counts
 
 
+def _seg_terms(ins):
+    """(rows, terms a row, segments) of a gf_segsum call (x, idx, starts,
+    ends): the terms this call's plan sums."""
+    x, idx, starts, ends = ins
+    rows = math.prod(x.shape[:-1])
+    if starts is None:
+        return rows, x.shape[-1], 1
+    terms = (idx.numel() if idx is not None
+             else int((ends - starts).sum()))
+    return rows, terms, starts.numel()
+
+
 def gf_words(entry, ins):
-    """The output's words (int64) of a gf_mul (x, y) or gf_lin (op, x, y)
-    call, from torch's own broadcast rule."""
+    """The output's words (int64) of an X1 call: gf_mul (x, y), gf_lin (op,
+    x, y), gf_table (op, a, r, n, device), gf_segsum (x, idx, starts,
+    ends), the elementwise ops' from torch's own broadcast rule."""
     import torch
     if entry == "gf_mul":
         return 2 * math.prod(torch.broadcast_shapes(ins[0].shape[1:],
                                                     ins[1].shape[1:]))
+    if entry == "gf_table":
+        a, n = ins[1], ins[3]
+        return 2 * n * (math.prod(a.shape[1:]) if hasattr(a, "shape")
+                        else 1)
+    if entry == "gf_segsum":
+        rows, _, segments = _seg_terms(ins)
+        return rows * segments
     x, y = ins[1], (ins[2] if len(ins) > 2 else None)   # (op, x) if unary
     return math.prod(x.shape if y is None
                      else torch.broadcast_shapes(x.shape, y.shape))
 
 
+def gf_size(entry, ins):
+    """The words an X1 call's size bucket counts: its output's, or the
+    terms it reads (gf_segsum)."""
+    if entry == "gf_segsum":
+        rows, terms, _ = _seg_terms(ins)
+        return rows * terms
+    return gf_words(entry, ins)
+
+
 def gf_bucket(words):
-    """(2^k,) for a field op whose output has more than 2^(k-1) and at
-    most 2^k words ((0,) when empty)."""
+    """(2^k,) for an X1 call of more than 2^(k-1) and at most 2^k words
+    (gf_size's; (0,) when none)."""
     return (1 << (words - 1).bit_length() if words else 0,)
 
 
-def gf_cost(entry, ins, words):
-    """(bytes, 32-bit integer operations) of one field-op call on `ins`
-    with an output of `words` words: each input (as the view the kernel
-    reads) read once, the output written once."""
+def gf_cost(entry, ins):
+    """(bytes, 32-bit integer operations) of one X1 call on `ins`: each
+    input (as the view the kernel reads) read once, the output written
+    once; a segment sum's terms read once a row, with their index."""
+    words = gf_words(entry, ins)
+    if entry == "gf_segsum":
+        rows, terms, segments = _seg_terms(ins)
+        x, idx, starts, _ = ins
+        read = rows * terms + (terms if idx is not None else 0) + (
+            2 * segments if starts is not None else 0)
+        return 8 * (read + words), GF_LIN_INT32_OPS * rows * terms
+    if entry == "gf_table":
+        read = sum(t.numel() for t in (ins[1], ins[2])
+                   if hasattr(t, "numel"))
+        return 8 * (read + words), GF_TABLE_INT32_OPS * words
     read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
     ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
     return 8 * (sum(t.numel() for t in read) + words), ops * words
@@ -510,7 +574,7 @@ def cost(entry, shp, ins):
     """(bytes, 32-bit integer operations) one call on inputs `ins` of shape
     `shp` needs: each input read once, each output written once."""
     if entry in GF_ENTRIES:
-        return gf_cost(entry, ins, gf_words(entry, ins))
+        return gf_cost(entry, ins)
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -542,21 +606,22 @@ def kept(a):
 class Recorder:
     """While active, every call of the kernel wrappers is recorded, to be
     held against its plain twin by compare_calls.  A K1 or K2 call keeps a
-    copy of its inputs and outputs and the device launches it made.  A
-    field-op call (thousands a prove, up to 2^26 words each in a batched
-    call at B = 64) runs its twin at once on the same inputs and keeps a
-    device-side count of the words that differ, its launches, its
-    output's words, its cost and, for the first call of its size bucket,
-    a copy of its inputs.  The wrappers' launch and plain-call counts are
-    left as the wrappers made them.  Calls made while a graph is captured
-    are not recorded (they run nothing); a replay calls no wrapper."""
+    copy of its inputs and outputs and the device launches it made.  An X1
+    call (a field op or chain: thousands a prove, up to 2^26 words each in
+    a batched call at B = 64) runs its twin at once on the same inputs and
+    keeps a device-side count of the words that differ, its launches, its
+    size (gf_size) and output words, its cost and, for the first call of
+    its size bucket, a copy of its inputs.  The wrappers' launch and
+    plain-call counts are left as the wrappers made them.  Calls made
+    while a graph is captured are not recorded (they run nothing); a
+    replay calls no wrapper."""
 
     def __init__(self, kernels, wrappers, twin):
         self.kernels = kernels
         self.wrappers = wrappers     # entry -> (module, attribute name)
         self.twin = twin
-        # (entry, inputs or None, outputs or (words, cost) of a field op,
-        # launches)
+        # (entry, inputs or None, outputs or (size, output words, cost) of
+        # an X1 call, launches)
         self.calls = []
         self.gf_diff = {e: [] for e in GF_ENTRIES}   # per call, on the card
 
@@ -585,12 +650,12 @@ class Recorder:
                 fail(f"{entry} gave shape {tuple(out.shape)} against its "
                      f"plain twin's {tuple(want.shape)}")
             self.gf_diff[entry].append((out != want).sum())
-            words = out.numel()
-            if gf_bucket(words) not in buckets:
-                buckets.add(gf_bucket(words))
+            size = gf_size(entry, args)
+            if gf_bucket(size) not in buckets:
+                buckets.add(gf_bucket(size))
                 ins = tuple(kept(a) for a in args)
-            self.calls.append((entry, ins, (words, gf_cost(entry, args,
-                                                            words)), launched))
+            self.calls.append((entry, ins, (size, out.numel(),
+                                            gf_cost(entry, args)), launched))
             return out
         return rec
 
@@ -609,7 +674,7 @@ def kernel_tables():
     """The port's kernel wrappers and plain twins: (kernels module,
     {entry: (module, wrapper name)}, {entry: twin}, expected_launches)."""
     from virgo_plus_tpu_torch import kernels
-    from virgo_plus_tpu_torch.field import gf
+    from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.pc import keccak, merkle
 
@@ -618,13 +683,17 @@ def kernel_tables():
                 "sha3_chain_x64": (keccak, "sha3_chain_x64_cuda"),
                 "merkle_forest": (merkle, "forest_cuda"),
                 "gf_mul": (gf, "mul_cuda"),
-                "gf_lin": (gf, "lin_cuda")}
+                "gf_lin": (gf, "lin_cuda"),
+                "gf_table": (chains, "table_cuda"),
+                "gf_segsum": (chains, "segsum_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
             "merkle_forest": merkle.forest_plain,
             "gf_mul": gf.mul_plain,
-            "gf_lin": gf.lin_plain}
+            "gf_lin": gf.lin_plain,
+            "gf_table": chains.table_plain,
+            "gf_segsum": chains.segsum_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
@@ -653,8 +722,8 @@ def compare_calls(torch, rec, twin, expected_launches, what):
     example, sponge = {}, []
     for entry, ins, outs, launched in rec.calls:
         if entry in GF_ENTRIES:
-            words, cst = outs
-            shp, want = gf_bucket(words), 1 if words else 0
+            size, words, cst = outs
+            shp, want = gf_bucket(size), 1 if words else 0
         else:
             shp = shape_of(entry, ins)
             want, cst = expected_launches(entry, ins), cost(entry, shp, ins)
@@ -712,10 +781,17 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
                          0, M, size=(2, k, bl), dtype=np.uint64), dev),)
     words = lambda *s: gf.tensor(rng.integers(0, 2 ** 64, size=s,
                                               dtype=np.uint64), dev)
-    if entry in GF_ENTRIES:        # a product or a sum on (2, n / 2) words
+    if entry in GF_ENTRIES:        # (2, n / 2) words: a product, a sum, a
+        # beta table, one segment
         x, y = (gf.tensor(rng.integers(0, M, size=(2, max(shp[0] // 2, 1)),
                                        dtype=np.uint64), dev)
                 for _ in range(2))
+        if entry == "gf_table":
+            from virgo_plus_tpu_torch.field.chains import BETA
+            k = max(shp[0] // 2, 1).bit_length() - 1
+            return (BETA, x[:, 0], y[:, :k], 1 << k, dev)
+        if entry == "gf_segsum":
+            return (x, None, None, None)
         return (x, y) if entry == "gf_mul" else (gf.ADD, x, y)
     if entry == "sha3_256_x64":
         return (words(8, shp[0]),)
@@ -792,7 +868,7 @@ def main():
     from virgo_plus_tpu_torch import driver, fused, graphs, native, proof_io
     from virgo_plus_tpu_torch.circuits.compile import evaluate, input_buffer
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
-    from virgo_plus_tpu_torch.field import gf
+    from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import fs, protocol
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.parallel import mesh as pmesh
@@ -946,6 +1022,105 @@ def main():
         f"call over {BROADCAST_REPS} rounds of the {len(pairs)} patterns: "
         + ", ".join(f"{k} {v:.3f}" for k, v in host_us.items())
         + "; the same shapes")
+
+    # ---- phase 3, X1 chains: gf_table and gf_segsum against their twins --
+    canon = lambda *shape: gf.tensor(rng.integers(0, M, size=shape,
+                                                  dtype=np.uint64), dev)
+    n_chain = 0
+
+    def chain(entry, ins, what):
+        nonlocal n_chain
+        held(entry, ins, what)
+        n_chain += 1
+
+    largest = {}       # the largest shapes, timed below
+    beta_bits = (0, 1, 5, 8, 9, 13, 20)
+    for k in beta_bits:
+        r = canon(2, 2 * k + 1)[:, ::2]                # strided r[:, :k]
+        ins = (chains.BETA, canon(2), r[:, :k], 1 << k, dev)
+        chain("gf_table", ins, f"a beta table of 2^{k} entries")
+        if k == beta_bits[-1]:
+            largest[f"a beta table of 2^{k} entries"] = ("gf_table", ins)
+        if k <= 13:
+            rs = canon(2, 3, 2 * k + 2)[..., ::2]
+            chain("gf_table", (chains.BETA, canon(2, 3), rs, 1 << k, dev),
+                  f"3 beta tables of 2^{k} entries, strided rs")
+    chain("gf_table", (chains.BETA, canon(2, 63), canon(2, 63, 13), 1 << 10,
+                       dev), "63 beta tables of 2^10 entries")
+    power_n = (0, 1, 7, 256, 1000, 4096, (1 << 20) - 3)
+    for n in power_n:
+        base = tuple(int(v) for v in rng.integers(0, M, 2, dtype=np.uint64))
+        ins = (chains.POWER, base, None, n, dev)
+        chain("gf_table", ins, f"powers of a by-value base, n = {n}")
+        if n == power_n[-1]:
+            largest[f"powers of a by-value base, n = {n}"] = ("gf_table",
+                                                             ins)
+    for n in (1, 100, 128, 300):
+        chain("gf_table", (chains.POWER, canon(2, 64), None, n, dev),
+              f"powers of 64 elements, n = {n}")
+        chain("gf_table", (chains.POWER, canon(2, 5)[:, 3], None, n, dev),
+              f"powers of one element, n = {n}")
+    tree_n = (0, 1, 7, 16, 17, 600, 8192, 1 << 18)
+    for n in tree_n:
+        for rows in ((2,), (2, 3)):
+            chain("gf_segsum", (canon(*rows, n), None, None, None),
+                  f"a tree sum of {rows} rows of {n}")
+    chain("gf_segsum", (canon(2, 128, 64).transpose(1, 2), None, None,
+                        None), "tree sums over a transposed (2, 64, 128)")
+    # plans: a scatter with empty segments (lead (4,)), one segment of
+    # 2^18 terms, one long segment among short ones, and means at the
+    # summers' thresholds
+    idx = rng.integers(0, 1 << 16, 1 << 18)
+    plans = {"a scatter of 2^18 terms onto 2^17 (half empty), lead (4,)":
+             (canon(2, 4, 1 << 18), sumcheck.ScatterPlan.build(
+                 idx, 1 << 17).arrays(dev)),
+             "one segment of 2^18 terms":
+             (canon(2, 1 << 18), (torch.randperm(1 << 18, device=dev),
+                                  torch.zeros(1, dtype=torch.int64,
+                                              device=dev),
+                                  torch.full((1,), 1 << 18, device=dev)))}
+    skew = np.concatenate([rng.integers(0, 1 << 15, 1 << 16),
+                           np.full(1 << 16, 7)])
+    plans["2^15 short segments and one of 2^16 terms"] = (
+        canon(2, 1 << 17), sumcheck.ScatterPlan.build(skew, 1 << 15)
+        .arrays(dev))
+    skew = np.concatenate([rng.integers(0, 1000, 4000)]
+                          + [np.full(100 * j, 333 * j) for j in (1, 2, 3)])
+    plans["1000 segments, 3 of 100-300 terms, lead (3,)"] = (
+        canon(2, 3, len(skew)), sumcheck.ScatterPlan.build(skew, 1000)
+        .arrays(dev))
+    for mean in (chains.THREAD_MEAN, chains.THREAD_MEAN + 1,
+                 chains.WARP_MEAN, chains.WARP_MEAN + 1):
+        plans[f"segments of mean length {mean}"] = (
+            canon(2, 3, 64 * mean), sumcheck.ScatterPlan.build(
+                rng.integers(0, 64, 64 * mean), 64).arrays(dev))
+    for what, (x, arrs) in plans.items():
+        chain("gf_segsum", (x, *arrs), what)
+    largest.update({what: ("gf_segsum", (x, *arrs)) for what, (x, arrs)
+                    in list(plans.items())[:3]})
+    largest["a tree sum of 2 rows of 2^18"] = ("gf_segsum", (
+        canon(2, 1 << 18), None, None, None))
+    say(f"phase 3 X1 chains ok: gf_table and gf_segsum == their plain twins "
+        f"bit for bit in {n_chain} calls on canonical inputs: beta tables of "
+        f"2^k entries, k in {beta_bits} (k <= 13 also 3 tables, strided), "
+        f"63 of 2^10; power tables of a by-value base, n in {power_n}, of "
+        f"tensor bases; tree sums of lengths {tree_n}, rank 2 and 3, "
+        f"transposed; plans: {list(plans)}; one launch a call, none for an "
+        f"empty output")
+    # these calls take longer on the card than their host issue, so CUDA
+    # events around back-to-back calls time the device (and keep the
+    # profiler for the per-shape rows at the end)
+    timed = []
+    for what, (entry, ins) in largest.items():
+        ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
+                      PROFILE_REPS[entry])
+        nbytes, ops = gf_cost(entry, ins)
+        bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
+        timed.append(f"{what}: {ms * 1e3:.3f} us (bound {bound * 1e3:.3f} "
+                     f"us)")
+    say(f"phase 3 X1 chains, time of the largest shapes ({card}; CUDA "
+        f"events over {PROFILE_REPS['gf_table']} calls each): "
+        + "; ".join(timed))
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
@@ -1412,27 +1587,28 @@ def main():
               else driver.verify(c, r0["full"], cp)).ok
         if not ok:
             fail(f"{label}: the proof is rejected")
-        # K1 and K2 launch the same on every rank; the field ops follow
-        # each rank's share (a prefix sum over its own contributions, the
-        # eq factor of its own bits), so their counts differ by rank
+        # K1, K2 and the field chains launch the same on every rank; the
+        # elementwise field ops follow each rank's share (a prefix sum over
+        # its own contributions, the eq factor of its own bits), so their
+        # counts differ by rank
         launches9 = [r["launches"] for r in per_rank]
-        k_launches9 = [{e: n for e, n in l.items() if e not in GF_ENTRIES}
+        k_launches9 = [{e: n for e, n in l.items() if e not in ELEMENTWISE}
                        for l in launches9]
         if any(any(r["plain"].values()) for r in per_rank) or any(
                 l != k_launches9[0] for l in k_launches9) or any(
                 l[e] == 0 for l in launches9 for e in KERNEL_NAMES):
             fail(f"{label}: launches per rank {launches9}, plain twin calls "
-                 f"{[r['plain'] for r in per_rank]}: K1 and K2 not the same "
-                 f"on every rank, or an entry not launched on a rank, or a "
-                 f"plain twin call")
+                 f"{[r['plain'] for r in per_rank]}: K1, K2 and the chains "
+                 f"not the same on every rank, or an entry not launched on a "
+                 f"rank, or a plain twin call")
         for e in KERNEL_NAMES:
             sharded_shapes[e].update(r0["shapes"][e])
             err[e] = max(err[e], r0["err"][e])
         say(f"phase 9 ok: {label} == the single-device card proof in all "
             f"{len(want)} arrays and verifies; every kernel call of rank 0 "
-            f"== its plain twin; K1 and K2 launches per rank (the same on "
-            f"all {S}) {k_launches9[0]}, field ops by rank "
-            f"{[{e: l[e] for e in GF_ENTRIES} for l in launches9]}, plain "
+            f"== its plain twin; K1, K2 and chain launches per rank (the "
+            f"same on all {S}) {k_launches9[0]}, field ops by rank "
+            f"{[{e: l[e] for e in ELEMENTWISE} for l in launches9]}, plain "
             f"twin calls 0; calls per shape (rank 0): "
             f"{listing(r0['shapes'])}")
         say(f"phase 9 timing ({card}; {S} ranks sharing one card over "

@@ -77,6 +77,8 @@ def circuit_arrays(arrs: dict, cc, device="cpu") -> dict:
     for i in range(1, cc.depth):
         if cc.layers[i].has_assert:
             out[f"ia{i}"] = protocol._assert_mask(cc.layers[i], device)
+    if "p2P" in out:
+        out["p2C"] = protocol.p2_combine_plan(cc, device)
     return out
 
 

@@ -1,0 +1,340 @@
+// X1 chains: whole tables and segment sums of GF((2^61-1)^2) elements on
+// Hopper (sm_90a), one launch a call.
+//
+// Replaces chains of the JAX package's GF(p^2) ops that XLA fuses into one
+// loop inside the jits, and that the port ran as one gf_mul or gf_lin
+// launch a link (csrc/gf_ops.cu):
+// - gf_table, the tables whose entry i is a product over the bits of i:
+//   the beta (eq) tables (virgo_plus_tpu/gkr/beta.py:17,30: a product, a
+//   difference and a concatenation per bit) and the power tables
+//   (virgo_plus_tpu/pc/fft.py:26 powers, pc/fft_gkr.py:150 powers_el: a
+//   product and a concatenation per doubling step);
+// - gf_segsum, sums of segments of the last axis: the log-tree tree_sum
+//   (virgo_plus_tpu/gkr/sumcheck.py:33, an add and a pad per level) and
+//   the gate scatter (apply_scatter_arrays :96: a gather, the log2(N)
+//   levels of the prefix sum :47, two gathers and a difference).
+//
+// Bits.  Every operation returns the canonical representative, so any
+// order of the same products and sums gives the same bits as the JAX
+// package and the plain twins on canonical inputs (every input at the call
+// sites is canonical).  The arithmetic is field.cuh's, which assumes
+// canonical inputs (gf_ops.cu repeats the twins' int64 steps instead, so
+// that it agrees on any input; these entries do not).
+//
+// gf_table.  out (2, L, n) contiguous: L tables (the lead axis) of n
+// entries.
+//   beta:  out[., t, i] = init[t] * prod_{j<k} (bit_j(i) ? r[t, j] : 1 - r[t, j]),
+//          n = 2^k;
+//   power: out[., t, i] = base[t]^i, i < n, k = ceil(log2 n); the base is
+//          a tensor (2, L), or one element passed by value (L = 1).
+// A block covers 2^s consecutive entries of one table (s = min(k,
+// TABLE_LOG)): it loads the table's factors into shared memory once
+// (beta: r_j and 1 - r_j; power: base^(2^j), k squarings by one thread),
+// builds the 2^s-entry table of its low s bits in shared memory by
+// doubling (one product, and for beta one difference, per new entry), and
+// one thread computes the factor of its high k - s bits (at most k - s
+// products).  Each entry is then one product, written coalesced to both
+// planes: about two products per entry.  Strided inputs (r[:, :k],
+// rs[:, :, j:j+1]) are read in place from strides passed by value, the
+// by-value base needs no tensor, and nothing is copied from the host, so a
+// CUDA graph captures the launch.
+// What bounds it: the 16 bytes written per entry at 3.35 TB/s; the two
+// products per entry (24 32-bit multiplies) take a quarter of that at the
+// integer rate.  Below some thousands of entries a call is the launch.
+//
+// gf_segsum.  out (R, G) contiguous: R rows (the input's leading axes, up
+// to SEG_AXES, any strides), G segments of the last axis:
+//   out[row, g] = sum_{t in [starts[g], ends[g])} x[row, idx ? idx[t] : t],
+// 0 for an empty segment; without starts, one segment [0, n).  Each
+// summer adds canonical terms lazily in u64, folding by the Mersenne rule
+// of gf.reduce_lazy after every LAZY terms (a canonical sum and 7 terms
+// stay below 2^64), then warp shuffles and shared memory finish the sum.
+// Three shapes of summer, picked by the wrapper from the mean segment
+// length: a thread per (row, segment) for short segments (the gate
+// scatter, the phase-2 combine; a warp takes each of its segments longer
+// than LONG_SEGMENT together, so that a skewed plan does not leave one
+// thread with a long segment), a warp for moderate ones, a block for long
+// rows (tree sums over thousands of gates).
+// What bounds it: the bytes read (8 per row and term, plus the index) and
+// written, at 3.35 TB/s.
+//
+// Why CUDA and not Triton: exact 64-bit products (__umul64hi) and the
+// loader and launch counting of kernels.py, shared with the other entries.
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+
+using vpt::F2;
+using vpt::u64;
+
+namespace {
+
+typedef long long i64;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TABLE_LOG = 8;          // log2 of the entries one block writes
+constexpr int MAX_BITS = 62;          // bits of a table index
+constexpr int MAX_BLOCKS = 132 * 16;  // grid cap of the grid-stride loops
+constexpr int SEG_AXES = 4;           // row axes of gf_segsum's input
+constexpr int LAZY = 7;               // terms added between two folds
+constexpr int LONG_SEGMENT = 64;      // longer segments: a warp each (SEG_THREAD)
+
+enum { TABLE_BETA = 0, TABLE_POWER = 1 };
+enum { SEG_THREAD = 0, SEG_WARP = 1, SEG_BLOCK = 2 };
+
+__device__ __forceinline__ F2 one2() { return {1, 0}; }
+
+// ---------------------------------------------------------------------------
+// gf_table
+// ---------------------------------------------------------------------------
+
+struct TableArgs {
+    const u64* a;        // init (beta) or base (power); null: by-value base
+    const u64* r;        // beta challenges
+    u64* out;
+    i64 a_plane, a_lead;             // element strides of a
+    i64 r_plane, r_lead, r_bit;      // element strides of r
+    u64 base_re, base_im;            // the by-value base
+    long long n;                     // entries a table
+    int k, s, lead, chunks;          // index bits, low bits a block, tables, blocks a table
+};
+
+template <int OP>
+__global__ void __launch_bounds__(THREADS) gf_table(TableArgs A) {
+    __shared__ u64 lo_re[1 << TABLE_LOG], lo_im[1 << TABLE_LOG];
+    __shared__ F2 f1[MAX_BITS], f0[MAX_BITS];   // beta: r_j, 1 - r_j; power: base^(2^j)
+    __shared__ F2 high;
+    const int t = blockIdx.x / A.chunks;
+    const long long first = (long long)(blockIdx.x - t * A.chunks) << A.s;
+    const int tid = threadIdx.x;
+
+    if constexpr (OP == TABLE_BETA) {
+        for (int j = tid; j < A.k; j += THREADS) {
+            const u64* rj = A.r + t * A.r_lead + j * A.r_bit;
+            const F2 r = {rj[0], rj[A.r_plane]};
+            f1[j] = r;
+            f0[j] = vpt::sub2(one2(), r);
+        }
+    } else if (tid == 0) {
+        F2 b = A.a ? F2{A.a[t * A.a_lead], A.a[t * A.a_lead + A.a_plane]}
+                   : F2{A.base_re, A.base_im};
+        for (int j = 0; j < A.k; ++j) {
+            f1[j] = b;
+            b = vpt::mul2(b, b);
+        }
+    }
+    __syncthreads();
+    if (tid == 0) {
+        F2 h = OP == TABLE_BETA ? F2{A.a[t * A.a_lead], A.a[t * A.a_lead + A.a_plane]}
+                                : one2();
+        for (int j = A.s; j < A.k; ++j) {
+            if ((first >> j) & 1) h = vpt::mul2(h, f1[j]);
+            else if (OP == TABLE_BETA) h = vpt::mul2(h, f0[j]);
+        }
+        high = h;
+        lo_re[0] = 1;
+        lo_im[0] = 0;
+    }
+    __syncthreads();
+    // the low table by doubling: step j writes entries [2^j, 2^(j+1)) and,
+    // for beta, rewrites [0, 2^j)
+    for (int j = 0; j < A.s; ++j) {
+        const int half = 1 << j;
+        for (int i = tid; i < half; i += THREADS) {
+            const F2 x = {lo_re[i], lo_im[i]};
+            const F2 hi = vpt::mul2(x, f1[j]);
+            lo_re[i + half] = hi.re;
+            lo_im[i + half] = hi.im;
+            if (OP == TABLE_BETA) {
+                const F2 lo = vpt::sub2(x, hi);
+                lo_re[i] = lo.re;
+                lo_im[i] = lo.im;
+            }
+        }
+        __syncthreads();
+    }
+    const F2 h = high;
+    const long long plane = (long long)A.lead * A.n;
+    u64* out = A.out + t * A.n;
+    for (int i = tid; i < (1 << A.s); i += THREADS) {
+        const long long e = first + i;
+        if (e < A.n) {
+            const F2 v = vpt::mul2({lo_re[i], lo_im[i]}, h);
+            out[e] = v.re;
+            out[plane + e] = v.im;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// gf_segsum
+// ---------------------------------------------------------------------------
+
+struct SegArgs {
+    const u64* x;
+    const i64* idx;      // term -> position on the last axis; null: itself
+    const i64* starts;   // null: one segment [0, n)
+    const i64* ends;
+    u64* out;
+    unsigned size[SEG_AXES];   // row axes' sizes
+    i64 stride[SEG_AXES];      // their element strides
+    i64 term;                  // element stride of the last axis
+    long long n;               // length of the last axis
+    long long outputs;         // R * G
+    int g;                     // segments
+};
+
+__device__ __forceinline__ u64 fold(u64 s) {
+    const u64 t = (s >> 61) + (s & vpt::P);
+    return t >= vpt::P ? t - vpt::P : t;
+}
+
+// one segment of one row: its row's first word and its term range
+struct Segment {
+    const u64* x;
+    long long lo, hi;
+};
+
+__device__ __forceinline__ Segment segment(const SegArgs& A, long long o) {
+    const int g = (int)(o % A.g);
+    long long row = o / A.g;
+    i64 off = 0;
+#pragma unroll
+    for (int d = SEG_AXES - 1; d >= 0; --d) {
+        off += (row % A.size[d]) * A.stride[d];
+        row /= A.size[d];
+    }
+    return {A.x + off, A.starts ? A.starts[g] : 0, A.starts ? A.ends[g] : A.n};
+}
+
+// the canonical sum of the terms lo + lane, lo + lane + step, ... of a
+// segment
+__device__ __forceinline__ u64 partial(const SegArgs& A, Segment S, int lane, int step) {
+    u64 s = 0;
+    int c = 0;
+    for (long long t = S.lo + lane; t < S.hi; t += step) {
+        s += S.x[(A.idx ? A.idx[t] : t) * A.term];
+        if (++c == LAZY) {
+            s = fold(s);
+            c = 0;
+        }
+    }
+    return fold(s);
+}
+
+// the sum over the warp, in every lane
+__device__ __forceinline__ u64 warp_sum(u64 s) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) s = vpt::addp(s, __shfl_xor_sync(0xffffffffu, s, d));
+    return s;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) gf_segsum(SegArgs A) {
+    const int lane = threadIdx.x & 31;
+    if constexpr (MODE == SEG_THREAD) {
+        // a thread an output; a warp sums its segments longer than
+        // LONG_SEGMENT together, one after the other, so that one long
+        // segment among short ones costs its length / 32 steps
+        for (long long first = (long long)blockIdx.x * THREADS + threadIdx.x - lane;
+             first < A.outputs; first += (long long)gridDim.x * THREADS) {
+            const long long o = first + lane;
+            const Segment S = segment(A, o < A.outputs ? o : first);
+            const bool alone = o < A.outputs && S.hi - S.lo <= LONG_SEGMENT;
+            u64 s = alone ? partial(A, S, 0, 1) : 0;
+            for (unsigned together = __ballot_sync(0xffffffffu, o < A.outputs && !alone);
+                 together; together &= together - 1) {
+                const int l = __ffs(together) - 1;
+                const u64 t = warp_sum(partial(A, segment(A, first + l), lane, 32));
+                if (lane == l) s = t;
+            }
+            if (o < A.outputs) A.out[o] = s;
+        }
+    } else if constexpr (MODE == SEG_WARP) {
+        for (long long o = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5; o < A.outputs;
+             o += (long long)gridDim.x * WARPS) {
+            const u64 s = warp_sum(partial(A, segment(A, o), lane, 32));
+            if (lane == 0) A.out[o] = s;
+        }
+    } else {
+        __shared__ u64 sh[WARPS];
+        const int warp = threadIdx.x >> 5;
+        for (long long o = blockIdx.x; o < A.outputs; o += gridDim.x) {
+            u64 s = warp_sum(partial(A, segment(A, o), threadIdx.x, THREADS));
+            if (lane == 0) sh[warp] = s;
+            __syncthreads();
+            if (warp == 0) {
+                s = warp_sum(lane < WARPS ? sh[lane] : 0);
+                if (lane == 0) A.out[o] = s;
+            }
+            __syncthreads();
+        }
+    }
+}
+
+int capped(long long blocks) { return (int)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS); }
+
+}  // namespace
+
+// out (2, lead, n) = the tables of op (0 beta, 1 power), k index bits
+// (n = 2^k for beta, n <= 2^k for power).  a: init (beta) or base
+// (power) with element strides (a_plane, a_lead); null for a power table
+// of the by-value base (base_re, base_im), lead = 1.  r: the beta
+// challenges, strides (r_plane, r_lead, r_bit).  One launch, none for an
+// empty output.
+extern "C" int vpt_gf_table(int op, const u64* a, const u64* r, u64* out, int lead,
+                            int k, long long n, long long a_plane, long long a_lead,
+                            long long r_plane, long long r_lead, long long r_bit,
+                            u64 base_re, u64 base_im, void* stream_ptr) {
+    if (lead <= 0 || n <= 0) return 0;
+    if (k < 0 || k > MAX_BITS || n > (1ll << k) || (op == TABLE_BETA && (!a || (k && !r))))
+        return (int)cudaErrorInvalidValue;
+    const int s = k < TABLE_LOG ? k : TABLE_LOG;
+    const long long chunks = (n + (1ll << s) - 1) >> s;
+    if (chunks * lead >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    const TableArgs A = {a, r, out, a_plane, a_lead, r_plane, r_lead, r_bit,
+                         base_re, base_im, n, k, s, lead, (int)chunks};
+    cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    const unsigned blocks = (unsigned)(chunks * lead);
+    switch (op) {
+        case TABLE_BETA: gf_table<TABLE_BETA><<<blocks, THREADS, 0, stream>>>(A); break;
+        case TABLE_POWER: gf_table<TABLE_POWER><<<blocks, THREADS, 0, stream>>>(A); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+// out (R, g) = the segment sums of x's last axis (length n, element
+// stride term) for every row (SEG_AXES row axes of sizes d0..d3, element
+// strides s0..s3; R = d0 d1 d2 d3).  idx: the terms' positions (null:
+// contiguous); starts, ends: the g segments' term ranges (null: g = 1,
+// the segment [0, n)).  mode: 0 a thread, 1 a warp, 2 a block per
+// output.  One launch, none for an empty output.
+extern "C" int vpt_gf_segsum(const u64* x, const i64* idx, const i64* starts,
+                             const i64* ends, u64* out, int g, long long n,
+                             int d0, int d1, int d2, int d3, long long s0,
+                             long long s1, long long s2, long long s3,
+                             long long term, int mode, void* stream_ptr) {
+    const long long outputs = (long long)d0 * d1 * d2 * d3 * g;
+    if (outputs <= 0) return 0;
+    if ((starts == nullptr) != (ends == nullptr) || (!starts && g != 1))
+        return (int)cudaErrorInvalidValue;
+    const SegArgs A = {x, idx, starts, ends, out,
+                       {(unsigned)d0, (unsigned)d1, (unsigned)d2, (unsigned)d3},
+                       {s0, s1, s2, s3}, term, n, outputs, g};
+    cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+    switch (mode) {
+        case SEG_THREAD:
+            gf_segsum<SEG_THREAD><<<capped((outputs + THREADS - 1) / THREADS), THREADS, 0, stream>>>(A);
+            break;
+        case SEG_WARP:
+            gf_segsum<SEG_WARP><<<capped((outputs + WARPS - 1) / WARPS), THREADS, 0, stream>>>(A);
+            break;
+        case SEG_BLOCK:
+            gf_segsum<SEG_BLOCK><<<capped(outputs), THREADS, 0, stream>>>(A);
+            break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}

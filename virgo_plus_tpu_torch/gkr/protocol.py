@@ -27,7 +27,7 @@ import torch
 
 from .. import device as _device
 from .. import graphs
-from ..field import gf
+from ..field import chains, gf
 from ..utils.glibc_rand import GlibcRandom
 from ..circuits.compile import (CompiledCircuit, coeffs, eval_arrays,
                                 evaluate, index)
@@ -160,6 +160,7 @@ def circuit_arrays(cc: CompiledCircuit, plans, device) -> dict:
     p2_blocks = _p2_layout(cc, plans)
     if p2_blocks:
         arrs["p2P"] = _fused_plan(p2_blocks, plans).arrays(device)
+        arrs["p2C"] = p2_combine_plan(cc, device)
     return arrs
 
 
@@ -283,7 +284,8 @@ def prove(cc: CompiledCircuit, plans, values, ch: Challenges, arrs) -> Proof:
     vres, p1_stacked, liu_stacked = _prove_inits(cc, plans, values, ch, arrs)
     p1_res, liu_res = _prove_folds(cc, p1_stacked, liu_stacked)
     p2_stacked = _prove_p2_inits(cc, plans, values, ch, _claims(p1_res), arrs)
-    p2_out = _prove_p2(cc, ch, p2_stacked, tuple(values.shape[1:-1]))
+    p2_out = _prove_p2(ch, p2_stacked, tuple(values.shape[1:-1]),
+                       arrs.get("p2C"))
     return _assemble(cc, vres, p1_res, liu_res, p2_out, values.dim() - 2)
 
 
@@ -316,12 +318,14 @@ def _prove_folds(cc, p1_stacked, liu_stacked):
     return p1_res, liu_res
 
 
-def _prove_p2(cc, ch, p2_stacked, lead):
+def _prove_p2(ch, p2_stacked, lead, plan):
     """The phase-2 folds, one K1 launch per table size, and the combine
-    into per-layer messages and claims.  lead: the batch shape."""
-    _, p2_groups = _groups(cc)
-    p2_scan = _apply_grouped(p2_stacked, p2_groups, bounds=True)
-    return _prove_p2_combine(cc, ch, p2_scan, lead)
+    into per-layer messages and claims.  lead: the batch shape; plan: the
+    circuit's ``p2_combine_plan``."""
+    if not p2_stacked:
+        return {}
+    return _p2_combine(ch, [_fold_stacked(*job) for _, job in
+                            sorted(p2_stacked.items())], lead, plan)
 
 
 def _assemble(cc, vres, p1_res, liu_res, p2_out, n_lead) -> Proof:
@@ -368,7 +372,8 @@ def make_prover(cc: CompiledCircuit, plans, device=None, staged=True,
                                                    claims, arrs),
         dev, "prover p2 inits")
     p2 = graphs.Graphed(
-        lambda ch, p2_stacked, lead: _prove_p2(cc, ch, p2_stacked, lead),
+        lambda ch, p2_stacked, lead: _prove_p2(ch, p2_stacked, lead,
+                                               arrs.get("p2C")),
         dev, "prover p2 folds+combine")
     has_p2 = bool(_p2_layout(cc, plans))
 
@@ -397,18 +402,14 @@ def make_evaluator(cc: CompiledCircuit, device=None, graphed=True):
                           "evaluator", graphed)
 
 
-def _unstack(raw, groups, bounds=False):
+def _unstack(raw, groups):
     """raw: {bl: (polys (bl, 2, ..., K, 3), (vb, ab, mb) each (2, ..., K))}
     batched fold outputs; groups: {bl: [tag, ...]} table order.  Returns
-    {tag: result}."""
+    {tag: (polys, vb)}."""
     out = {}
-    for bl, (polys, (vb, ab, mb)) in sorted(raw.items()):
+    for bl, (polys, (vb, _ab, _mb)) in sorted(raw.items()):
         for kk, tag in enumerate(groups[bl]):
-            if bounds:
-                out[tag] = (polys[..., kk, :],
-                            (vb[..., kk], ab[..., kk], mb[..., kk]))
-            else:
-                out[tag] = (polys[..., kk, :], vb[..., kk])
+            out[tag] = (polys[..., kk, :], vb[..., kk])
     return out
 
 
@@ -429,11 +430,11 @@ def _fold_stacked(v, a, m, rs):
     return polys, tuple(b.reshape((2,) + lead + (k,)) for b in bound)
 
 
-def _apply_grouped(stacked, groups, bounds=False):
+def _apply_grouped(stacked, groups):
     """Fold every table size as its own K1 launch (K tables each, times the
     batch)."""
     raw = {bl: _fold_stacked(*job) for bl, job in sorted(stacked.items())}
-    return _unstack(raw, groups, bounds)
+    return _unstack(raw, groups)
 
 
 def _stack_jobs(jobs):
@@ -589,45 +590,140 @@ def _prove_p2_inits(cc, plans, values, ch, claims, arrs):
     return _stack_jobs(p2_jobs)
 
 
-def _prove_p2_combine(cc, ch, p2_res, lead):
-    """Per-layer phase-2 round messages + add_term chain + claims; every
-    per-layer scalar is (2, *lead) for a batch of shape `lead`."""
-    dev = ch.r_out.device
-    one = gf.ones((), dev)
-    zero = gf.zeros(lead, dev)
-    p2_out = {}
-    for i in range(cc.depth - 1, 0, -1):
+@dataclass
+class P2CombinePlan:
+    """The index tensors of the phase-2 combine (``_p2_combine``), made
+    once per circuit (``p2_combine_plan``).  The phase-2 tables are numbered
+    in fold order (table size, then ``_groups``' order); their round
+    polynomials lie term-major in one buffer, group by group, round j of
+    table k of a group of K at the group's base + j K + k.  The messages
+    lie on a grid of (layer, round) slots, ``rounds`` a layer.  Each plan
+    is a ``chains.segsum`` plan (idx, starts, ends)."""
+    layers: List[int]       # the layers with phase-2 messages, top down
+    mdb: List[int]          # their max_dad_bit_length
+    rounds: int             # the grid's rounds a layer: the largest mdb
+    first_add: Optional[int]  # the first round with a bound term, if any
+    polys: tuple    # slot (l, j): round j of the layer's tables of bl > j
+    add: tuple      # slot (l, j): the layer's tables of bl == j < mdb
+    rv: tuple       # slot (l, j): r_v[j] of the layer (j < mdb), from the
+                    # r_v's side by side
+    claims: tuple   # (i, li) in order: the table of (i, li), or none
+
+
+def _segsum_plan(segments, device):
+    """A chains.segsum plan (idx, starts, ends) of lists of terms."""
+    lens = np.array([len(s) for s in segments], dtype=np.int64)
+    ends = np.cumsum(lens)
+    idx = np.array([t for s in segments for t in s], dtype=np.int64)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (idx, ends - lens, ends))
+
+
+def p2_combine_plan(cc, device) -> Optional[P2CombinePlan]:
+    """The phase-2 combine's plan, None without phase-2 layers."""
+    _, p2_groups = _groups(cc)
+    layers = [i for i in range(cc.depth - 1, 0, -1)
+              if cc.layers[i].max_dad_bit_length >= 0]
+    if not layers:
+        return None
+    mdb = [cc.layers[i].max_dad_bit_length for i in layers]
+    rounds = max(mdb)
+    where = {}     # (i, li) -> (table number, first term, term step)
+    q = base = 0
+    for bl, tags in sorted(p2_groups.items()):
+        for k, tag in enumerate(tags):
+            where[tag] = (q + k, base + k, len(tags))
+        q += len(tags)
+        base += bl * len(tags)
+    polys, add, rv, claims = [], [], [], []
+    rv_off = 0
+    for i, m in zip(layers, mdb):
         L = cc.layers[i]
-        if L.max_dad_bit_length < 0:
-            continue
-        chl = ch.layers[i]
-        a_term = zero
-        out_polys = []
-        for j in range(L.max_dad_bit_length):
-            if j > 0:
-                a_term = gf.mul(a_term, gf.sub(one, chl.r_v[:, j - 1]))
-            pj = gf.zeros(lead + (3,), dev)
-            for li in range(i):
-                if L.dad_sizes[li] == 0:
-                    continue
-                bl_l = L.dad_bls[li]
-                polys_l, bounds_l = p2_res[(i, li)]
-                if j < bl_l:
-                    pj = gf.add(pj, polys_l[j])
-                elif j == bl_l:
-                    vb, ab, mb = bounds_l
-                    a_term = gf.add(a_term, gf.add(gf.mul(vb, mb), ab))
-            pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], -1))
-            out_polys.append(pj)
-        p2_polys = (torch.stack(out_polys) if out_polys
-                    else torch.zeros((0, 2) + lead + (3,), dtype=torch.int64,
-                                     device=dev))
-        cl = [p2_res[(i, li)][1][0] if L.dad_sizes[li] > 0 else zero
-              for li in range(i)]
-        claims_v = (torch.stack(cl) if cl
-                    else torch.zeros((0, 2) + lead, dtype=torch.int64,
-                                     device=dev))
-        p2_out[i] = (p2_polys, claims_v)
+        tabs = [(where[(i, li)], L.dad_bls[li]) for li in range(i)
+                if L.dad_sizes[li] > 0]
+        for j in range(rounds):
+            polys.append([t0 + j * step for (_, t0, step), bl in tabs
+                          if j < bl])
+            add.append([q for (q, _, _), bl in tabs if bl == j < m])
+            rv.append([rv_off + j] if j < m else [])
+        rv_off += m
+        claims += [[where[(i, li)][0]] if L.dad_sizes[li] > 0 else []
+                   for li in range(i)]
+    first_add = min((k % rounds for k, seg in enumerate(add) if seg),
+                    default=None)
+    return P2CombinePlan(
+        layers=layers, mdb=mdb, rounds=rounds, first_add=first_add,
+        **{k: _segsum_plan(v, device) for k, v in
+           (("polys", polys), ("add", add), ("rv", rv), ("claims", claims))})
+
+
+def _prove_p2_combine(cc, ch, p2_res, lead):
+    """Per-layer phase-2 round messages + add_term chain + claims from the
+    folds' results {(i, li): (polys (bl, 2, *lead, 3), (vb, ab, mb) each
+    (2, *lead))} (JAX ``_prove_p2_combine``'s form, which the sharded
+    prover hands in); every per-layer scalar is (2, *lead) for a batch of
+    shape `lead`.  Stacks the results as the folds give them and runs
+    ``_p2_combine``."""
+    plan = p2_combine_plan(cc, ch.r_out.device)
+    if plan is None:
+        return {}
+    _, p2_groups = _groups(cc)
+    groups = [(torch.stack([p2_res[t][0] for t in tags], dim=-2),
+               tuple(torch.stack([p2_res[t][1][k] for t in tags], dim=-1)
+                     for k in range(3)))
+              for _, tags in sorted(p2_groups.items())]
+    return _p2_combine(ch, groups, lead, plan)
+
+
+def _p2_combine(ch, groups, lead, plan):
+    """The phase-2 messages and claims of every layer at once: groups, one
+    per table size in fold order, of (polys (bl, 2, *lead, K, 3), (vb, ab,
+    mb) each (2, *lead, K)).  Per layer l and round j < mdb the message is
+    the sum of round j of its tables with bl > j, plus [0, -a_j, a_j] where
+    a_j = a_{j-1} (1 - r_v[j-1]) + the sum of vb mb + ab over its tables
+    with bl == j (a_{-1} = 0); claim li of layer i is the vb of table
+    (i, li), or 0.  Segment sums over the circuit's plan do the sums, the
+    recurrence runs over j for all layers together, and a circuit with no
+    bound term below its layers' mdb (a = 0) skips it."""
+    n_lead = len(lead)
+    n_layers, rounds = len(plan.layers), plan.rounds
+    # the round polynomials, term-major (T, *lead, 2, 3), read as
+    # (2, *lead, 3, T): free of copies for lead ()
+    terms = torch.cat([p.movedim(1, -2).movedim(n_lead + 1, 1)
+                       .reshape((-1,) + lead + (2, 3)) for p, _ in groups])
+    sums = chains.segsum(terms.permute(n_lead + 1, *range(1, n_lead + 1),
+                                       n_lead + 2, 0), plan.polys)
+    vb = torch.cat([b[0] for _, b in groups], dim=-1)       # (2, *lead, Q)
+    claims = chains.segsum(vb, plan.claims)
+    if plan.first_add is None:
+        msgs = sums
+    else:
+        dev = vb.device
+        e = gf.add(gf.mul(vb, torch.cat([b[2] for _, b in groups], dim=-1)),
+                   torch.cat([b[1] for _, b in groups], dim=-1))
+        e = chains.segsum(e, plan.add).reshape(
+            (2,) + lead + (n_layers, rounds))
+        rv = torch.cat([ch.layers[i].r_v[:, :m]
+                        for i, m in zip(plan.layers, plan.mdb)], dim=1)
+        c = gf.sub(gf.ones((1,), dev), chains.segsum(rv, plan.rv)).reshape(
+            (2,) + (1,) * n_lead + (n_layers, rounds))
+        first = plan.first_add
+        a = e[..., first]
+        cols = [torch.zeros_like(a)] * first + [a]
+        for j in range(first + 1, rounds):
+            a = gf.add(gf.mul(a, c[..., j - 1]), e[..., j])
+            cols.append(a)
+        a = torch.stack(cols, dim=-1).reshape(
+            (2,) + lead + (n_layers * rounds,))
+        msgs = gf.add(sums, torch.stack([torch.zeros_like(a), gf.neg(a), a],
+                                        dim=-2))
+    msgs = msgs.reshape((2,) + lead + (3, n_layers, rounds))
+    p2_out = {}
+    off = 0
+    for l, (i, m) in enumerate(zip(plan.layers, plan.mdb)):
+        p2_out[i] = (msgs[..., l, :m].movedim(-1, 0),
+                     claims[..., off:off + i].movedim(-1, 0))
+        off += i
     return p2_out
 
 

@@ -7,8 +7,9 @@ tensor it runs the plain PyTorch twin ``fold_plain``.  The two compute the
 same canonical field elements, so either is bit-identical to the JAX
 package's masked-scan, bit-reversed and Pallas folds.
 
-Gate scatters stay a sort permutation plus a field prefix sum: an integer
-``scatter_add`` or ``cumsum`` would leave int64 after a few terms.
+Gate scatters are a sort permutation plus one field segment sum
+(``chains.segsum``): an integer ``scatter_add`` or ``cumsum`` would leave
+int64 after a few terms.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..field import gf
+from ..field import chains, gf
 from .. import kernels
 
 
@@ -27,31 +28,17 @@ from .. import kernels
 # Field reductions
 # ---------------------------------------------------------------------------
 
-def tree_sum(x, add=None):
-    """Field sum along the last axis: (..., N) -> (...).  Exact log-tree;
-    an odd level is zero-padded.  `add` is gf.add unless given (the plain
-    twins pass gf.add_plain)."""
-    add = add or gf.add
-    if x.shape[-1] == 0:
-        return torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-    while x.shape[-1] > 1:
-        if x.shape[-1] % 2:
-            x = torch.cat([x, torch.zeros_like(x[..., :1])], dim=-1)
-        x = add(x[..., 0::2], x[..., 1::2])
-    return x[..., 0]
+def tree_sum(x):
+    """Field sum along the last axis: (..., N) -> (...), one
+    ``chains.segsum`` call (the twin's route: an exact log tree)."""
+    return chains.segsum(x)[..., 0]
 
 
 def prefix_sum(x):
     """Inclusive field prefix sum along the last axis (Hillis-Steele,
-    exact): x (2, ..., n), each row of the middle axes on its own."""
-    n = x.shape[-1]
-    d = 1
-    while d < n:
-        shifted = torch.cat([torch.zeros(x.shape[:-1] + (d,), dtype=x.dtype,
-                                         device=x.device), x[..., :n - d]], -1)
-        x = gf.add(x, shifted)
-        d *= 2
-    return x
+    exact): x (2, ..., n), each row of the middle axes on its own.  The
+    sharded provers' scatter; the others sum segments with ``segsum``."""
+    return chains.prefix_sum(x, gf.add)
 
 
 # ---------------------------------------------------------------------------
@@ -83,18 +70,13 @@ class ScatterPlan:
 def apply_scatter_arrays(values, arrs):
     """Segment-sum scatter from (perm, starts, ends) index tensors:
     values (2, ..., N) contributions -> (2, ..., out_size) exact field sums
-    along the last axis."""
-    perm, starts, ends = arrs
-    s = prefix_sum(values[..., perm])
-    s0 = torch.cat([torch.zeros(s.shape[:-1] + (1,), dtype=s.dtype,
-                                device=s.device), s], -1)
-    return gf.sub(s0[..., ends], s0[..., starts])
+    along the last axis, one ``chains.segsum`` call."""
+    return chains.segsum(values, arrs)
 
 
 def concat_scatter_plans(plans, in_sizes):
-    """Fuse many ScatterPlans into ONE (a single prefix-sum pass).  Segment
-    sums are start/end differences of the inclusive prefix, so prefix mass
-    crossing block boundaries cancels exactly."""
+    """Fuse many ScatterPlans into ONE (a single segment-sum pass): each
+    plan's permutation and term ranges shift past the earlier plans'."""
     perms, starts, ends = [], [], []
     in_off = 0
     perm_off = 0
@@ -158,8 +140,8 @@ def fold_plain(v, a, m, rs):
         pa = mul(dm, dv)
         pb = add(add(mul(dm, v0), mul(m0, dv)), da)
         pc = add(mul(m0, v0), a0)
-        polys.append(torch.stack([tree_sum(p, add) for p in (pa, pb, pc)],
-                                 dim=2))                        # (2, K, 3)
+        polys.append(torch.stack([chains.tree_sum_plain(p)
+                                  for p in (pa, pb, pc)], dim=2))  # (2, K, 3)
         r = rs[:, :, j:j + 1]
         cv = add(v0, mul(dv, r))
         ca = add(a0, mul(da, r))

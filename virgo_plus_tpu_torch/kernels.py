@@ -11,10 +11,10 @@ partial library.
 
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
-its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry and
-each field op: one, none for an empty output), and its plain PyTorch twin
-adds one to ``PLAIN_CALLS[entry]`` when it runs instead (CPU tensors
-only).  ``reset_counts`` zeroes both.
+its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry, each
+field op and each field chain: one, none for an empty output), and its
+plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
+(CPU tensors only).  ``reset_counts`` zeroes both.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ BUILD = ROOT.parent / "build" / "torch_kernels"
 # source (csrc/<source>.cu) -> {entry: (C symbol, argtypes)}; every C
 # entry returns its cudaError_t as int
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U = ctypes.c_ulonglong
 SOURCES = {
     "sumcheck_fold": {
         "sumcheck_fold": ("vpt_sumcheck_fold", [_P] * 8 + [_I, _I, _I, _P]),
@@ -52,6 +53,16 @@ SOURCES = {
         "gf_mul": ("vpt_gf_mul", [_P] * 3 + [_I] * 5 + [_L] * 10 + [_P]),
         "gf_lin": ("vpt_gf_lin", [_I] + [_P] * 3 + [_I] * 5 + [_L] * 10
                    + [_P]),
+    },
+    # gf_table: op, a, r, out, tables, index bits, entries, a's 2 and r's
+    # 3 strides, the by-value base, the stream; gf_segsum: x, idx, starts,
+    # ends, out, segments, the last axis' length, SEG_AXES row sizes and
+    # strides, the last axis' stride, the summer, the stream
+    "gf_chains": {
+        "gf_table": ("vpt_gf_table", [_I] + [_P] * 3 + [_I, _I] + [_L] * 6
+                     + [_U, _U, _P]),
+        "gf_segsum": ("vpt_gf_segsum", [_P] * 5 + [_I, _L] + [_I] * 4
+                      + [_L] * 5 + [_I, _P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}

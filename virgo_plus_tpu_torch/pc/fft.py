@@ -11,18 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from ..field import gf
+from ..field import chains, gf
 
 
 def powers(base_int, n: int, device):
-    """base: python-int pair -> (2, n) [1, base, base^2, ...] by doubling."""
-    out = gf.ones((1,), device)
-    cur = base_int
-    while out.shape[1] < n:
-        nxt = gf.mul(out, gf.full((1,), cur[0], cur[1], device))
-        out = torch.cat([out, nxt], dim=1)
-        cur = gf._py_mul(cur, cur)
-    return out[:, :n]
+    """base: python-int pair -> (2, n) [1, base, base^2, ...], one
+    ``chains.table`` call (the base goes by value)."""
+    return chains.table(chains.POWER, base_int, None, n, device)
 
 
 def fft(coeffs, log_order: int, rou_int):

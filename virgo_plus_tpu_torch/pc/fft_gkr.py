@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..field import gf
+from ..field import chains, gf
 from ..field import np_ops as fnp
 from ..field.ref import Fq2
 from ..gkr.beta import beta_table
@@ -99,13 +99,8 @@ class _Tape:
 
 
 def powers_el(base, n: int):
-    """(2, K) elements -> (2, K, n) powers by doubling."""
-    out = gf.ones(tuple(base.shape[1:]) + (1,), base.device)
-    cur = base
-    while out.shape[-1] < n:
-        out = torch.cat([out, gf.mul(out, cur[..., None])], dim=-1)
-        cur = gf.mul(cur, cur)
-    return out[..., :n]
+    """(2, K) elements -> (2, K, n) powers, one ``chains.table`` call."""
+    return chains.table(chains.POWER, base, None, n, base.device)
 
 
 def _rot_mul(lg: int):
