@@ -29,7 +29,15 @@ package.  Phases, one line each, any failure exits non-zero:
    2^20 - 3, not a power of two) and of tensor bases, tree sums of 0 to
    2^18 terms (rank 2 and 3, transposed), scatter plans with empty
    segments, one segment of 2^18 terms, a skewed plan and mean segment
-   lengths on either side of the summers' thresholds;
+   lengths on either side of the summers' thresholds; then the transforms
+   (X1: ``gf_fft``, ``gf_fri_fold``) against their plain twins: 128
+   coefficients onto 2^12 points at 64 rows and at leads (16, 64) and
+   (64, 64), onto 2^16 and 2^19, IFFTs at 2^7, 2^8 and 2^11 (one launch)
+   and at 2^12 and 2^16 (two launches), 2^19 coefficients onto 2^19
+   points (two launches), strided and transposed rows, one coefficient,
+   one point, an empty lead; folds of 65 slices at N = 2, 64 and 4096, a
+   B = 64 batch, strided, empty; launches as ``fft.launches(lg_coef)``,
+   one a fold; the largest shapes timed against their bounds;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -136,10 +144,11 @@ prove's graphs, one batched replay at B = 16 and one ``driver.prove`` and
 one ``driver.prove_fs`` through their graphs, each failing unless the
 profiler's kernels of every port entry equal the counted launches): a
 large trace makes every later short profile miss launches.  The X1
-calls (field ops and chains) are grouped by their output's words (a
-segment sum's by the words it reads), rounded up to a power of two, in
-the listings; a bucket is profiled on the first call recorded in it (its
-strides kept), and X1's device time on a path is the whole profile's.
+calls (field ops, chains and transforms) are grouped by their output's
+words (a segment sum's by the words it reads), rounded up to a power of
+two, in the listings; a bucket is profiled on the first call recorded in
+it (its strides kept), and X1's device time on a path is the whole
+profile's.
 Each path's bound sums every recorded call's.  A line
 lists every entry's launches on every path.  The last lines are the card
 line, one JSON object
@@ -186,14 +195,20 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "gf_mul": ("gf_mul",),
                 "gf_lin": ("gf_lin",),
                 "gf_table": ("gf_table",),
-                "gf_segsum": ("gf_segsum",)}
-# X1: the elementwise field ops and the field chains, called thousands of
-# times a prove: each call's twin runs as it returns (Recorder), and its
-# calls are grouped in size buckets
+                "gf_segsum": ("gf_segsum",),
+                # (every kernel of csrc/gf_fft.cu carries "gf_fft" in its
+                # mangled name: nvcc names the file's anonymous namespace)
+                "gf_fft": ("gf_fft_tile",),
+                "gf_fri_fold": ("gf_fri_fold",)}
+# X1: the elementwise field ops, the field chains and the transforms,
+# called thousands of times a prove (a batched transform reads up to 2^25
+# words): each call's twin runs as it returns (Recorder), and its calls
+# are grouped in size buckets
 ELEMENTWISE = ("gf_mul", "gf_lin")
-GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum")
+GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum", "gf_fft",
+                            "gf_fri_fold")
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches all eight)
+# sponge's: every FS prove launches all ten)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
                 *GF_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
@@ -205,17 +220,22 @@ _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
 # the jits
 _X1 = "virgo_plus_tpu_torch/csrc/gf_ops.cu"
 _X1C = "virgo_plus_tpu_torch/csrc/gf_chains.cu"
+_X1F = "virgo_plus_tpu_torch/csrc/gf_fft.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
                        "gf_lin": (_X1, "virgo_plus_tpu/field/gf.py:131"),
                        "gf_table": (_X1C, "virgo_plus_tpu/gkr/beta.py:30"),
                        "gf_segsum": (_X1C,
-                                     "virgo_plus_tpu/gkr/sumcheck.py:96")}
+                                     "virgo_plus_tpu/gkr/sumcheck.py:96"),
+                       "gf_fft": (_X1F, "virgo_plus_tpu/pc/fft.py:38"),
+                       "gf_fri_fold": (_X1F,
+                                       "virgo_plus_tpu/pc/virgo_pc.py:197")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
-                "gf_lin": 20, "gf_table": 20, "gf_segsum": 20}
+                "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
+                "gf_fri_fold": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -223,6 +243,10 @@ GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
                              # row)
 GF_TABLE_INT32_OPS = 6       # an output word of a table: one product an
                              # entry, as gf_mul
+GF_FFT_INT32_OPS = 36        # a butterfly: a product (2 words) and a sum
+                             # and a difference (4 words)
+GF_FOLD_INT32_OPS = 72       # an output element of a fold: two products,
+                             # three sums and the halving (a product)
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
@@ -478,7 +502,9 @@ def _seg_terms(ins):
 def gf_words(entry, ins):
     """The output's words (int64) of an X1 call: gf_mul (x, y), gf_lin (op,
     x, y), gf_table (op, a, r, n, device), gf_segsum (x, idx, starts,
-    ends), the elementwise ops' from torch's own broadcast rule."""
+    ends), gf_fft (coefficients, log2 of the order, root[, scale]),
+    gf_fri_fold (codeword, w, r), the elementwise ops' from torch's own
+    broadcast rule."""
     import torch
     if entry == "gf_mul":
         return 2 * math.prod(torch.broadcast_shapes(ins[0].shape[1:],
@@ -490,9 +516,25 @@ def gf_words(entry, ins):
     if entry == "gf_segsum":
         rows, _, segments = _seg_terms(ins)
         return rows * segments
+    if entry == "gf_fft":
+        return ins[0].numel() // ins[0].shape[-1] << ins[1]
+    if entry == "gf_fri_fold":
+        return ins[0].numel() // 2
     x, y = ins[1], (ins[2] if len(ins) > 2 else None)   # (op, x) if unary
     return math.prod(x.shape if y is None
                      else torch.broadcast_shapes(x.shape, y.shape))
+
+
+def gf_launches(entry, ins):
+    """The launches the rule gives an X1 call: gf_fft's
+    ``fft.launches(lg_coef)``, one for the others; none for an empty
+    output."""
+    if not gf_words(entry, ins):
+        return 0
+    if entry == "gf_fft":
+        from virgo_plus_tpu_torch.pc import fft
+        return fft.launches(ins[0].shape[-1].bit_length() - 1)
+    return 1
 
 
 def gf_size(entry, ins):
@@ -525,6 +567,17 @@ def gf_cost(entry, ins):
         read = sum(t.numel() for t in (ins[1], ins[2])
                    if hasattr(t, "numel"))
         return 8 * (read + words), GF_TABLE_INT32_OPS * words
+    if entry == "gf_fft":
+        # the coefficients read, the evaluations written (the twiddles are
+        # gf_table's); words / 4 butterflies a stage, and the 1/n product
+        lg_coef = ins[0].shape[-1].bit_length() - 1
+        scaled = len(ins) > 3 and ins[3] is not None
+        return 8 * (ins[0].numel() + words), (
+            GF_FFT_INT32_OPS * words // 4 * lg_coef
+            + (GF_MUL_INT32_OPS * words if scaled else 0))
+    if entry == "gf_fri_fold":
+        return (8 * (ins[0].numel() + ins[1].numel() + 2 + words),
+                GF_FOLD_INT32_OPS * words // 2)
     read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
     ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
     return 8 * (sum(t.numel() for t in read) + words), ops * words
@@ -607,14 +660,14 @@ class Recorder:
     """While active, every call of the kernel wrappers is recorded, to be
     held against its plain twin by compare_calls.  A K1 or K2 call keeps a
     copy of its inputs and outputs and the device launches it made.  An X1
-    call (a field op or chain: thousands a prove, up to 2^26 words each in
-    a batched call at B = 64) runs its twin at once on the same inputs and
-    keeps a device-side count of the words that differ, its launches, its
-    size (gf_size) and output words, its cost and, for the first call of
-    its size bucket, a copy of its inputs.  The wrappers' launch and
-    plain-call counts are left as the wrappers made them.  Calls made
-    while a graph is captured are not recorded (they run nothing); a
-    replay calls no wrapper."""
+    call (a field op, chain or transform: thousands a prove, up to 2^26
+    words each in a batched call at B = 64) runs its twin at once on the
+    same inputs and keeps a device-side count of the words that differ, its
+    launches and the rule's (gf_launches), its size (gf_size), its cost
+    and, for the first call of its size bucket, a copy of its inputs.  The
+    wrappers' launch and plain-call counts are left as the wrappers made
+    them.  Calls made while a graph is captured are not recorded (they run
+    nothing); a replay calls no wrapper."""
 
     def __init__(self, kernels, wrappers, twin):
         self.kernels = kernels
@@ -654,7 +707,7 @@ class Recorder:
             if gf_bucket(size) not in buckets:
                 buckets.add(gf_bucket(size))
                 ins = tuple(kept(a) for a in args)
-            self.calls.append((entry, ins, (size, out.numel(),
+            self.calls.append((entry, ins, (size, gf_launches(entry, args),
                                             gf_cost(entry, args)), launched))
             return out
         return rec
@@ -676,7 +729,7 @@ def kernel_tables():
     from virgo_plus_tpu_torch import kernels
     from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import sumcheck
-    from virgo_plus_tpu_torch.pc import keccak, merkle
+    from virgo_plus_tpu_torch.pc import fft, keccak, merkle, virgo_pc
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
                 "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
@@ -685,7 +738,9 @@ def kernel_tables():
                 "gf_mul": (gf, "mul_cuda"),
                 "gf_lin": (gf, "lin_cuda"),
                 "gf_table": (chains, "table_cuda"),
-                "gf_segsum": (chains, "segsum_cuda")}
+                "gf_segsum": (chains, "segsum_cuda"),
+                "gf_fft": (fft, "fft_cuda"),
+                "gf_fri_fold": (virgo_pc, "fold_step_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -693,13 +748,15 @@ def kernel_tables():
             "gf_mul": gf.mul_plain,
             "gf_lin": gf.lin_plain,
             "gf_table": chains.table_plain,
-            "gf_segsum": chains.segsum_plain}
+            "gf_segsum": chains.segsum_plain,
+            "gf_fft": fft.fft_plain,
+            "gf_fri_fold": virgo_pc.fold_step_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
             return sumcheck.fold_launches(ins[3].shape[2])
         if entry in GF_ENTRIES:
-            return 1 if gf_words(entry, ins) else 0
+            return gf_launches(entry, ins)
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -722,8 +779,8 @@ def compare_calls(torch, rec, twin, expected_launches, what):
     example, sponge = {}, []
     for entry, ins, outs, launched in rec.calls:
         if entry in GF_ENTRIES:
-            size, words, cst = outs
-            shp, want = gf_bucket(size), 1 if words else 0
+            size, want, cst = outs
+            shp = gf_bucket(size)
         else:
             shp = shape_of(entry, ins)
             want, cst = expected_launches(entry, ins), cost(entry, shp, ins)
@@ -781,6 +838,21 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
                          0, M, size=(2, k, bl), dtype=np.uint64), dev),)
     words = lambda *s: gf.tensor(rng.integers(0, 2 ** 64, size=s,
                                               dtype=np.uint64), dev)
+    if entry == "gf_fft":          # 128 coefficients onto n / 2 points
+        order = max(shp[0] // 2, 1)
+        rows = 64 if order >= 64 * 128 else 1
+        lg = (order // rows).bit_length() - 1
+        x = gf.tensor(rng.integers(0, M, size=(2, rows, min(order // rows,
+                                                            128)),
+                                   dtype=np.uint64), dev)
+        return (x, lg, gf.root_of_unity_int(lg))
+    if entry == "gf_fri_fold":     # a fold onto n / 2 points
+        half = max(shp[0] // 2, 1)
+        rows = 65 if half >= 65 * 64 else 1
+        n = 2 << max((half // rows).bit_length() - 1, 0)
+        return tuple(gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
+                               dev) for s in ((2, rows, n), (2, n // 2),
+                                              (2,)))
     if entry in GF_ENTRIES:        # (2, n / 2) words: a product, a sum, a
         # beta table, one segment
         x, y = (gf.tensor(rng.integers(0, M, size=(2, max(shp[0] // 2, 1)),
@@ -873,7 +945,7 @@ def main():
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.parallel import mesh as pmesh
     from virgo_plus_tpu_torch.parallel.sharded import make_batched_full_prover
-    from virgo_plus_tpu_torch.pc import fft_gkr, virgo_pc
+    from virgo_plus_tpu_torch.pc import fft, fft_gkr, virgo_pc
     from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
     kernels, wrappers, twin, expected_launches = kernel_tables()
@@ -1107,20 +1179,89 @@ def main():
         f"tensor bases; tree sums of lengths {tree_n}, rank 2 and 3, "
         f"transposed; plans: {list(plans)}; one launch a call, none for an "
         f"empty output")
-    # these calls take longer on the card than their host issue, so CUDA
-    # events around back-to-back calls time the device (and keep the
-    # profiler for the per-shape rows at the end)
-    timed = []
-    for what, (entry, ins) in largest.items():
-        ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
-                      PROFILE_REPS[entry])
-        nbytes, ops = gf_cost(entry, ins)
-        bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
-        timed.append(f"{what}: {ms * 1e3:.3f} us (bound {bound * 1e3:.3f} "
-                     f"us)")
+    def time_largest(largest):
+        """Each shape's time beside its bound.  These calls take longer on
+        the card than their host issue, so CUDA events around back-to-back
+        calls time the device (and keep the profiler for the per-shape
+        rows at the end)."""
+        timed = []
+        for what, (entry, ins) in largest.items():
+            ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
+                          PROFILE_REPS[entry])
+            nbytes, ops = gf_cost(entry, ins)
+            bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
+            timed.append(f"{what}: {ms * 1e3:.3f} us (bound "
+                         f"{bound * 1e3:.3f} us)")
+        return "; ".join(timed)
+
     say(f"phase 3 X1 chains, time of the largest shapes ({card}; CUDA "
         f"events over {PROFILE_REPS['gf_table']} calls each): "
-        + "; ".join(timed))
+        + time_largest(largest))
+
+    # ---- phase 3, X1 transforms: gf_fft and gf_fri_fold against twins ----
+    largest, n_tr = {}, 0
+
+    def transform(entry, ins, what, timed=False):
+        nonlocal n_tr
+        held(entry, ins, what)
+        n_tr += 1
+        if timed:
+            largest[what] = (entry, ins)
+
+    rou = gf.root_of_unity_int
+    # (what, coefficients' shape, log2 of the order, inverse, timed): the
+    # paths' shapes, orders past one block's tile, two-launch transforms
+    fft_shapes = [
+        ("128 coefficients onto 2^12 points, 64 rows", (2, 64, 128), 12,
+         False, False),
+        ("an IFFT at 2^7, 64 rows", (2, 64, 128), 7, True, False),
+        ("an IFFT at 2^8, 64 rows", (2, 64, 256), 8, True, False),
+        ("128 onto 2^12, lead (16, 64)", (2, 16, 64, 128), 12, False,
+         False),
+        ("an IFFT at 2^7, lead (16, 64)", (2, 16, 64, 128), 7, True, False),
+        ("128 onto 2^12, lead (64, 64)", (2, 64, 64, 128), 12, False, True),
+        ("128 onto 2^16, 64 rows", (2, 64, 128), 16, False, False),
+        ("128 onto 2^19, 64 rows", (2, 64, 128), 19, False, True),
+        ("an IFFT at 2^11, 64 rows", (2, 64, 2048), 11, True, False),
+        ("an IFFT at 2^12, 16 rows (2 launches)", (2, 16, 4096), 12, True,
+         False),
+        ("an IFFT at 2^16, 4 rows (2 launches)", (2, 4, 1 << 16), 16, True,
+         True),
+        ("2^19 onto 2^19, 2 rows (2 launches)", (2, 2, 1 << 19), 19, False,
+         True),
+        ("one coefficient onto 2^5 points, 3 rows", (2, 3, 1), 5, False,
+         False),
+        ("one point", (2, 1), 0, False, False),
+        ("an empty lead", (2, 0, 128), 12, False, False)]
+    for what, shape, lg, inverse, timed in fft_shapes:
+        x = canon(*shape)
+        transform("gf_fft", (x,) + fft._inverse(shape[-1], rou(lg))
+                  if inverse else (x, lg, rou(lg)), what, timed)
+    transform("gf_fft", (canon(2, 64, 256)[..., 128:], 12, rou(12)),
+              "strided rows x[..., 128:] onto 2^12")
+    transform("gf_fft", (canon(2, 64, 16, 128).transpose(1, 2), 12, rou(12)),
+              "a transposed lead (16, 64) onto 2^12")
+    # (what, codeword shape, timed: a call the card takes longer over
+    # than its host issue); w and r random, canonical
+    fold_shapes = [("a fold of (2, 65, 4096)", (2, 65, 4096), False),
+                   ("a fold of (2, 65, 64)", (2, 65, 64), False),
+                   ("a fold of (2, 65, 2)", (2, 65, 2), False),
+                   ("a fold of (2, 64, 65, 4096)", (2, 64, 65, 4096), True),
+                   ("an empty batch", (2, 0, 65, 8), False)]
+    for what, shape, timed in fold_shapes:
+        transform("gf_fri_fold", (canon(*shape), canon(2, shape[-1] // 2),
+                                  canon(2)), what, timed)
+    transform("gf_fri_fold", (canon(2, 65, 4096)[..., ::2],
+                              canon(2, 2048)[:, ::2], canon(4)[::2]),
+              "a codeword, w and r read at stride 2")
+    say(f"phase 3 X1 transforms ok: gf_fft and gf_fri_fold == their plain "
+        f"twins bit for bit in {n_tr} calls on canonical inputs: "
+        f"{[f[0] for f in fft_shapes]}, strided and transposed rows; folds "
+        f"{[f[0] for f in fold_shapes]}, strided; launches as "
+        f"fft.launches(lg_coef), one a fold, none for an empty output")
+    say(f"phase 3 X1 transforms, time of the largest shapes ({card}; CUDA "
+        f"events over {PROFILE_REPS['gf_fft']} calls each; gf_fft with its "
+        f"twiddle table): " + time_largest(largest))
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on

@@ -11,8 +11,9 @@ partial library.
 
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
-its C entry makes (K1: ``sumcheck.fold_launches(bl)``, each K2 entry, each
-field op and each field chain: one, none for an empty output), and its
+its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
+``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain
+and each fold: one, none for an empty output), and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -63,6 +64,17 @@ SOURCES = {
                      + [_U, _U, _P]),
         "gf_segsum": ("vpt_gf_segsum", [_P] * 5 + [_I, _L] + [_I] * 4
                       + [_L] * 5 + [_I, _P]),
+    },
+    # the input rows (pointer, FFT_AXES lead sizes and strides, plane and
+    # last-axis strides), then gf_fft: the twiddles, out, scratch, log2 of
+    # the coefficients and of the order, the scale flag and its by-value
+    # element, the stream; gf_fri_fold: w and its 2 strides, r and its
+    # plane stride, out, log2 of the output row, the stream
+    "gf_fft": {
+        "gf_fft": ("vpt_gf_fft", [_P] + [_I] * 3 + [_L] * 5 + [_P] * 3
+                   + [_I] * 3 + [_U, _U, _P]),
+        "gf_fri_fold": ("vpt_gf_fri_fold", [_P] + [_I] * 3 + [_L] * 5
+                        + [_P, _L, _L, _P, _L, _P, _I, _P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
@@ -213,6 +225,28 @@ def gf_layout(shape, x, y, mul: bool):
         return (st[0],) + (0,) * (GF_AXES + 1 - len(st)) + tuple(st[1:])
 
     return sizes, strides(x), strides(y)
+
+
+def row_layout(name: str, x, axes: int):
+    """The rows of x (planes, *lead, n) as `axes` lead sizes and element
+    strides: axes that are one strided axis merged, size-1 axes dropped,
+    padded at the front with size 1 and stride 0; raises past `axes`."""
+    sizes, strides = [], []
+    for n, s in zip(x.shape[1:-1], x.stride()[1:-1]):
+        if n == 1:
+            continue
+        if sizes and strides[-1] == s * n:
+            sizes[-1] *= n
+            strides[-1] = s
+        else:
+            sizes.append(n)
+            strides.append(s)
+    if len(sizes) > axes:
+        raise ValueError(f"{name}: lead axes {tuple(x.shape[1:-1])} with "
+                         f"strides {tuple(x.stride()[1:-1])} are more than "
+                         f"{axes} strided axes")
+    pad = axes - len(sizes)
+    return [1] * pad + sizes, [0] * pad + strides
 
 
 def check_int(name: str, **counts):

@@ -170,16 +170,9 @@ def sharded_fold_step(cw_local, r, lg_n: int, mesh: Mesh):
     codeword, no communication: global pair (t·S + q, t·S + q + N/2) is
     the local pair (t, t + L/2), and the output's local position t is
     global position t·S + q of the halved codeword."""
-    dev = cw_local.device
-    half = cw_local.shape[-1] // 2
-    inv_mu = _local_powers(gf.inv_int(gf.root_of_unity_int(lg_n)), half,
-                           mesh, dev)
-    a = cw_local[..., :half]
-    b = cw_local[..., half:]
-    s = gf.add(a, b)
-    d = gf.mul(gf.mul(gf.sub(a, b), inv_mu[:, None, :]), r[:, None, None])
-    inv2 = gf.inv_int((2, 0))
-    return gf.mul(gf.add(s, d), gf.full((1, 1), inv2[0], inv2[1], dev))
+    inv_mu = _local_powers(gf.inv_int(gf.root_of_unity_int(lg_n)),
+                           cw_local.shape[-1] // 2, mesh, cw_local.device)
+    return virgo_pc.fold_pairs(cw_local, inv_mu, r)
 
 
 def gather_strided(cw_local, mesh: Mesh):

@@ -19,9 +19,10 @@ from typing import List
 
 import torch
 
+from .. import kernels
 from ..field import gf
 from ..gkr.beta import beta_table
-from .fft import fft, ifft, powers
+from .fft import FFT_AXES, fft, ifft, powers
 from . import merkle
 from .keccak import sha3_chain_x64
 
@@ -184,16 +185,62 @@ def commit_public(l_eval, q_values, bl: int):
 def fold_step(codeword, r, lg_n: int):
     """One FRI fold (fri.cpp:315-334): codeword (2, ..., 65, N) -> (2, ...,
     65, N/2).  r: (2,) challenge, shared by a batch; rou of order N fixed
-    by lg_n."""
-    dev = codeword.device
-    half = (1 << lg_n) // 2
-    inv_mu = powers(gf.inv_int(gf.root_of_unity_int(lg_n)), half, dev)
+    by lg_n.  Two launches on the card: the twiddles' table and gf_fri_fold."""
+    inv_mu = powers(gf.inv_int(gf.root_of_unity_int(lg_n)), (1 << lg_n) // 2,
+                    codeword.device)
+    return fold_pairs(codeword, inv_mu, r)
+
+
+def fold_pairs(codeword, w, r):
+    """out[..., i] = ((a + b) + (a - b)·w[i]·r) / 2 with a = codeword[...,
+    i], b = codeword[..., i + N/2]: w (2, N/2), r (2,).  A CUDA tensor goes
+    to gf_fri_fold (``csrc/gf_fft.cu``), a CPU tensor to fold_step_plain."""
+    fn = fold_step_cuda if gf._on_cuda(codeword) else fold_step_plain
+    return fn(codeword, w, r)
+
+
+def fold_step_plain(codeword, w, r):
+    """Plain twin of gf_fri_fold, on gf's plain ops."""
+    kernels.PLAIN_CALLS["gf_fri_fold"] += 1
+    half = codeword.shape[-1] // 2
     a = codeword[..., :half]
     b = codeword[..., half:]
-    s = gf.add(a, b)
-    d = gf.mul(gf.mul(gf.sub(a, b), inv_mu[:, None, :]), r[:, None, None])
+    s = gf.add_plain(a, b)
+    d = gf.mul_plain(gf.mul_plain(gf.sub_plain(a, b), w[:, None, :]),
+                     r[:, None, None])
     inv2 = gf.inv_int((2, 0))
-    return gf.mul(gf.add(s, d), gf.full((1, 1), inv2[0], inv2[1], dev))
+    return gf.mul_plain(gf.add_plain(s, d),
+                        gf.full((1, 1), inv2[0], inv2[1], codeword.device))
+
+
+def fold_step_cuda(codeword, w, r):
+    """gf_fri_fold on the card, one launch: same signature and bits as
+    fold_step_plain on canonical inputs."""
+    if codeword.device.type != "cuda" or w.device != codeword.device or \
+            r.device != codeword.device:
+        raise ValueError("gf_fri_fold: codeword, w and r must be on one CUDA "
+                         "device")
+    if any(t.dtype != torch.int64 for t in (codeword, w, r)):
+        raise TypeError("gf_fri_fold: expected int64 tensors")
+    n = codeword.shape[-1] if codeword.dim() >= 2 else 0
+    half_log = max(n // 2, 1).bit_length() - 1
+    if codeword.shape[0] != 2 or n < 2 or n != 2 << half_log:
+        raise ValueError(f"gf_fri_fold: codeword {tuple(codeword.shape)}, "
+                         f"(2, ..., N) with N a power of two >= 2 taken")
+    if tuple(w.shape) != (2, n // 2) or tuple(r.shape) != (2,):
+        raise ValueError(f"gf_fri_fold: w {tuple(w.shape)}, r "
+                         f"{tuple(r.shape)} against N = {n}")
+    sizes, strides = kernels.row_layout("gf_fri_fold", codeword, FFT_AXES)
+    out = torch.empty(tuple(codeword.shape[:-1]) + (n // 2,),
+                      dtype=torch.int64, device=codeword.device)
+    if out.numel():
+        kernels.check_int("gf_fri_fold", rows=out.numel() // n)
+        kernels.launch("gf_fri_fold", 1, codeword.data_ptr(), *sizes,
+                       *strides, codeword.stride(0), codeword.stride(-1),
+                       w.data_ptr(), w.stride(0), w.stride(1), r.data_ptr(),
+                       r.stride(0), out.data_ptr(), half_log,
+                       kernels.stream_ptr())
+    return out
 
 
 @dataclass
