@@ -37,7 +37,12 @@ package.  Phases, one line each, any failure exits non-zero:
    points (two launches), strided and transposed rows, one coefficient,
    one point, an empty lead; folds of 65 slices at N = 2, 64 and 4096, a
    B = 64 batch, strided, empty; launches as ``fft.launches(lg_coef)``,
-   one a fold; the largest shapes timed against their bounds;
+   one a fold; the largest shapes timed against their bounds; then the
+   GKR init stages (X1: ``gkr_p1_inits``, ``gkr_p2_inits``) against their
+   plain twins, one launch a stage, in the proves of three fixed
+   circuits: randomize(4, 3), and randomize circuits with assert gates
+   and segments long enough for a warp (lead (3,)) and for a block (lead
+   (2, 2)), every summer class taken;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -64,7 +69,8 @@ package.  Phases, one line each, any failure exits non-zero:
    call recorded and held against its plain twin, then the main path, one
    more ``prove_fs`` (equal to the first) and its ``verify_fs``, with the
    counts reset just before and read just after; the FS prove must launch
-   every entry (the sponge's SHA3 at N = 1) with no plain twin call;
+   every entry but the GKR init stages (its walk keeps per-layer inits;
+   the sponge's SHA3 at N = 1) with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
    rejected; eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
    their spans, and (at the end) a profile of one eager ``prove_fs``;
@@ -89,7 +95,8 @@ package.  Phases, one line each, any failure exits non-zero:
    just before and read just after, rank 0 recording every kernel call and
    holding it against its plain twin; every rank makes the same K1 and K2
    launches (the field ops' follow each rank's share), launches every
-   entry, and makes no plain twin call; launches per rank per entry, the
+   entry but the GKR init stages, and makes no plain twin call; launches
+   per rank per entry, the
    backend, the
    walls of every rank and each rank's peak device memory are printed;
 10. the compiled programs as CUDA graphs (``graphs.py``): the replays of
@@ -97,7 +104,9 @@ package.  Phases, one line each, any failure exits non-zero:
    ``make_evaluator`` and (unstaged) ``make_prover``, a staged
    ``make_prover``, the driver's four ``VirgoPC.compile`` programs and
    ``make_batched_full_prover`` at every B each equal the eager call
-   (``graphed=False`` makers) in every array, with launches per replay
+   (``graphed=False`` makers) in every array (every kernel call of the
+   provers' eager calls and of the staged prover's warm-up held against
+   its twin), with launches per replay
    equal to the eager call's, no plain twin call, and each graph's kernel
    nodes (read from the cudaGraph_t through the driver API) equal to the
    launches its capture counted; the e2e + tape graphs and the batched
@@ -136,7 +145,9 @@ Phase 4 starts by building the native C++ frontend into ``build/native/``
 and holding its small1200 circuit against the Python frontend's, field by
 field; from there on ``driver.load_circuit`` uses it.  Then each kernel
 entry's device time per call at every shape the glibc, FS, batched and
-sharded paths gave it, from the profiler, beside its bound and its plain
+sharded paths gave it, from the profiler (a profile that drops launches
+is repeated, up to 10 times, and the run fails if none holds every
+launch), beside its bound and its plain
 twin (a sharded shape on random inputs of that shape: rank 0's calls are
 held in its own process), and last
 the whole-call profiles (three eager calls, then one replay of the timed
@@ -199,7 +210,11 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 # (every kernel of csrc/gf_fft.cu carries "gf_fft" in its
                 # mangled name: nvcc names the file's anonymous namespace)
                 "gf_fft": ("gf_fft_tile",),
-                "gf_fri_fold": ("gf_fri_fold",)}
+                "gf_fri_fold": ("gf_fri_fold",),
+                # (csrc/gkr_inits.cu's namespace carries "gkr_inits", which
+                # neither name matches)
+                "gkr_p1_inits": ("gkr_p1_inits",),
+                "gkr_p2_inits": ("gkr_p2_inits",)}
 # X1: the elementwise field ops, the field chains and the transforms,
 # called thousands of times a prove (a batched transform reads up to 2^25
 # words): each call's twin runs as it returns (Recorder), and its calls
@@ -207,10 +222,14 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
 ELEMENTWISE = ("gf_mul", "gf_lin")
 GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum", "gf_fft",
                             "gf_fri_fold")
+# X1: the GKR init stages, one launch a stage on the glibc paths (the FS
+# and sharded provers keep their own per-layer inits)
+INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches all ten)
+# sponge's: every FS prove launches all ten others)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
-                *GF_ENTRIES)
+                *GF_ENTRIES, *INIT_ENTRIES)
+FS_ENTRIES = tuple(e for e in KERNEL_NAMES if e not in INIT_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
 _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
@@ -221,6 +240,7 @@ _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
 _X1 = "virgo_plus_tpu_torch/csrc/gf_ops.cu"
 _X1C = "virgo_plus_tpu_torch/csrc/gf_chains.cu"
 _X1F = "virgo_plus_tpu_torch/csrc/gf_fft.cu"
+_X1I = "virgo_plus_tpu_torch/csrc/gkr_inits.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
@@ -230,12 +250,16 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                                      "virgo_plus_tpu/gkr/sumcheck.py:96"),
                        "gf_fft": (_X1F, "virgo_plus_tpu/pc/fft.py:38"),
                        "gf_fri_fold": (_X1F,
-                                       "virgo_plus_tpu/pc/virgo_pc.py:197")}
+                                       "virgo_plus_tpu/pc/virgo_pc.py:197"),
+                       "gkr_p1_inits": (_X1I,
+                                        "virgo_plus_tpu/gkr/protocol.py:698"),
+                       "gkr_p2_inits": (_X1I,
+                                        "virgo_plus_tpu/gkr/protocol.py:784")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
                 "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
-                "gf_fri_fold": 20}
+                "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -247,6 +271,12 @@ GF_FFT_INT32_OPS = 36        # a butterfly: a product (2 words) and a sum
                              # and a difference (4 words)
 GF_FOLD_INT32_OPS = 72       # an output element of a fold: two products,
                              # three sums and the halving (a product)
+GF_PRODUCT_INT32_OPS = 12    # a GF(p^2) product (two words, as gf_mul)
+GF_SUM_INT32_OPS = 12        # a GF(p^2) sum (two words, as gf_lin)
+# a GKR init term's products and sums a row: phase 1 four products, two
+# inner sums and two accumulations; phase 2 five and four (an assert gate
+# one product more); a Liu term one accumulation
+INIT_TERM_OPS = {"gkr_p1_inits": (4, 4), "gkr_p2_inits": (5, 4)}
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
@@ -389,18 +419,18 @@ def is_device_row(e):
     return "CUDA" in str(getattr(e, "device_type", "")) and device_us(e) > 0
 
 
-def profiled_ms(torch, fn, reps, names, launches, tries=5):
+def profiled_ms(torch, fn, reps, names, launches, tries=10):
     """Device time (ms) per call of the kernels whose names contain one of
-    `names`, from torch.profiler over `reps` calls of fn after one warm-up
-    call, each making `launches` device launches.  A profile that missed
-    any of those launches (the profiler drops one now and then) is
-    repeated; None after `tries` of them, and the caller fails."""
+    `names`, from torch.profiler (device activity only) over `reps` calls
+    of fn after one warm-up call, each making `launches` device launches.
+    A profile that missed any of those launches (the profiler drops one now
+    and then, most often on a loaded host) is repeated; None after `tries`
+    of them, and the caller fails."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -583,10 +613,69 @@ def gf_cost(entry, ins):
     return 8 * (sum(t.numel() for t in read) + words), ops * words
 
 
+def init_reads(plan, rows):
+    """(values columns a row, c0 columns, beta entries) that one GKR init
+    call of `plan` reads, each counted once: phase 1 the y gathers and the
+    previous layers' blocks, the bg, bsig and Liu bt entries; phase 2 the
+    masked values[dg], the bg and bu entries and the claims; both the
+    assert_r and stacked-challenge columns of c0."""
+    import torch
+    from virgo_plus_tpu_torch.gkr import inits
+    tab = plan.tab.cpu()
+    starts = plan.starts.cpu().long()
+    rec = tab[plan.slot_tab.cpu().long()]
+    s = torch.arange(plan.n_slots) - rec[:, inits.T_SLOT]
+    term = rec[torch.repeat_interleave(torch.arange(plan.n_slots),
+                                       starts[1:] - starts[:-1])]
+    gate = plan.gate.cpu().long() & (inits.ASSERT_BIT - 1)
+    idx = plan.idx.cpu().long()
+    refs = [term[:, inits.T_BG] + gate]
+    asserts = tab[:, inits.T_ASSERT]
+    c0_cols = [plan.rs[0].cpu().long(), asserts[asserts >= 0]]
+    if plan.stage == 1:
+        live = s < rec[:, inits.T_SIZE]
+        refs += [(rec[:, inits.T_B2] + s)[live], plan.liu_ref.cpu()]
+        cols = torch.cat([idx, rec[:, inits.T_VOFF] + s])
+    else:
+        refs.append(term[:, inits.T_B2] + idx)
+        dg = plan.dg.cpu().long()
+        cols = dg[dg >= 0]
+        layers = torch.unique(tab[:, inits.T_CLAIM])
+        c0_cols.append(plan.nc_static + (layers[:, None] * rows
+                                         + torch.arange(rows)).reshape(-1))
+    n = lambda xs: int(torch.unique(torch.cat(xs)).numel())
+    return n([cols]), n(c0_cols), n(refs)
+
+
+def init_cost(entry, ins):
+    """(bytes, 32-bit integer operations) of one GKR init call (plan,
+    values, c0, betas): the values, c0 words and beta entries it gathers
+    (init_reads) and the plan tensors its kernel reads, each read once,
+    the output buffer written once; each term's products and sums on
+    each row."""
+    plan, values, _c0, _betas = ins
+    rows = math.prod(values.shape[1:-1])
+    cols, c0_cols, entries = init_reads(plan, rows)
+    read = 16 * (rows * cols + c0_cols + entries)
+    read += sum(t.numel() * t.element_size()
+                for t in (plan.tab, plan.slot_tab, plan.starts, plan.coef,
+                          plan.idx, plan.gate, plan.lists, plan.rs))
+    read += sum(t.numel() * t.element_size()
+                for t in ((plan.liu_starts, plan.liu_ref) if plan.stage == 1
+                          else (plan.dg,)))
+    products, sums = INIT_TERM_OPS[entry]
+    asserts = int((plan.gate < 0).sum())
+    ops = rows * (GF_PRODUCT_INT32_OPS * (products * plan.n_terms + asserts)
+                  + GF_SUM_INT32_OPS * (sums * plan.n_terms + plan.n_liu))
+    return read + 8 * plan.out_words(rows), ops
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
-    chain call; the tree sizes of a forest call (a field op's is its
-    gf_bucket)."""
+    chain call; the tree sizes of a forest call; (rows, slots) of a GKR
+    init call (a field op's is its gf_bucket)."""
+    if entry in INIT_ENTRIES:
+        return (math.prod(ins[1].shape[1:-1]), ins[0].n_slots)
     if entry == "sumcheck_fold":
         return (ins[3].shape[2], ins[0].shape[1])
     if entry == "sha3_256_x64":
@@ -628,6 +717,8 @@ def cost(entry, shp, ins):
     `shp` needs: each input read once, each output written once."""
     if entry in GF_ENTRIES:
         return gf_cost(entry, ins)
+    if entry in INIT_ENTRIES:
+        return init_cost(entry, ins)
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -728,7 +819,7 @@ def kernel_tables():
     {entry: (module, wrapper name)}, {entry: twin}, expected_launches)."""
     from virgo_plus_tpu_torch import kernels
     from virgo_plus_tpu_torch.field import chains, gf
-    from virgo_plus_tpu_torch.gkr import sumcheck
+    from virgo_plus_tpu_torch.gkr import inits, sumcheck
     from virgo_plus_tpu_torch.pc import fft, keccak, merkle, virgo_pc
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
@@ -740,7 +831,9 @@ def kernel_tables():
                 "gf_table": (chains, "table_cuda"),
                 "gf_segsum": (chains, "segsum_cuda"),
                 "gf_fft": (fft, "fft_cuda"),
-                "gf_fri_fold": (virgo_pc, "fold_step_cuda")}
+                "gf_fri_fold": (virgo_pc, "fold_step_cuda"),
+                "gkr_p1_inits": (inits, "p1_inits_cuda"),
+                "gkr_p2_inits": (inits, "p2_inits_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -750,13 +843,17 @@ def kernel_tables():
             "gf_table": chains.table_plain,
             "gf_segsum": chains.segsum_plain,
             "gf_fft": fft.fft_plain,
-            "gf_fri_fold": virgo_pc.fold_step_plain}
+            "gf_fri_fold": virgo_pc.fold_step_plain,
+            "gkr_p1_inits": inits.p1_inits_plain,
+            "gkr_p2_inits": inits.p2_inits_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
             return sumcheck.fold_launches(ins[3].shape[2])
         if entry in GF_ENTRIES:
             return gf_launches(entry, ins)
+        if entry in INIT_ENTRIES:
+            return 1
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -828,7 +925,11 @@ def bound_ms(costs, int32_rate):
 
 
 def random_inputs(torch, np, gf, entry, shp, dev, rng):
-    """Random inputs of one kernel call at shape `shp` (shape_of's)."""
+    """Random inputs of one kernel call at shape `shp` (shape_of's); a GKR
+    init call's inputs are a circuit's, so every path's shapes are
+    profiled on a recorded call."""
+    if entry in INIT_ENTRIES:
+        raise ValueError(f"{entry}: no random inputs of a circuit's plan")
     M = gf.MOD
     if entry == "sumcheck_fold":
         bl, k = shp
@@ -938,7 +1039,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from virgo_plus_tpu_torch import driver, fused, graphs, native, proof_io
-    from virgo_plus_tpu_torch.circuits.compile import evaluate, input_buffer
+    from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
+                                                       evaluate, input_buffer)
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import fs, protocol
@@ -1263,6 +1365,64 @@ def main():
         f"events over {PROFILE_REPS['gf_fft']} calls each; gf_fft with its "
         f"twiddle table): " + time_largest(largest))
 
+    # ---- phase 3, X1 inits: gkr_p1_inits and gkr_p2_inits at fixed shapes -
+    def init_circuit(layers, bits, seed, long=0):
+        """randomize(layers, bits, seed); with `long`, assert gates on four
+        gates of layer 2 and `long` of its gates reading node 0 of layer 1
+        on the left and node 3 of layer 0 on the right (one long phase-1
+        and one long phase-2 segment)."""
+        circ = randomize(layers, bits, seed=seed)
+        if long:
+            top = circ.layers[2]
+            top.is_assert[[1, 5, 9, 12]] = True
+            top.u[:long] = 0
+            top.l[:long], top.v[:long] = 0, 3
+        subset_init(circ)
+        return circ
+
+    # (what, circuit, lead): randomize(4, 3) (empty and bound-below-mdb
+    # segments), asserts with warp segments, asserts with block segments
+    init_fixed = [
+        ("randomize(4, 3, seed=5)", init_circuit(4, 3, 5), ()),
+        ("randomize(3, 6) with assert gates and 40-term segments, lead (3,)",
+         init_circuit(3, 6, 7, 40), (3,)),
+        ("randomize(3, 11) with assert gates and 1,500-term segments, lead "
+         "(2, 2)", init_circuit(3, 11, 3, 1500), (2, 2))]
+    init_classes = {}
+    for what, circ, lead in init_fixed:
+        fcc = compile_circuit(circ)
+        fplans = protocol.build_plans(fcc)
+        farrs = protocol.circuit_arrays(fcc, fplans, dev)
+        fch = protocol.make_challenges(fcc, GlibcRandom(3396), dev)
+        fvals = evaluate(fcc, input_buffer(fcc, None, dev), farrs)
+        rows = math.prod(lead)
+        noise = gf.tensor(rng.integers(0, M, size=(2, rows, fvals.shape[-1]),
+                                       dtype=np.uint64), dev)
+        fvals = (gf.add(fvals[:, None], noise).reshape(
+            (2,) + lead + (-1,)).contiguous() if lead else fvals)
+        with Recorder(kernels, {e: wrappers[e] for e in INIT_ENTRIES},
+                      twin) as rec:
+            fproof = protocol.prove(fcc, fplans, fvals, fch, farrs)
+            torch.cuda.synchronize()
+        if not rec.calls:
+            fail(f"{what}: the prove made no GKR init call")
+        _, e_init, _, _ = compare_calls(torch, rec, twin, expected_launches,
+                                        what)
+        for entry in INIT_ENTRIES:
+            err[entry] = max(err[entry], e_init[entry])
+        if not lead and not bool(protocol.verify(fcc, fproof, fch)[0]):
+            fail(f"{what}: the card proof is rejected")
+        init_classes[what] = (farrs["p1I"].classes, farrs["p2I"].classes)
+    if not all(any(c[k] for c, _ in init_classes.values())
+               and any(c[k] for _, c in init_classes.values())
+               for k in range(3)):
+        fail(f"the fixed GKR init shapes miss a summer class: "
+             f"{init_classes}")
+    say(f"phase 3 X1 inits ok: gkr_p1_inits and gkr_p2_inits == their plain "
+        f"twins bit for bit, one launch a stage, on {[f[0] for f in init_fixed]}"
+        f"; slots by thread / warp / block summer (phase 1, phase 2): "
+        f"{init_classes}")
+
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
     t0 = time.perf_counter()
@@ -1525,7 +1685,7 @@ def main():
     fs_path_plain = dict(kernels.PLAIN_CALLS)
     if not rep_fs.ok:
         fail(f"the full-width FS proof is rejected: {rep_fs}")
-    missing = [e for e in KERNEL_NAMES if fs_launches[e] == 0]
+    missing = [e for e in FS_ENTRIES if fs_launches[e] == 0]
     if missing or any(fs_path_plain.values()):
         fail(f"the FS prove did not run through every kernel: launches "
              f"{fs_launches}, plain twin calls {fs_path_plain}")
@@ -1737,7 +1897,7 @@ def main():
                        for l in launches9]
         if any(any(r["plain"].values()) for r in per_rank) or any(
                 l != k_launches9[0] for l in k_launches9) or any(
-                l[e] == 0 for l in launches9 for e in KERNEL_NAMES):
+                l[e] == 0 for l in launches9 for e in FS_ENTRIES):
             fail(f"{label}: launches per rank {launches9}, plain twin calls "
                  f"{[r['plain'] for r in per_rank]}: K1, K2 and the chains "
                  f"not the same on every rank, or an entry not launched on a "
@@ -1873,11 +2033,18 @@ def main():
                            lambda: cp.evaluator(inputs),
                            lambda: evaluate(cc, inputs, cp.arrs))
     staged = protocol.make_prover(cc, cp.plans)
-    for label, prover in (("make_prover unstaged (driver's)", cp.prover),
-                          ("make_prover staged", staged)):
-        graph_check(label, (prover,), lambda: prover(values10, ch),
-                    lambda: protocol.prove(cc, cp.plans, values10, ch,
-                                           cp.arrs))
+    # every kernel call of the eager provers and of the staged graphs'
+    # warm-up calls held against its twin
+    with Recorder(kernels, wrappers, twin) as rec:
+        for label, prover in (("make_prover unstaged (driver's)", cp.prover),
+                              ("make_prover staged", staged)):
+            graph_check(label, (prover,), lambda: prover(values10, ch),
+                        lambda: protocol.prove(cc, cp.plans, values10, ch,
+                                               cp.arrs))
+    prover_shapes, _ = check_calls(rec, "staged and one-graph provers")
+    say(f"phase 10 recorded calls ok: every kernel call of the eager provers "
+        f"and of the staged prover's warm-up == its plain twin; calls per "
+        f"shape: {listing(prover_shapes)}")
     # each stage's time apart: its graph replayed on the buffers of the
     # call above, between CUDA events
     stage_ms = {h.name: event_ms(torch, h.replay, 5)
@@ -1951,21 +2118,30 @@ def main():
     t_driver_graphs = wall_ms(torch, lambda: driver.prove(c, cp), VERIFY_RUNS)
 
     def one_shot(graphed):
-        """compile_prover and one prove, as a process that proves once."""
+        """compile_prover and one prove, as a process that proves once:
+        (ms of both, ms of compile_prover)."""
         t0 = time.perf_counter()
-        driver.prove(c, driver.compile_prover(c, graphed=graphed))
+        compiled = driver.compile_prover(c, graphed=graphed)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        driver.prove(c, compiled)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
 
     t_one_shot = {"graphed": [], "eager": []}
+    t_one_shot_compile = {"graphed": [], "eager": []}
     for _ in range(2):
         for k in t_one_shot:
-            t_one_shot[k].append(one_shot(k == "graphed"))
+            both, compile_ms = one_shot(k == "graphed")
+            t_one_shot[k].append(both)
+            t_one_shot_compile[k].append(compile_ms)
     say(f"phase 10 timing ({card}): timed prove replayed (e2e + tape) "
         f"{spread(t_replay)} against eager {statistics.median(t_e2e):.3f} "
         f"(phase 5); driver.prove through the graphs {spread(t_driver_graphs)}"
         f", eager {spread(t_driver_eager)}; compile_prover + one prove "
-        f"(ms): graphed {t_one_shot['graphed']}, eager {t_one_shot['eager']}")
+        f"(ms): graphed {t_one_shot['graphed']}, eager {t_one_shot['eager']}"
+        f", of which compile_prover: graphed {t_one_shot_compile['graphed']}"
+        f", eager {t_one_shot_compile['eager']}")
     say(f"phase 10 ok in {time.perf_counter() - t10:.1f} s: {len(held_graphs)}"
         f" graphs held against their eager calls")
 
@@ -2441,6 +2617,7 @@ def main():
               "batched_replay": {str(b): r for b, r in replay_batch.items()},
               "batched_released_bytes": released,
               "one_shot_prove_ms": t_one_shot,
+              "one_shot_compile_ms": t_one_shot_compile,
               "prover_stage_ms": stage_ms, "prover_one_graph_ms": one_graph,
               "main_prove_launches": prove_launches,
               "replay_profiles": replay_prof,

@@ -58,16 +58,16 @@ def compiled_circuit(cc) -> CompiledCircuit:
 def circuit_arrays(arrs: dict, cc, device="cpu") -> dict:
     """The JAX ``protocol.circuit_arrays`` dict -> the port's prover tables.
     Bit-reversal permutations (perm*) have no counterpart: the port's fold
-    reads natural pairs."""
+    reads natural pairs.  The fused init scatters (initsP, p2P) have none
+    either: the port's init stages run over plans that
+    ``protocol.init_plans`` makes from the (port) compiled circuit."""
     idx = lambda a: torch.from_numpy(
         np.asarray(a).astype(np.int64).reshape(-1)).to(device)
     out = {}
     for key, val in arrs.items():
-        if key.startswith("perm"):
+        if key.startswith("perm") or key in ("initsP", "p2P"):
             continue
-        if key in ("initsP", "p2P"):
-            out[key] = tuple(idx(a) for a in val)
-        elif key.startswith("co"):
+        if key.startswith("co"):
             out[key] = tensor(val, device)
         elif key.startswith("dgm"):
             out[key] = torch.from_numpy(
@@ -77,8 +77,7 @@ def circuit_arrays(arrs: dict, cc, device="cpu") -> dict:
     for i in range(1, cc.depth):
         if cc.layers[i].has_assert:
             out[f"ia{i}"] = protocol._assert_mask(cc.layers[i], device)
-    if "p2P" in out:
-        out["p2C"] = protocol.p2_combine_plan(cc, device)
+    out.update(protocol.init_plans(cc, protocol.build_plans(cc), device))
     return out
 
 

@@ -4,9 +4,9 @@ Counterpart of ``virgo_plus_tpu/gkr/protocol.py`` (reference src/prover.cpp,
 src/verifier.cpp).  Challenges are a schedule precomputed per circuit shape
 (the reference's F::random() stream does not depend on the messages), so
 the prover is one feed-forward computation: every phase-1 and Liu table is
-initialised by one fused gate scatter, folded per table size in one K1
-launch, then the phase-2 tables are initialised from the phase-1 claims and
-folded the same way.
+initialised in one launch (``inits.py``), folded per table size in one K1
+launch, then the phase-2 tables are initialised from the phase-1 claims in
+one more launch and folded the same way.
 
 Layer walk (verifier.cpp:134-189): output MLE fold (Vres), then per layer
 phase-1 sumcheck over the left input, phase-2 over right inputs grouped by
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import math
 import time
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -31,10 +32,10 @@ from ..field import chains, gf
 from ..utils.glibc_rand import GlibcRandom
 from ..circuits.compile import (CompiledCircuit, coeffs, eval_arrays,
                                 evaluate, index)
-from .beta import beta_table, beta_tables_batched
-from .sumcheck import (ScatterPlan, apply_scatter_arrays,
-                       concat_scatter_plans, eval_quad, mle_fold,
-                       quad_at_0_plus_1, scan_sumcheck_batched, tree_sum)
+from . import inits
+from .beta import beta_table
+from .sumcheck import (ScatterPlan, eval_quad, mle_fold, quad_at_0_plus_1,
+                       scan_sumcheck_batched, tree_sum)
 
 
 # ---------------------------------------------------------------------------
@@ -98,42 +99,6 @@ class LayerPlans:
     liu_plan: Optional[ScatterPlan]
 
 
-def _inits_layout(cc, plans):
-    """Block layout of the fused phase-1 + Liu init scatter:
-    (kind, layer, in_len, out_len) in a fixed order."""
-    blocks = []
-    for i in range(cc.depth - 1, 0, -1):
-        L = cc.layers[i]
-        P = plans[i]
-        pre_padded = cc.layers[i - 1].padded
-        blocks.append(("add", i, L.size, pre_padded))
-        blocks.append(("mult", i, L.size, pre_padded))
-        if P.liu_plan is not None:
-            n_in = sum(ds for (_j, ds, _b, _o) in P.liu_consumers)
-            blocks.append(("liu", i, n_in, pre_padded))
-    return blocks
-
-
-def _p2_layout(cc, plans):
-    blocks = []
-    for i in range(cc.depth - 1, 0, -1):
-        L = cc.layers[i]
-        if L.max_dad_bit_length < 0:
-            continue
-        blocks.append(("p2a", i, L.size, L.dad_padded_total))
-        blocks.append(("p2m", i, L.size, L.dad_padded_total))
-    return blocks
-
-
-def _fused_plan(blocks, plans):
-    pls = []
-    for kind, i, n_in, _out in blocks:
-        P = plans[i]
-        pls.append(P.liu_plan if kind == "liu" else
-                   P.p2 if kind in ("p2a", "p2m") else P.p1)
-    return concat_scatter_plans(pls, [b[2] for b in blocks])
-
-
 def _assert_mask(L, device):
     m = np.zeros(1 << L.bit_length, dtype=bool)
     m[:L.size] = L.is_assert
@@ -141,8 +106,9 @@ def _assert_mask(L, device):
 
 
 def circuit_arrays(cc: CompiledCircuit, plans, device) -> dict:
-    """The prover's per-layer index/coefficient tensors and the fused
-    init-scatter plans, made once per circuit on the device."""
+    """The per-layer index/coefficient tensors (circuit evaluation, the FS
+    prover) and the init stages' and the phase-2 combine's plans, made
+    once per circuit on the device."""
     arrs = {}
     for i in range(1, cc.depth):
         L = cc.layers[i]
@@ -155,13 +121,30 @@ def circuit_arrays(cc: CompiledCircuit, plans, device) -> dict:
             arrs[f"dg{i}"] = index(np.clip(L.dad_gather_idx, 0, None), device)
             arrs[f"dgm{i}"] = torch.from_numpy(
                 L.dad_gather_idx >= 0).to(device)
-    arrs["initsP"] = _fused_plan(_inits_layout(cc, plans),
-                                 plans).arrays(device)
-    p2_blocks = _p2_layout(cc, plans)
-    if p2_blocks:
-        arrs["p2P"] = _fused_plan(p2_blocks, plans).arrays(device)
-        arrs["p2C"] = p2_combine_plan(cc, device)
+    arrs.update(init_plans(cc, plans, device))
     return arrs
+
+
+# (id of a compiled circuit, device) -> its init_plans, dropped with the
+# circuit: every maker of the same circuit shares one set
+_INIT_PLANS: dict = {}
+
+
+def init_plans(cc: CompiledCircuit, plans, device) -> dict:
+    """The init stages' plans ("p1I", and "p2I" with the phase-2 combine's
+    "p2C" when a layer has phase-2 tables), made once per circuit and
+    device (host numpy, then read-only device tensors).  plans:
+    ``build_plans(cc)``."""
+    key = (id(cc), str(device))
+    if key not in _INIT_PLANS:
+        p1_groups, p2_groups = _groups(cc)
+        out = {"p1I": inits.p1_plan(cc, plans, p1_groups, device)}
+        p2 = inits.p2_plan(cc, plans, p2_groups, device)
+        if p2 is not None:
+            out.update(p2I=p2, p2C=p2_combine_plan(cc, device))
+        _INIT_PLANS[key] = out
+        weakref.finalize(cc, _INIT_PLANS.pop, key, None)
+    return dict(_INIT_PLANS[key])
 
 
 def build_plans(cc: CompiledCircuit) -> List[Optional[LayerPlans]]:
@@ -219,33 +202,11 @@ def _values_block(cc, values, i):
     return values[..., off:off + cc.layers[i].padded]
 
 
-def _batched_betas(jobs):
-    """jobs: {tag: (r (2, >=bl), bl, init (2,))} -> {tag: (2, 2^bl)}, one
-    doubling loop per distinct bl."""
-    groups = {}
-    for tag, (_r, bl, _init) in jobs.items():
-        groups.setdefault(bl, []).append(tag)
-    out = {}
-    for bl, tags in sorted(groups.items()):
-        rs = torch.stack([jobs[t][0][:, :bl] for t in tags], dim=1)
-        inits = torch.stack([jobs[t][2] for t in tags], dim=1)
-        tbl = beta_tables_batched(rs, bl, inits)
-        for k, t in enumerate(tags):
-            out[t] = tbl[:, k]
-    return out
-
-
 def _scale_beta_asserts(cc, i, bg, assert_r, mask):
     """Multiply the assert gates' beta entries by assert_r."""
     if not cc.layers[i].has_assert:
         return bg
     return torch.where(mask[None, :], gf.mul(bg, assert_r[:, None]), bg)
-
-
-def _shared(t, n_lead: int):
-    """A (2, n) table that depends only on the challenges, shaped
-    (2, 1, ..., n) to broadcast over `n_lead` batch axes."""
-    return t.reshape((2,) + (1,) * n_lead + (-1,))
 
 
 def _lead_first(t, axis: int, n_lead: int):
@@ -375,7 +336,7 @@ def make_prover(cc: CompiledCircuit, plans, device=None, staged=True,
         lambda ch, p2_stacked, lead: _prove_p2(ch, p2_stacked, lead,
                                                arrs.get("p2C")),
         dev, "prover p2 folds+combine")
-    has_p2 = bool(_p2_layout(cc, plans))
+    has_p2 = "p2I" in arrs
 
     def run(values, ch):
         vres, p1_stacked, liu_stacked = inits.call((values, ch), False)
@@ -437,157 +398,36 @@ def _apply_grouped(stacked, groups):
     return _unstack(raw, groups)
 
 
-def _stack_jobs(jobs):
-    """{bl: [(v, a, m, r), ...]} -> {bl: (v, a, m (2, ..., K, 2^bl),
-    rs (2, K, bl))}: tables stack on the axis before the last."""
-    return {bl: tuple(torch.stack([g[k] for g in group], dim=-2)
-                      for k in range(4))
-            for bl, group in jobs.items()}
-
-
 def _r_cur(cc, ch, i):
     return (ch.r_out if i == cc.depth - 1
             else ch.layers[i + 1].r_liu[:, :cc.layers[i].bit_length])
 
 
 def _prove_inits(cc, plans, values, ch, arrs):
-    """vres + phase-1 and Liu table inits for every layer.  All gate
-    scatters (add/mult contributions of every layer plus every Liu consumer
-    part) run as one fused segment sum.  Beta tables depend only on the
-    challenges: a batch shares them."""
-    depth = cc.depth
-    dev = values.device
-    lead = values.shape[1:-1]
-    one = gf.ones((), dev)
-    vres = mle_fold(_values_block(cc, values, depth - 1), ch.r_out)
-
-    blocks = _inits_layout(cc, plans)
-
-    beta_jobs = {}
-    for i in range(depth - 1, 0, -1):
-        L = cc.layers[i]
-        P = plans[i]
-        chl = ch.layers[i]
-        bl_prev = cc.layers[i - 1].bit_length
-        beta_jobs[("bg", i)] = (_r_cur(cc, ch, i), L.bit_length, one)
-        beta_jobs[("bsig", i)] = (chl.r_u, bl_prev, chl.sig[:, 0])
-        if P.liu_plan is not None:
-            for (j, ds, bl_jl, off) in P.liu_consumers:
-                beta_jobs[("bt", i, j)] = (ch.layers[j].r_v, bl_jl,
-                                           chl.sig[:, j - i + 1])
-    betas = _batched_betas(beta_jobs)
-
-    contribs = {}
-    multL_base = {}
-    for i in range(depth - 1, 0, -1):
-        L = cc.layers[i]
-        P = plans[i]
-        chl = ch.layers[i]
-        bg = _scale_beta_asserts(cc, i, betas[("bg", i)], chl.assert_r,
-                                 arrs.get(f"ia{i}"))[:, :L.size]
-        y = values[..., arrs[f"y{i}"]]
-        A, B, C, D = coeffs(arrs[f"co{i}"], len(lead))
-        contribs[("add", i)] = gf.mul(bg, gf.add(gf.mul(B, y), D))
-        contribs[("mult", i)] = gf.mul(bg, gf.add(A, gf.mul(C, y)))
-        pre = cc.layers[i - 1]
-        base = torch.zeros((2, pre.padded), dtype=torch.int64, device=dev)
-        base[:, :pre.size] = betas[("bsig", i)][:, :pre.size]
-        multL_base[i] = _shared(base, len(lead))
-        if P.liu_plan is not None:
-            contribs[("liu", i)] = _shared(torch.cat(
-                [betas[("bt", i, j)][:, :ds]
-                 for (j, ds, bl_jl, off) in P.liu_consumers], dim=1),
-                len(lead))
-
-    # the Liu parts depend on the challenges only: broadcast over a batch
-    fused = apply_scatter_arrays(
-        torch.cat([contribs[(k, i)].expand((2,) + lead + (-1,))
-                   for (k, i, _n, _o) in blocks], dim=-1),
-        arrs["initsP"])
-    slices = {}
-    off = 0
-    for (k, i, _n, out_len) in blocks:
-        slices[(k, i)] = fused[..., off:off + out_len]
-        off += out_len
-
-    p1_jobs = {}
-    liu_jobs = {}
-    for i in range(depth - 1, 0, -1):
-        P = plans[i]
-        chl = ch.layers[i]
-        bl_prev = cc.layers[i - 1].bit_length
-        vloc = _values_block(cc, values, i - 1)
-        p1_jobs.setdefault(bl_prev, []).append(
-            (vloc, slices[("add", i)], slices[("mult", i)],
-             chl.r_u[:, :bl_prev]))
-        multL = multL_base[i]
-        if P.liu_plan is not None:
-            multL = gf.add(multL, slices[("liu", i)])
-        multL = multL.expand(vloc.shape)
-        liu_jobs.setdefault(bl_prev, []).append(
-            (vloc, torch.zeros_like(multL), multL, chl.r_liu[:, :bl_prev]))
-    return vres, _stack_jobs(p1_jobs), _stack_jobs(liu_jobs)
+    """vres and every layer's phase-1 and Liu tables, {bl: (v, a, m, rs)}
+    each, the tables (2, *lead, K, 2^bl) in ``_groups``' order: the beta
+    tables (shared by a batch), vres as the top values block against the
+    top layer's bg table (one product, one sum: ``mle_fold``'s bits), and
+    one ``inits.p1_inits`` call."""
+    plan = arrs["p1I"]
+    c0 = inits.challenge_buffer(plan, ch)
+    betas = inits.beta_tables(plan, c0)
+    top = inits.beta_table(plan, betas, ("bg", cc.depth - 1))
+    vres = tree_sum(gf.mul(_values_block(cc, values, cc.depth - 1), top))
+    out = inits.p1_inits(plan, values, c0, betas)
+    return (vres,) + inits.p1_views(plan, out, tuple(values.shape[1:-1]))
 
 
 def _prove_p2_inits(cc, plans, values, ch, claims, arrs):
-    """Phase-2 scatter inits (need the phase-1 claims).  All layers'
-    addV/multV scatters fuse into one segment-sum pass."""
-    dev = values.device
-    one = gf.ones((), dev)
-    blocks = _p2_layout(cc, plans)
-    if not blocks:
+    """Every phase-2 table, {bl: (vdad, addV, multV, rs)} (they need the
+    phase-1 claims {layer: (2, *lead)}): the beta tables and one
+    ``inits.p2_inits`` call."""
+    plan = arrs.get("p2I")
+    if plan is None:
         return {}
-    beta_jobs = {}
-    for i in range(cc.depth - 1, 0, -1):
-        L = cc.layers[i]
-        if L.max_dad_bit_length < 0:
-            continue
-        bl_prev = cc.layers[i - 1].bit_length
-        beta_jobs[("bg", i)] = (_r_cur(cc, ch, i), L.bit_length, one)
-        beta_jobs[("bu", i)] = (ch.layers[i].r_u, bl_prev, one)
-    betas = _batched_betas(beta_jobs)
-
-    contribs = {}
-    for i in range(cc.depth - 1, 0, -1):
-        L = cc.layers[i]
-        if L.max_dad_bit_length < 0:
-            continue
-        chl = ch.layers[i]
-        bg = _scale_beta_asserts(cc, i, betas[("bg", i)], chl.assert_r,
-                                 arrs.get(f"ia{i}"))[:, :L.size]
-        A, B, C, D = coeffs(arrs[f"co{i}"], values.dim() - 2)
-        tmp_g = gf.mul(bg, betas[("bu", i)][:, arrs[f"x{i}"]])
-        cu = claims[i][..., None]
-        contribs[("p2a", i)] = gf.mul(tmp_g, gf.add(gf.mul(A, cu), D))
-        contribs[("p2m", i)] = gf.mul(tmp_g, gf.add(B, gf.mul(C, cu)))
-
-    fused = apply_scatter_arrays(
-        torch.cat([contribs[(k, i)] for (k, i, _n, _o) in blocks], dim=-1),
-        arrs["p2P"])
-    slices = {}
-    off = 0
-    for (k, i, _n, out_len) in blocks:
-        slices[(k, i)] = fused[..., off:off + out_len]
-        off += out_len
-
-    p2_jobs = {}
-    for i in range(cc.depth - 1, 0, -1):
-        L = cc.layers[i]
-        if L.max_dad_bit_length < 0:
-            continue
-        chl = ch.layers[i]
-        addV = slices[("p2a", i)]
-        multV = slices[("p2m", i)]
-        vdad = torch.where(arrs[f"dgm{i}"], values[..., arrs[f"dg{i}"]], 0)
-        for li in range(i):
-            if L.dad_sizes[li] == 0:
-                continue
-            bl_l = L.dad_bls[li]
-            sl = slice(L.dad_offsets[li], L.dad_offsets[li] + (1 << bl_l))
-            p2_jobs.setdefault(bl_l, []).append(
-                (vdad[..., sl], addV[..., sl], multV[..., sl],
-                 chl.r_v[:, :bl_l]))
-    return _stack_jobs(p2_jobs)
+    c0 = inits.challenge_buffer(plan, ch, claims)
+    out = inits.p2_inits(plan, values, c0, inits.beta_tables(plan, c0))
+    return inits.p2_views(plan, out, tuple(values.shape[1:-1]))
 
 
 @dataclass

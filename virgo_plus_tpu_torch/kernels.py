@@ -12,8 +12,8 @@ partial library.
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
 its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
-``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain
-and each fold: one, none for an empty output), and its
+``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain,
+each fold and each GKR init stage: one, none for an empty output), and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -76,6 +76,16 @@ SOURCES = {
         "gf_fri_fold": ("vpt_gf_fri_fold", [_P] + [_I] * 3 + [_L] * 5
                         + [_P, _L, _L, _P, _L, _P, _I, _P]),
     },
+    # values, its rows and last axis; c0, its columns, its first claim's;
+    # the beta tables (count, host arrays of pointers and plane strides);
+    # the plan's tab, slot_tab, starts, liu_starts, dg, coef, terms, idx,
+    # gate, liu_ref, lists, the thread, warp and block slots, rs, its
+    # pairs; out, its rs region's offset; the stream
+    "gkr_inits": {
+        entry: (f"vpt_{entry}", [_P, _L, _L, _P, _L, _L, _I, _P, _P]
+                + [_P] * 6 + [_L] + [_P] * 4 + [_I] * 3 + [_P, _L, _P, _L,
+                                                             _P])
+        for entry in ("gkr_p1_inits", "gkr_p2_inits")},
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
 
