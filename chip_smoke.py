@@ -42,7 +42,14 @@ package.  Phases, one line each, any failure exits non-zero:
    plain twins, one launch a stage, in the proves of three fixed
    circuits: randomize(4, 3), and randomize circuits with assert gates
    and segments long enough for a warp (lead (3,)) and for a block (lead
-   (2, 2)), every summer class taken;
+   (2, 2)), every summer class taken; then a circuit layer's evaluation
+   (X1: ``gf_eval_layer``) against its plain twin at (rows, gates) (1,
+   8192) and (64, 8192) and on every layer of a circuit with a layer of
+   1,000 gates, unary gates and right inputs from layer 0 (lead () and
+   (3,)), the whole evaluation equal to the CPU's with every padding
+   word untouched, and the fft_gkr stage tables (X1:
+   ``fg_stage_tables``) against their twin at lg = 1, 7 and 12 in both
+   phases;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -58,7 +65,8 @@ package.  Phases, one line each, any failure exits non-zero:
    is rejected.  The timed prove (fused.prove_e2e
    + the fft_gkr tape) is recorded and held the same way, and must launch
    K1, K2's chain and forest kernels (these once each) and the field ops,
-   with no plain twin call.  Wall times of the timed prove, verify and driver prove,
+   with no plain twin call; its tape equals the CPU's, and its launches
+   by entry are printed.  Wall times of the timed prove, verify and driver prove,
    every run listed;
 6. where the time goes: synchronised prove spans, verify spans, and (at
    the end) a profile of one timed prove;
@@ -105,11 +113,13 @@ package.  Phases, one line each, any failure exits non-zero:
    ``make_prover``, the driver's four ``VirgoPC.compile`` programs and
    ``make_batched_full_prover`` at every B each equal the eager call
    (``graphed=False`` makers) in every array (every kernel call of the
-   provers' eager calls and of the staged prover's warm-up held against
-   its twin), with launches per replay
+   provers' eager calls, of the staged prover's warm-up and of the e2e
+   and tape graphs' warm-ups and eager calls held against its twin), with
+   launches per replay
    equal to the eager call's, no plain twin call, and each graph's kernel
    nodes (read from the cudaGraph_t through the driver API) equal to the
-   launches its capture counted; the e2e + tape graphs and the batched
+   launches its capture counted, the evaluator's, tape's and e2e
+   prover's printed; the e2e + tape graphs and the batched
    graph at B = 4 replayed on another witness and other challenges equal
    the eager call on those, and leave the earlier replay's result as it
    was; capture + instantiate seconds and pool bytes per graph; each
@@ -214,7 +224,11 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 # (csrc/gkr_inits.cu's namespace carries "gkr_inits", which
                 # neither name matches)
                 "gkr_p1_inits": ("gkr_p1_inits",),
-                "gkr_p2_inits": ("gkr_p2_inits",)}
+                "gkr_p2_inits": ("gkr_p2_inits",),
+                # (the namespaces carry "circuit_eval" and "fft_gkr", which
+                # no name matches)
+                "gf_eval_layer": ("gf_eval_layer",),
+                "fg_stage_tables": ("fg_stage_tables",)}
 # X1: the elementwise field ops, the field chains and the transforms,
 # called thousands of times a prove (a batched transform reads up to 2^25
 # words): each call's twin runs as it returns (Recorder), and its calls
@@ -225,10 +239,17 @@ GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum", "gf_fft",
 # X1: the GKR init stages, one launch a stage on the glibc paths (the FS
 # and sharded provers keep their own per-layer inits)
 INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
+# X1: a circuit layer's evaluation (in place in the values buffer, so its
+# twin runs on a copy of the input) and the fft_gkr tape's stage tables,
+# one launch a layer and one a phase on every path
+FUSED_ENTRIES = ("gf_eval_layer", "fg_stage_tables")
+IN_PLACE = ("gf_eval_layer",)
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches all ten others)
+# sponge's: every FS prove launches it and these but the GKR init stages)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
-                *GF_ENTRIES, *INIT_ENTRIES)
+                *GF_ENTRIES, *INIT_ENTRIES, *FUSED_ENTRIES)
+# a batched call has no fft_gkr tape
+BATCH_ENTRIES = tuple(e for e in PATH_ENTRIES if e != "fg_stage_tables")
 FS_ENTRIES = tuple(e for e in KERNEL_NAMES if e not in INIT_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
@@ -241,6 +262,8 @@ _X1 = "virgo_plus_tpu_torch/csrc/gf_ops.cu"
 _X1C = "virgo_plus_tpu_torch/csrc/gf_chains.cu"
 _X1F = "virgo_plus_tpu_torch/csrc/gf_fft.cu"
 _X1I = "virgo_plus_tpu_torch/csrc/gkr_inits.cu"
+_X1E = "virgo_plus_tpu_torch/csrc/circuit_eval.cu"
+_X1T = "virgo_plus_tpu_torch/csrc/fft_gkr.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
@@ -254,12 +277,17 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "gkr_p1_inits": (_X1I,
                                         "virgo_plus_tpu/gkr/protocol.py:698"),
                        "gkr_p2_inits": (_X1I,
-                                        "virgo_plus_tpu/gkr/protocol.py:784")}
+                                        "virgo_plus_tpu/gkr/protocol.py:784"),
+                       "gf_eval_layer": (
+                           _X1E, "virgo_plus_tpu/circuits/compile.py:185"),
+                       "fg_stage_tables": (
+                           _X1T, "virgo_plus_tpu/pc/fft_gkr.py:202")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
                 "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
-                "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20}
+                "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20,
+                "gf_eval_layer": 20, "fg_stage_tables": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -277,6 +305,10 @@ GF_SUM_INT32_OPS = 12        # a GF(p^2) sum (two words, as gf_lin)
 # inner sums and two accumulations; phase 2 five and four (an assert gate
 # one product more); a Liu term one accumulation
 INIT_TERM_OPS = {"gkr_p1_inits": (4, 4), "gkr_p2_inits": (5, 4)}
+# products and sums of a gate a row (gf_eval_layer), of an item of each
+# phase (fg_stage_tables)
+EVAL_OPS = (4, 3)
+STAGE_OPS = {1: (2, 2), 2: (4, 2)}
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
@@ -670,10 +702,46 @@ def init_cost(entry, ins):
     return read + 8 * plan.out_words(rows), ops
 
 
+def fused_cost(entry, ins):
+    """(bytes, 32-bit integer operations) of one gf_eval_layer call
+    (values, x_idx, y_idx, co, x_off, out_off) or fg_stage_tables call
+    (phase, bg, xp, src, vu, dep0): each word read once (a layer's
+    coefficients and indices, the distinct values columns it gathers on
+    each row; the stages' bg tables, the V or bu words and twiddles their
+    items take, vu), each output word written once (a layer's gates on
+    each row; both tables of every stage); the products and sums of each
+    gate a row or item."""
+    import torch
+    if entry == "gf_eval_layer":
+        values, x_idx, y_idx, co, x_off, _ = ins
+        rows = values.numel() // (2 * values.shape[-1])
+        size = x_idx.numel()
+        cols = int(torch.unique(torch.cat([x_idx + x_off, y_idx])).numel())
+        products, sums = EVAL_OPS
+        return (16 * rows * (cols + size) + 8 * (co.numel() + 2 * size),
+                rows * size * (GF_PRODUCT_INT32_OPS * products
+                               + GF_SUM_INT32_OPS * sums))
+    phase, bg, _xp, _src, _vu, dep0 = ins
+    stages, n = bg.shape[1], bg.shape[2]
+    items = stages * n // 2
+    twiddles = sum(n >> (dep + 1) for dep in range(dep0, dep0 + stages))
+    read = bg.numel() + 2 * (items + twiddles + (stages if phase == 2
+                                                 else 0))
+    products, sums = STAGE_OPS[phase]
+    return (8 * (read + 4 * stages * n),
+            items * (GF_PRODUCT_INT32_OPS * products
+                     + GF_SUM_INT32_OPS * sums))
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
     chain call; the tree sizes of a forest call; (rows, slots) of a GKR
-    init call (a field op's is its gf_bucket)."""
+    init call; (rows, gates) of a circuit layer; (phase, stages, lg) of a
+    stage tables call (a field op's is its gf_bucket)."""
+    if entry == "gf_eval_layer":
+        return (ins[0].numel() // (2 * ins[0].shape[-1]), ins[1].numel())
+    if entry == "fg_stage_tables":
+        return (ins[0], ins[1].shape[1], ins[1].shape[2].bit_length() - 1)
     if entry in INIT_ENTRIES:
         return (math.prod(ins[1].shape[1:-1]), ins[0].n_slots)
     if entry == "sumcheck_fold":
@@ -719,6 +787,8 @@ def cost(entry, shp, ins):
         return gf_cost(entry, ins)
     if entry in INIT_ENTRIES:
         return init_cost(entry, ins)
+    if entry in FUSED_ENTRIES:
+        return fused_cost(entry, ins)
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -818,9 +888,10 @@ def kernel_tables():
     """The port's kernel wrappers and plain twins: (kernels module,
     {entry: (module, wrapper name)}, {entry: twin}, expected_launches)."""
     from virgo_plus_tpu_torch import kernels
+    from virgo_plus_tpu_torch.circuits import compile as circuit
     from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import inits, sumcheck
-    from virgo_plus_tpu_torch.pc import fft, keccak, merkle, virgo_pc
+    from virgo_plus_tpu_torch.pc import fft, fft_gkr, keccak, merkle, virgo_pc
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
                 "sha3_256_x64": (keccak, "sha3_256_x64_cuda"),
@@ -833,7 +904,9 @@ def kernel_tables():
                 "gf_fft": (fft, "fft_cuda"),
                 "gf_fri_fold": (virgo_pc, "fold_step_cuda"),
                 "gkr_p1_inits": (inits, "p1_inits_cuda"),
-                "gkr_p2_inits": (inits, "p2_inits_cuda")}
+                "gkr_p2_inits": (inits, "p2_inits_cuda"),
+                "gf_eval_layer": (circuit, "eval_layer_cuda"),
+                "fg_stage_tables": (fft_gkr, "stage_tables_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -845,7 +918,9 @@ def kernel_tables():
             "gf_fft": fft.fft_plain,
             "gf_fri_fold": virgo_pc.fold_step_plain,
             "gkr_p1_inits": inits.p1_inits_plain,
-            "gkr_p2_inits": inits.p2_inits_plain}
+            "gkr_p2_inits": inits.p2_inits_plain,
+            "gf_eval_layer": circuit.eval_layer_plain,
+            "fg_stage_tables": fft_gkr.stage_tables_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
@@ -854,6 +929,10 @@ def kernel_tables():
             return gf_launches(entry, ins)
         if entry in INIT_ENTRIES:
             return 1
+        if entry == "gf_eval_layer":
+            return 1 if ins[1].numel() and ins[0].numel() else 0
+        if entry == "fg_stage_tables":
+            return 1 if ins[1].shape[1] else 0
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -931,6 +1010,22 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
     if entry in INIT_ENTRIES:
         raise ValueError(f"{entry}: no random inputs of a circuit's plan")
     M = gf.MOD
+    canon = lambda *s: gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
+                                 dev)
+    if entry == "gf_eval_layer":   # a layer reading a block of 2^k values
+        rows, size = shp
+        p = 1 << max(size - 1, 0).bit_length()
+        idx = lambda: torch.from_numpy(rng.integers(0, p, size=size)).to(dev)
+        values = torch.cat([canon(2, rows, p), torch.zeros(
+            (2, rows, p), dtype=torch.int64, device=dev)], -1)
+        return (values, idx(), idx(), canon(4, 2, size), 0, p)
+    if entry == "fg_stage_tables":  # the last `stages` stages of lg
+        from virgo_plus_tpu_torch.pc import fft_gkr
+        phase, stages, lg = shp
+        n = 1 << lg
+        return (phase, canon(2, stages, n), fft_gkr.stage_powers(lg, dev),
+                canon(2, stages, n), canon(2, stages) if phase == 2 else None,
+                lg - stages)
     if entry == "sumcheck_fold":
         bl, k = shp
         return tuple(gf.tensor(rng.integers(0, M, size=(2, k, 1 << bl),
@@ -1040,7 +1135,8 @@ def main():
     import numpy as np
     from virgo_plus_tpu_torch import driver, fused, graphs, native, proof_io
     from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
-                                                       evaluate, input_buffer)
+                                                       eval_arrays, evaluate,
+                                                       input_buffer)
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import chains, gf
     from virgo_plus_tpu_torch.gkr import fs, protocol
@@ -1077,11 +1173,15 @@ def main():
 
     def held(entry, ins, what):
         """Run one kernel call and its twin on the same inputs; fail unless
-        equal bit for bit and the call made its expected launches."""
+        equal bit for bit and the call made its expected launches.  An
+        entry that writes in place gets a copy of the inputs for its
+        twin."""
+        twin_ins = (tuple(kept(a) for a in ins) if entry in IN_PLACE
+                    else ins)
         before = kernels.LAUNCHES[entry]
         got = flatten(cuda_fn[entry](*ins))
         launched = kernels.LAUNCHES[entry] - before
-        want = flatten(twin[entry](*ins))
+        want = flatten(twin[entry](*twin_ins))
         torch.cuda.synchronize()
         e = max_abs_err(torch, got, want)
         err[entry] = max(err[entry], e)
@@ -1423,6 +1523,71 @@ def main():
         f"; slots by thread / warp / block summer (phase 1, phase 2): "
         f"{init_classes}")
 
+    # ---- phase 3, X1 fused: gf_eval_layer and fg_stage_tables ------------
+    eval_shapes = ((1, 8192), (64, 8192))
+    for shp in eval_shapes:
+        held("gf_eval_layer", random_inputs(torch, np, gf, "gf_eval_layer",
+                                            shp, dev, rng),
+             f"(rows, gates) = {shp}")
+
+    def eval_circuit():
+        """randomize(4, 10, seed=2) with layer 2 cut to 1,000 gates and,
+        on layer 3, unary gates (Mulc, Addc, Not, Copy) and right inputs
+        from layer 0."""
+        from virgo_plus_tpu_torch.circuits.gates import GateType
+        circ = randomize(4, 10, seed=2)
+        L2, L3 = circ.layers[2], circ.layers[3]
+        for k in ("ty", "u", "v", "l", "lv", "c_real", "c_img",
+                  "is_assert"):
+            setattr(L2, k, getattr(L2, k)[:1000].copy())
+        L2.size = 1000
+        L3.u %= 1000
+        L3.v[L3.l == 2] %= 1000
+        L3.l[100:400] = 0
+        for g, ty in enumerate((GateType.Mulc, GateType.Addc, GateType.Not,
+                                GateType.Copy) * 20):
+            L3.ty[g], L3.l[g], L3.v[g] = int(ty), -1, 0
+            L3.c_real[g], L3.c_img[g] = rng.integers(0, M, size=2,
+                                                     dtype=np.uint64)
+        subset_init(circ)
+        return circ
+
+    ecc = compile_circuit(eval_circuit())
+    for lead in ((), (3,)):
+        rows = math.prod(lead)
+        wit = np.asarray(ecc.source.input_values, dtype=np.uint64)
+        wit = np.stack([wit] * rows).reshape(lead + wit.shape) if lead else wit
+        with Recorder(kernels, {"gf_eval_layer": wrappers["gf_eval_layer"]},
+                      twin) as rec:
+            evals = evaluate(ecc, input_buffer(ecc, wit, dev),
+                             eval_arrays(ecc, dev))
+            torch.cuda.synchronize()
+        _, e_eval, _, _ = compare_calls(torch, rec, twin, expected_launches,
+                                        f"cut circuit, lead {lead}")
+        err["gf_eval_layer"] = max(err["gf_eval_layer"],
+                                   e_eval["gf_eval_layer"])
+        cpu_evals = evaluate(ecc, input_buffer(ecc, wit, "cpu"),
+                             eval_arrays(ecc, "cpu"))
+        if not torch.equal(evals.cpu(), cpu_evals):
+            fail(f"the cut circuit's card evaluation (lead {lead}) differs "
+                 f"from the CPU's")
+        for i, L in enumerate(ecc.layers):
+            off = int(ecc.value_off[i])
+            if bool(evals[..., off + L.size:off + L.padded].any()):
+                fail(f"gf_eval_layer wrote layer {i}'s padding")
+    stage_shapes = [(phase, lg, lg) for lg in (1, 7, 12) for phase in (1, 2)]
+    for shp in stage_shapes:
+        held("fg_stage_tables", random_inputs(torch, np, gf,
+                                              "fg_stage_tables", shp, dev,
+                                              rng),
+             f"(phase, stages, lg) = {shp}")
+    say(f"phase 3 X1 fused ok: gf_eval_layer == its plain twin bit for bit, "
+        f"one launch a call, at (rows, gates) {eval_shapes} and on every "
+        f"layer of randomize(4, 10) with a layer of 1,000 gates, unary gates "
+        f"and right inputs from layer 0, lead () and (3,): == the CPU "
+        f"evaluation, padding untouched; fg_stage_tables == its plain twin "
+        f"at (phase, stages, lg) {stage_shapes}")
+
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
     t0 = time.perf_counter()
@@ -1479,8 +1644,8 @@ def main():
     # ---- phase 5: full width ----------------------------------------------
     example = {}     # (entry, shape) -> the inputs of one recorded call
 
-    def check_path(what, launches, plain):
-        missing = [e for e in PATH_ENTRIES if launches[e] == 0]
+    def check_path(what, launches, plain, entries=PATH_ENTRIES):
+        missing = [e for e in entries if launches[e] == 0]
         if missing or any(plain.values()):
             fail(f"{what} did not run through the kernels: launches "
                  f"{launches}, plain twin calls {plain}")
@@ -1612,6 +1777,15 @@ def main():
     say(f"phase 5 timed prove ok: device launches {timed_launches}, plain "
         f"twin calls {timed_plain}; every call == its plain twin; calls per "
         f"shape: {listing(timed_shapes)}; l-oracle root == driver.prove's")
+    tape_card = fused.fg_tape(n_folds, sched, dev)
+    tape_cpu = fused.fg_tape(n_folds, sched, "cpu")
+    if len(tape_card) != len(tape_cpu) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(tape_card, tape_cpu)):
+        fail("the timed prove's fft_gkr tape differs from the CPU's")
+    ours = {e: n for e, n in timed_launches.items() if n}
+    say(f"phase 5 timed prove: the fft_gkr tape == the CPU's in all "
+        f"{len(tape_cpu)} messages; launches by entry {ours}, "
+        f"{sum(ours.values())} of the port's entries")
 
     t_e2e = wall_ms(torch, timed_prove, TIMED_RUNS)
     t_verify = wall_ms(torch, lambda: driver.verify(c, full, eager_cp),
@@ -1832,7 +2006,8 @@ def main():
             batched(xs)
             torch.cuda.synchronize()
             recorded[b] = (dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS))
-        check_path(f"the batched call at B = {b}", *recorded[b])
+        check_path(f"the batched call at B = {b}", *recorded[b],
+                   BATCH_ENTRIES)
         for e, n in check_calls(rec, f"batched call at B = {b}")[0].items():
             batched_shapes[e].update(n)
     batched_launches, batched_plain = recorded[4]
@@ -2013,12 +2188,15 @@ def main():
 
     e2e = fused.make_e2e_prover(cc, cp.plans)
     tape = fused.make_fg_tape(n_folds)
-    first10 = graph_check(
-        "make_e2e_prover + make_fg_tape", (e2e, tape),
-        lambda: (e2e(inputs, ch, fold_rands), tape(sched)),
-        lambda: (fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands,
-                                 cp.arrs),
-                 fused.fg_tape(n_folds, sched, dev)))
+    # the graphs' warm-up calls and the eager calls held against the twins
+    with Recorder(kernels, wrappers, twin) as rec:
+        first10 = graph_check(
+            "make_e2e_prover + make_fg_tape", (e2e, tape),
+            lambda: (e2e(inputs, ch, fold_rands), tape(sched)),
+            lambda: (fused.prove_e2e(cc, cp.plans, inputs, ch, fold_rands,
+                                     cp.arrs),
+                     fused.fg_tape(n_folds, sched, dev)))
+    check_calls(rec, "e2e and tape graphs' warm-ups and eager calls")
     ch2, sched2, fold_rands2 = draws(4242)
     final_point2 = ch2.layers[1].r_liu[:, :bl0]
     inputs2 = input_buffer(cc, witness_batch(2)[1], dev)
@@ -2032,6 +2210,11 @@ def main():
     values10 = graph_check("make_evaluator (driver's)", (cp.evaluator,),
                            lambda: cp.evaluator(inputs),
                            lambda: evaluate(cc, inputs, cp.arrs))
+    nodes = {what: [held_graphs[h.name]["kernel_nodes"]
+                    for h in graphs.holders(m)]
+             for what, m in (("evaluator", cp.evaluator), ("tape", tape),
+                             ("e2e prover", e2e))}
+    say(f"phase 10 kernel nodes by graph: {nodes}")
     staged = protocol.make_prover(cc, cp.plans)
     # every kernel call of the eager provers and of the staged graphs'
     # warm-up calls held against its twin

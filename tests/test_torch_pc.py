@@ -119,8 +119,8 @@ def test_commit_and_folds_match_jax():
         assert _eq(o.codeword, jo.codeword) and _eq(o.tree, jo.tree)
 
 
-def test_fft_gkr_tape_matches_jax():
-    lg = 3
+@pytest.mark.parametrize("lg", [1, 3])
+def test_fft_gkr_tape_matches_jax(lg):
     sched = fft_gkr.draw_schedule(lg, GlibcRandom(11))
     jsched = jfft_gkr.draw_schedule(lg, JGlibc(11))
     got = fused.fg_tape(lg, sched, "cpu")

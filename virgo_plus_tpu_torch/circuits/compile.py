@@ -15,6 +15,8 @@ device.  The compiled form:
 Forward evaluation (prover.cpp:27-91 analogue) is, per layer:
     x = values[x_idx]; y = values[y_idx]
     out = A*x + B*y + C*(x*y) + D
+On a CUDA tensor each layer is one launch of ``gf_eval_layer``
+(``csrc/circuit_eval.cu``), on a CPU tensor its plain twin.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..field import gf
 from .gates import coeff_tables
 from .layered import LayeredCircuit
@@ -186,20 +189,61 @@ def coeffs(co, n_lead: int):
     return co.reshape((4, 2) + (1,) * n_lead + (-1,))
 
 
+def eval_layer(values, x_idx, y_idx, co, x_off: int, out_off: int):
+    """One layer of ``evaluate``, in place: for each row of values (2, ...,
+    T) and gate g < size = x_idx.numel(), values[..., out_off + g] =
+    A*x + B*y + C*(x*y) + D with x = values[..., x_off + x_idx[g]], y =
+    values[..., y_idx[g]] and A-D the gate's planes of co (4, 2, size).
+    Returns values.  A CUDA tensor goes to ``gf_eval_layer`` (one launch),
+    a CPU tensor to ``eval_layer_plain``."""
+    fn = eval_layer_cuda if gf._on_cuda(values) else eval_layer_plain
+    return fn(values, x_idx, y_idx, co, x_off, out_off)
+
+
+def eval_layer_plain(values, x_idx, y_idx, co, x_off: int, out_off: int):
+    """Plain twin of gf_eval_layer: two gathers, gf's plain products and
+    sums in the JAX package's order, and a slice copy."""
+    kernels.PLAIN_CALLS["gf_eval_layer"] += 1
+    add, mul = gf.add_plain, gf.mul_plain
+    x = values[..., x_off + x_idx]
+    y = values[..., y_idx]
+    A, B, C, D = coeffs(co, values.dim() - 2)
+    out = add(add(mul(A, x), mul(B, y)), add(mul(C, mul(x, y)), D))
+    values[..., out_off:out_off + x_idx.numel()] = out
+    return values
+
+
+def eval_layer_cuda(values, x_idx, y_idx, co, x_off: int, out_off: int):
+    """gf_eval_layer on the card, one launch (none for an empty layer):
+    same arguments, result and bits as eval_layer_plain."""
+    if values.dim() < 2 or values.shape[0] != 2:
+        raise ValueError(f"gf_eval_layer: values {tuple(values.shape)}, "
+                         f"(2, ..., T) taken")
+    size = x_idx.numel()
+    total = values.shape[-1]
+    rows = values.numel() // (2 * total) if total else 0
+    kernels.check_cuda("gf_eval_layer", (values, x_idx, y_idx, co),
+                       (tuple(values.shape), (size,), (size,), (4, 2, size)))
+    if not (0 <= x_off <= total and 0 <= out_off <= total - size):
+        raise ValueError(f"gf_eval_layer: offsets {x_off}, {out_off} and "
+                         f"{size} gates outside a row of {total} values")
+    if size and rows:
+        kernels.check_int("gf_eval_layer", rows=rows, gates=size)
+        kernels.launch("gf_eval_layer", 1, values.data_ptr(), rows, total,
+                       x_idx.data_ptr(), y_idx.data_ptr(), co.data_ptr(),
+                       size, x_off, out_off, kernels.stream_ptr())
+    return values
+
+
 def evaluate(cc: CompiledCircuit, inputs, arrs):
     """Forward pass: inputs (2, ..., n) -> the concatenated (2, ...,
-    total_values) buffer, written layer by layer in place; the middle axes
-    (a batch of witnesses) share the circuit."""
+    total_values) buffer, written layer by layer in place (``eval_layer``,
+    one kernel launch a layer on the card); the middle axes (a batch of
+    witnesses) share the circuit."""
     values = torch.zeros(inputs.shape[:-1] + (cc.total_values,),
                          dtype=torch.int64, device=inputs.device)
     values[..., :inputs.shape[-1]] = inputs
     for i in range(1, cc.depth):
-        L = cc.layers[i]
-        x = values[..., int(cc.value_off[i - 1]) + arrs[f"x{i}"]]
-        y = values[..., arrs[f"y{i}"]]
-        A, B, C, D = coeffs(arrs[f"co{i}"], inputs.dim() - 2)
-        out = gf.add(gf.add(gf.mul(A, x), gf.mul(B, y)),
-                     gf.add(gf.mul(C, gf.mul(x, y)), D))
-        off = int(cc.value_off[i])
-        values[..., off:off + L.size] = out
+        eval_layer(values, arrs[f"x{i}"], arrs[f"y{i}"], arrs[f"co{i}"],
+                   int(cc.value_off[i - 1]), int(cc.value_off[i]))
     return values

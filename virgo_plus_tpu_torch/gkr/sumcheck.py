@@ -22,6 +22,7 @@ import torch
 
 from ..field import chains, gf
 from .. import kernels
+from .beta import beta_table
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +255,9 @@ def quad_at_0_plus_1(poly):
 def mle_fold(values, rs):
     """Fold (2, ..., 2^k) tables along the last axis at the point rs (2, k):
     returns (2, ...).  Matches prover::Vres (prover.cpp:99-129) on
-    zero-padded tables."""
+    zero-padded tables.  Computed as the sum of the first 2^k entries
+    against the beta table of rs (one table, one product, one sum): field
+    arithmetic is exact, so it gives the round-by-round fold's bits."""
     k = rs.shape[1]
-    one = gf.ones((1,), values.device)
-    for j in range(k):
-        r = rs[:, j:j + 1]
-        v0, v1 = values[..., 0::2], values[..., 1::2]
-        values = gf.add(gf.mul(v0, gf.sub(one, r)), gf.mul(v1, r))
-    return values[..., 0]
+    beta = beta_table(rs, k, gf.ones((), values.device))
+    return tree_sum(gf.mul(values[..., :1 << k], beta))

@@ -13,7 +13,8 @@ A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
 its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
 ``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain,
-each fold and each GKR init stage: one, none for an empty output), and its
+each fold, each GKR init stage, each circuit layer and each phase of
+the fft_gkr stage tables: one, none for an empty output), and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -86,6 +87,18 @@ SOURCES = {
                 + [_P] * 6 + [_L] + [_P] * 4 + [_I] * 3 + [_P, _L, _P, _L,
                                                              _P])
         for entry in ("gkr_p1_inits", "gkr_p2_inits")},
+    # values, its rows and last axis; x_idx, y_idx, the coefficients, the
+    # layer's gates, x's and the output's offsets in a row; the stream
+    "circuit_eval": {
+        "gf_eval_layer": ("vpt_gf_eval_layer", [_P, _I, _L, _P, _P, _P, _I,
+                                                _L, _L, _P]),
+    },
+    # the phase; bg, the twiddles, V or bu, vu, out; the stages, lg, the
+    # first stage's dep; the stream
+    "fft_gkr": {
+        "fg_stage_tables": ("vpt_fg_stage_tables", [_I] + [_P] * 5
+                            + [_I] * 3 + [_P]),
+    },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
 
