@@ -42,7 +42,8 @@ package.  Phases, one line each, any failure exits non-zero:
    plain twins, one launch a stage, in the proves of three fixed
    circuits: randomize(4, 3), and randomize circuits with assert gates
    and segments long enough for a warp (lead (3,)) and for a block (lead
-   (2, 2)), every summer class taken; then a circuit layer's evaluation
+   (2, 2), and (5, 13): 65 rows, several row tiles and a short last
+   pass), every summer class taken; then a circuit layer's evaluation
    (X1: ``gf_eval_layer``) against its plain twin at (rows, gates) (1,
    8192) and (64, 8192) and on every layer of a circuit with a layer of
    1,000 gates, unary gates and right inputs from layer 0 (lead () and
@@ -1481,13 +1482,16 @@ def main():
         return circ
 
     # (what, circuit, lead): randomize(4, 3) (empty and bound-below-mdb
-    # segments), asserts with warp segments, asserts with block segments
+    # segments), asserts with warp segments, asserts with block segments,
+    # the same over 65 rows (several row tiles, a short last pass)
+    long_asserts = init_circuit(3, 11, 3, 1500)
     init_fixed = [
         ("randomize(4, 3, seed=5)", init_circuit(4, 3, 5), ()),
         ("randomize(3, 6) with assert gates and 40-term segments, lead (3,)",
          init_circuit(3, 6, 7, 40), (3,)),
         ("randomize(3, 11) with assert gates and 1,500-term segments, lead "
-         "(2, 2)", init_circuit(3, 11, 3, 1500), (2, 2))]
+         "(2, 2)", long_asserts, (2, 2)),
+        ("the same, lead (5, 13)", long_asserts, (5, 13))]
     init_classes = {}
     for what, circ, lead in init_fixed:
         fcc = compile_circuit(circ)
@@ -2558,11 +2562,15 @@ def main():
             f"calls in the first "
             f"driver prove + verify / timed prove / first FS prove + "
             f"verify_fs / batched calls at B = 4 and 64 / rank 0 of the "
-            f"sharded runs, ms per call, launches per call, bound ms): "
+            f"sharded runs, ms per call, launches per call, bound ms"
+            f"{', the bound over the time' if entry in INIT_ENTRIES else ''}"
+            f"): "
             + "; ".join(
                 f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
                 f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
                 f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
+                + (f", share {r['bound'] / r['ms']:.3f}"
+                   if entry in INIT_ENTRIES else "")
                 for s, r in per.items())
             + paths + f"; bound of every recorded call summed: one timed "
             f"prove {rows[entry]['timed_bound']:.5f} ms, one FS prove + "

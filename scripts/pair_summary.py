@@ -7,8 +7,8 @@ change's ``gf_fft.sass`` (``cuobjdump -sass`` of its gf_fft library).
 For each log it prints one JSON line of the end-to-end numbers that
 chip_smoke.py's report line carries: walls (median, min, max, in ms),
 device busy ms and kernels of the profiled calls, proofs per second of
-the batched replays, sharded walls per rank and the run's length.  For
-the SASS it prints the static instruction count of ``gf_fft_tile``'s
+the batched replays, sharded walls per rank and the run's length, and the
+GKR init stages' profiled device ms and bound ms by rows.  For the SASS it prints the static instruction count of ``gf_fft_tile``'s
 butterfly loop (the smallest loop holding its four shared-memory loads
 and stores), of the loops nested in it (the twiddle index's), and the
 loop's most frequent opcodes.
@@ -53,7 +53,21 @@ def summary(log: Path) -> dict:
         batched_b16_replay_busy=round(b16["busy_ms"], 3),
         sharded_rank_ms={k: [round(w[0], 1) for w in v["wall_ms"]]
                          for k, v in rep["sharded"].items()},
-        run_s=float(re.match(r"\[\s*([0-9.]+) s\]", stamped[-1]).group(1)))
+        run_s=float(re.match(r"\[\s*([0-9.]+) s\]", stamped[-1]).group(1)),
+        init_kernels_ms=init_kernels(lines))
+
+
+def init_kernels(lines):
+    """{entry: {rows: [device ms, bound ms]}} of the GKR init stages, from
+    the profiled ``kernel gkr_p1_inits`` / ``gkr_p2_inits`` lines."""
+    out = {}
+    for entry in ("gkr_p1_inits", "gkr_p2_inits"):
+        line = next((ln for ln in lines if f"] kernel {entry} (" in ln), "")
+        out[entry] = {int(m.group(1)): [float(m.group(2)), float(m.group(3))]
+                      for m in re.finditer(
+                          r"\[(\d+), \d+\]: [\d/]+, ([0-9.]+), \d+, "
+                          r"([0-9.]+) (?:bytes|operations)", line)}
+    return out
 
 
 def butterfly_loop(sass: str) -> dict:

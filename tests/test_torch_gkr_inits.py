@@ -15,11 +15,14 @@ CPU tensor the launches are the plain twins.  Here:
   circuit with assert gates on one layer (compiled by both packages);
 * a batch (2, B, T) == one call a witness, in both stages;
 * ``emulate``, a host copy of ``csrc/gkr_inits.cu``'s item arithmetic
-  (the grid's three sections, a slot's table record, its term ranges, the
-  packed beta references, the output addresses and the stacked
-  challenges) on Python-int field elements, == the twins at forced small
-  summer thresholds (all three classes) and lead axes, writing every
-  output word exactly once;
+  (the row tiles; the cooperative warps' term owners, shared words and
+  passes of rows with a short last one and kept term products; the warp
+  and block summers; a slot's table record, its term ranges, the packed
+  beta references, the output addresses and the stacked challenges) on
+  Python-int field elements, reading the tile constants from the source,
+  == the twins at forced small summer thresholds (all three classes) and
+  at the plan's own, at lead axes up to 17 rows, writing every output
+  word exactly once;
 * the twins call only ``gf``'s plain ops and ``chains.prefix_sum``, a CPU
   call counts ``kernels.PLAIN_CALLS``, and the CUDA wrappers refuse CPU
   tensors and a plan of the other stage.
@@ -29,7 +32,9 @@ field arithmetic is exact, so the tolerance is 0.  The kernels run only on
 a card: chip_smoke.py holds them against the twins there."""
 
 import multiprocessing as mp
+import re
 from concurrent.futures import ProcessPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -231,13 +236,45 @@ def _f(planes, i):
     return Fq2.raw(int(planes[0][i]), int(planes[1][i]))
 
 
+def _cu_constants():
+    """The constants of csrc/gkr_inits.cu that shape its grid and passes."""
+    src = (Path(inits.__file__).parents[1] / "csrc" / "gkr_inits.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+            for name in ("THREADS", "P1_ROWS", "ROW_TILE_P1", "ROW_TILE_P2",
+                         "KEPT")}
+
+
+def _sum(xs):
+    out = Fq2(0)
+    for x in xs:
+        out = out + x
+    return out
+
+
+def _owner(s0, t):
+    """The kernel's ``owner``: five halving steps over the lanes' s0."""
+    k = 0
+    for d in (16, 8, 4, 2, 1):
+        if s0[k + d] <= t:
+            k += d
+    return k
+
+
 def emulate(plan, values, c0, betas):
-    """csrc/gkr_inits.cu's ``run`` item by item: the grid's thread, warp
-    and block sections over the plan's class lists, each slot's table
-    record and term ranges (a lane's terms lane, lane + step, ...), the
-    packed beta references, the output addresses and the stacked
-    challenges.  Returns (out, writes per word)."""
+    """csrc/gkr_inits.cu's ``run`` item by item on Python-int field
+    elements: the grid's row tiles; the cooperative warps (32 slots by
+    index, the thread slots summed: a lane a term found by ``owner``, its
+    words into the shared rows, each lane summing its own slot's; phase 1
+    the Liu terms and the rows' v, 0, m' first, then passes of P1_ROWS
+    rows with a short last one, the first pass keeping the first KEPT
+    chunks' term products for the others); the warp and block summers
+    over ``lists`` (lanes take terms lane, lane + step, ..., row u of a
+    pass to lane u); the table records, packed beta references, output
+    addresses and stacked challenges.  Returns (out, writes per word)."""
     T = lambda t: t.numpy()
+    K = _cu_constants()
+    U = K["P1_ROWS"]
+    tile = K["ROW_TILE_P1"] if plan.stage == 1 else K["ROW_TILE_P2"]
     rows = int(np.prod(values.shape[1:-1]))
     vals = gf.to_numpy(values).reshape(2, rows, -1)
     cz = gf.to_numpy(c0)
@@ -250,6 +287,8 @@ def emulate(plan, values, c0, betas):
     words = inits.WORDS[plan.stage]
     out = np.zeros(plan.out_words(rows), dtype=np.uint64)
     writes = np.zeros(plan.out_words(rows), dtype=np.int64)
+    liu = plan.stage == 1
+    n = plan.n_slots
 
     def beta(ref):
         g, off = ref >> inits.REF_SHIFT, ref & ((1 << inits.REF_SHIFT) - 1)
@@ -263,64 +302,162 @@ def emulate(plan, values, c0, betas):
             out[a + p * rows * rec[inits.T_KN]] = w
             writes[a + p * rows * rec[inits.T_KN]] += 1
 
-    def slot(q, row, step):
-        rec = tab[slot_tab[q]]
-        s = q - rec[inits.T_SLOT]
-        ar = (_f(cz, rec[inits.T_ASSERT]) if rec[inits.T_ASSERT] >= 0
-              else Fq2(1))
-        cu = (_f(cz, rec[inits.T_CLAIM] * rows + row + plan.nc_static)
-              if plan.stage == 2 else None)
-        sums = [Fq2(0)] * 3
-        for lane in range(step):
-            for t in range(starts[q] + lane, starts[q + 1], step):
-                b = beta(rec[inits.T_BG] + int(gate[t] & 0x7FFFFFFF))
-                if gate[t] >> 31:
-                    b = b * ar
-                A, B, C, D = (Fq2.raw(int(coef[2 * k, t]),
-                                      int(coef[2 * k + 1, t]))
-                              for k in range(4))
-                if plan.stage == 1:
-                    y = _f(vals[:, row], idx[t])
-                    sums[0] = sums[0] + b * (B * y + D)
-                    sums[1] = sums[1] + b * (A + C * y)
-                else:
-                    tmp = b * beta(rec[inits.T_B2] + int(idx[t]))
-                    sums[0] = sums[0] + tmp * (A * cu + D)
-                    sums[1] = sums[1] + tmp * (B + C * cu)
-            if plan.stage == 1:
-                for t in range(liu_starts[q] + lane, liu_starts[q + 1], step):
-                    sums[2] = sums[2] + beta(int(liu_ref[t]))
-        if plan.stage == 1:
-            v = _f(vals[:, row], rec[inits.T_VOFF] + s)
-            bsig = (beta(rec[inits.T_B2] + s) if s < rec[inits.T_SIZE]
-                    else Fq2(0))
-            for arr, x in enumerate((v, sums[0], sums[1], v, Fq2(0),
-                                     bsig + sums[2])):
-                put(rec, arr, row, s, x)
-        else:
-            v = _f(vals[:, row], dg[q]) if dg[q] >= 0 else Fq2(0)
-            for arr, x in enumerate((v, sums[0], sums[1])):
-                put(rec, arr, row, s, x)
+    def gated(rec, t):
+        b = beta(rec[inits.T_BG] + int(gate[t] & 0x7FFFFFFF))
+        return b * _f(cz, rec[inits.T_ASSERT]) if gate[t] >> 31 else b
 
-    nt, nw, nb = plan.classes
+    def co(t, k):
+        return Fq2.raw(int(coef[2 * k, t]), int(coef[2 * k + 1, t]))
+
+    def value(row, col):
+        return _f(vals[:, row], col)
+
+    def thread_slot(q):
+        m = starts[q + 1] - starts[q]
+        if liu:
+            m = max(m, liu_starts[q + 1] - liu_starts[q])
+        return m <= plan.thread_max
+
+    def p2_rows(rec, q, r0, nr, x):
+        s = q - rec[inits.T_SLOT]
+        claim = plan.nc_static + rec[inits.T_CLAIM] * rows + r0
+        for r in range(nr):
+            cu = _f(cz, claim + r)
+            v = value(r0 + r, dg[q]) if dg[q] >= 0 else Fq2(0)
+            for arr, w in enumerate((v, x[0] * cu + x[3], x[1] + x[2] * cu)):
+                put(rec, arr, r0 + r, s, w)
+
+    def chunks(own, s0, s1, f, width):
+        """The warp's walk over [first lane's s0, last lane's s1) 32 terms
+        at a time: f(chunk, lane, term, owner lane) gives the term's words
+        (None: not summed here); each own lane sums its own terms' words
+        of every chunk.  Returns each lane's sums (None: not own)."""
+        sums = [[Fq2(0)] * width if own[i] else None for i in range(32)]
+        for ci, c in enumerate(range(s0[0], s1[31], 32)):
+            sh = [f(ci, i, c + i, _owner(s0, c + i)) if c + i < s1[31]
+                  else None for i in range(32)]
+            for i in range(32):
+                for p in range(max(s0[i], c), min(s1[i], c + 32)):
+                    if own[i]:
+                        sums[i] = [x + w for x, w in zip(sums[i], sh[p - c])]
+        return sums
+
+    def coop_warp(q0, r0, nr):
+        q = [q0 + i for i in range(32)]
+        live = [x < n for x in q]
+        qe = [x if x < n else n for x in q]
+        s0 = [starts[x] for x in qe]
+        s1 = [starts[x + 1] if ok else s for x, ok, s in zip(q, live, s0)]
+        own = [ok and thread_slot(x) for x, ok in zip(q, live)]
+        rec = [tab[slot_tab[x if ok else q0]] for x, ok in zip(q, live)]
+        if not liu:
+            def term(ci, i, t, o):
+                if not own[o]:
+                    return None
+                tmp = gated(rec[o], t) * beta(rec[o][inits.T_B2] + int(idx[t]))
+                return [tmp * co(t, j) for j in range(4)]
+            for i, x in enumerate(chunks(own, s0, s1, term, 4)):
+                if x is not None:
+                    p2_rows(rec[i], q[i], r0, nr, x)
+            return
+        l0 = [liu_starts[x] for x in qe]
+        l1 = [liu_starts[x + 1] if ok else s for x, ok, s in zip(q, live, l0)]
+        lsum = chunks(own, l0, l1, lambda ci, i, t, o: [beta(int(liu_ref[t]))]
+                      if own[o] else None, 1)
+        for i in range(32):
+            if not own[i]:
+                continue
+            s = q[i] - rec[i][inits.T_SLOT]
+            bsig = (beta(rec[i][inits.T_B2] + s) if s < rec[i][inits.T_SIZE]
+                    else Fq2(0))
+            for r in range(nr):
+                v = value(r0 + r, rec[i][inits.T_VOFF] + s)
+                for arr, x in ((0, v), (3, v), (4, Fq2(0)),
+                               (5, bsig + lsum[i][0])):
+                    put(rec[i], arr, r0 + r, s, x)
+        kept, consts = {}, {}
+        for p0 in range(0, nr, U):
+            rws = range(p0, min(p0 + U, nr))
+
+            def term(ci, i, t, o):
+                cst = []
+                if p0 == 0 or ci >= K["KEPT"]:
+                    bB = bC = col = None
+                    if own[o]:
+                        b = gated(rec[o], t)
+                        bB, bC, col = b * co(t, 1), b * co(t, 2), idx[t]
+                        cst = [b * co(t, 3), b * co(t, 0)]
+                    if p0 == 0 and ci < K["KEPT"]:
+                        kept[ci, i] = (bB, bC, col)
+                else:
+                    bB, bC, col = kept[ci, i]
+                if col is None:
+                    return None
+                ys = [value(r0 + u, col) for u in rws]
+                return ([bB * y for y in ys] + [bC * y for y in ys]
+                        + (cst if p0 == 0 else []))
+            width = 2 * len(rws) + (2 if p0 == 0 else 0)
+            for i, x in enumerate(chunks(own, s0, s1, term, width)):
+                if x is None:
+                    continue
+                if p0 == 0:
+                    consts[i] = x[-2:]
+                ca, cm = consts[i]
+                s = q[i] - rec[i][inits.T_SLOT]
+                for k, u in enumerate(rws):
+                    put(rec[i], 1, r0 + u, s, x[k] + ca)
+                    put(rec[i], 2, r0 + u, s, cm + x[len(rws) + k])
+
+    def summer(q, r0, nr, step):
+        rec = tab[slot_tab[q]]
+        terms = range(starts[q], starts[q + 1])
+        lane_terms = [terms[k::step] for k in range(step)]
+        part = lambda f: _sum(_sum(f(t) for t in lt) for lt in lane_terms)
+        if not liu:
+            p2_rows(rec, q, r0, nr, [
+                part(lambda t: gated(rec, t) * beta(rec[inits.T_B2]
+                                                    + int(idx[t])) * co(t, j))
+                for j in range(4)])
+            return
+        s = q - rec[inits.T_SLOT]
+        for p0 in range(0, nr, U):
+            rws = range(p0, min(p0 + U, nr))
+            a = [part(lambda t: gated(rec, t) * co(t, 1)
+                      * value(r0 + u, idx[t])) for u in rws]
+            m = [part(lambda t: gated(rec, t) * co(t, 2)
+                      * value(r0 + u, idx[t])) for u in rws]
+            if p0 == 0:
+                ca = part(lambda t: gated(rec, t) * co(t, 3))
+                cm = part(lambda t: gated(rec, t) * co(t, 0))
+                ml = _sum(beta(int(liu_ref[t]))
+                          for t in range(liu_starts[q], liu_starts[q + 1]))
+                if s < rec[inits.T_SIZE]:
+                    ml = ml + beta(rec[inits.T_B2] + s)
+            for u, ar, mr in zip(rws, a, m):
+                v = value(r0 + u, rec[inits.T_VOFF] + s)
+                for arr, x in enumerate((v, ar + ca, cm + mr, v, Fq2(0), ml)):
+                    put(rec, arr, r0 + u, s, x)
+
+    _nt, nw, nb = plan.classes
     rs = T(plan.rs)
     rs_base = 2 * words * rows * plan.w_total
-    for it in range(max(nt * rows, rs.shape[1])):
-        if it < rs.shape[1]:
-            src, dst, stride = rs[:, it]
-            for p in range(2):
-                out[rs_base + dst + p * stride] = cz[p, src]
-                writes[rs_base + dst + p * stride] += 1
-        if it < nt * rows:
-            slot(lists[it % nt], it // nt, 1)
-    for w in range(nw * rows):
-        slot(lists[nt + w % nw], w // nw, 32)
-    for b in range(nb * rows):
-        slot(lists[nt + nw + b % nb], b // nb, 256)
+    for it in range(rs.shape[1]):          # tile 0's first threads
+        src, dst, stride = rs[:, it]
+        for p in range(2):
+            out[rs_base + dst + p * stride] = cz[p, src]
+            writes[rs_base + dst + p * stride] += 1
+    for r0 in range(0, rows, tile):
+        nr = min(tile, rows - r0)
+        for q0 in range(0, n, 32):
+            coop_warp(q0, r0, nr)
+        for w in range(nw):
+            summer(lists[w], r0, nr, 32)
+        for b in range(nb):
+            summer(lists[nw + b], r0, nr, K["THREADS"])
     return out, writes
 
 
-@pytest.mark.parametrize("lead", [(), (2,), (2, 2)])
+@pytest.mark.parametrize("lead", [(), (2,), (2, 2), (5,)])
 def test_emulated_kernel_matches_twins(both, lead, monkeypatch):
     cc, plans = both["cc"], both["plans"]
     rows = int(np.prod(lead))
@@ -328,7 +465,8 @@ def test_emulated_kernel_matches_twins(both, lead, monkeypatch):
     values = values.reshape((2,) + lead + (values.shape[-1],))
     claims = {i: t.reshape((2,) + lead) for i, t in claims.items()}
     p1_groups, p2_groups = protocol._groups(cc)
-    # empty segments a thread, one term a warp, longer ones a block
+    # empty segments in the cooperative warps, one term a warp, longer
+    # ones a block
     monkeypatch.setattr(inits, "THREAD_MAX", 0)
     monkeypatch.setattr(inits, "WARP_MAX", 1)
     seen = set()
@@ -345,6 +483,25 @@ def test_emulated_kernel_matches_twins(both, lead, monkeypatch):
         assert (writes == 1).all(), plan.stage
         seen |= {k for k, n in enumerate(plan.classes) if n}
     assert seen == {inits.THREAD, inits.WARP, inits.BLOCK}
+
+
+@pytest.mark.parametrize("lead", [(17,)])
+def test_emulated_warps_match_twins(both, lead):
+    """The cooperative warps at the plan's own thresholds (every slot of
+    the small circuits a thread slot but the assert circuit's long ones),
+    over more rows than a tile of either phase."""
+    rows = int(np.prod(lead))
+    values, claims = _batch(both, rows)
+    values = values.reshape((2,) + lead + (values.shape[-1],))
+    claims = {i: t.reshape((2,) + lead) for i, t in claims.items()}
+    for plan, twin, cl in ((both["arrs"]["p1I"], inits.p1_inits_plain, None),
+                           (both["arrs"]["p2I"], inits.p2_inits_plain,
+                            claims)):
+        c0 = inits.challenge_buffer(plan, both["ch"], cl)
+        betas = [t.contiguous() for t in inits.beta_tables(plan, c0)]
+        got, writes = emulate(plan, values, c0, betas)
+        assert np.array_equal(got, gf.to_numpy(twin(plan, values, c0, betas)))
+        assert (writes == 1).all() and plan.classes[0]
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,12 @@ The plan holds each stage's terms sorted by destination slot, as
 ``ScatterPlan`` does, with the static data a term reads (its coefficient
 words, its y or x index, its gate's beta entry and assert bit) permuted
 into term order.  Each slot belongs to a summer class fixed in the plan: a
-thread (at most ``THREAD_MAX`` terms), a warp (at most ``WARP_MAX``) or a
-block.  Field arithmetic is exact and every result canonical, so the
-kernel, the twin and the JAX package give the same bits.
+thread slot (at most ``THREAD_MAX`` terms, the plan's ``thread_max``), a
+warp (at most ``WARP_MAX``) or a block.  The kernel sums the thread slots
+32 to a warp, which it finds by their counts, and the others from
+``lists``.  Field arithmetic is exact and every result canonical, so the
+kernel, the twin and the JAX package give the same bits (the kernel
+regroups a slot's sums by field identities, ``csrc/gkr_inits.cu``).
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ class InitPlan:
     n_terms: int
     n_liu: int
     classes: tuple      # slots a class: (thread, warp, block)
+    thread_max: int     # a thread slot's most terms (THREAD_MAX)
     one: torch.Tensor       # (2, 1): the element 1
     gather: torch.Tensor    # int64: the beta inputs' c0 columns
     tab: torch.Tensor       # int64 (tables, TAB_FIELDS)
@@ -109,7 +113,7 @@ class InitPlan:
     idx: torch.Tensor       # int32 (terms,): y (phase 1) or x (phase 2)
     gate: torch.Tensor      # int32 (terms,): gate | ASSERT_BIT
     liu_ref: torch.Tensor   # int64 (Liu terms,): beta references
-    lists: torch.Tensor     # int32: the thread, warp and block slots
+    lists: torch.Tensor     # int32: the warp, then the block slots
     rs: torch.Tensor        # int32 (3, pairs): c0 column, word, plane stride
 
     def out_words(self, rows: int) -> int:
@@ -187,10 +191,11 @@ def _ref(groups, pos, tag) -> int:
 
 
 def _classes(lengths):
+    """(slots a class, the warp then the block slots)."""
     kind = np.where(lengths <= THREAD_MAX, THREAD,
                     np.where(lengths <= WARP_MAX, WARP, BLOCK))
     lists = [np.flatnonzero(kind == c) for c in (THREAD, WARP, BLOCK)]
-    return tuple(len(x) for x in lists), np.concatenate(lists)
+    return tuple(len(x) for x in lists), np.concatenate(lists[1:])
 
 
 def _counts(sp):
@@ -246,7 +251,7 @@ def _finish(stage, cols, groups, betas, tabs, counts, terms, liu, dg, rs,
         rs_words=words, chal=cols.pieces, nc_static=cols.n,
         claim_layers=claim_layers, betas=bgroups, beta_pos=pos,
         beta_off=boffs, n_slots=len(slot_tab), n_terms=len(idx),
-        n_liu=len(refs), classes=classes,
+        n_liu=len(refs), classes=classes, thread_max=THREAD_MAX,
         one=gf.ones((1,), device), gather=_i64(gather, device),
         tab=_i64(np.array(tabs, dtype=np.int64).reshape(-1, TAB_FIELDS),
                  device),
@@ -527,9 +532,9 @@ def _launch(stage: int, plan: InitPlan, values, c0, betas):
                          f"{[tuple(t.shape) for t in betas]} against the "
                          f"plan's {[(len(t), bl) for bl, t in plan.betas]}")
     out = torch.empty((plan.out_words(rows),), dtype=torch.int64, device=dev)
-    nt, nw, nb = plan.classes
-    kernels.check_int(entry, items=max(nt * rows, plan.rs.shape[1]),
-                      warps=nw * rows, blocks=nb * rows, slots=plan.n_slots,
+    _nt, nw, nb = plan.classes
+    kernels.check_int(entry, items=max(plan.n_slots, plan.rs.shape[1]),
+                      warps=nw, blocks=nb, slots=plan.n_slots,
                       terms=max(plan.n_terms, plan.n_liu))
     ptrs = (ctypes.c_void_p * len(betas))(*[t.data_ptr() for t in betas])
     planes = (ctypes.c_longlong * len(betas))(*[t.shape[1] * t.shape[2]
@@ -540,7 +545,8 @@ def _launch(stage: int, plan: InitPlan, values, c0, betas):
                    plan.starts.data_ptr(), plan.liu_starts.data_ptr(),
                    plan.dg.data_ptr(), plan.coef.data_ptr(), plan.n_terms,
                    plan.idx.data_ptr(), plan.gate.data_ptr(),
-                   plan.liu_ref.data_ptr(), plan.lists.data_ptr(), nt, nw, nb,
+                   plan.liu_ref.data_ptr(), plan.lists.data_ptr(),
+                   plan.n_slots, plan.thread_max, nw, nb,
                    plan.rs.data_ptr(), plan.rs.shape[1], out.data_ptr(),
                    2 * WORDS[plan.stage] * rows * plan.w_total,
                    kernels.stream_ptr())

@@ -80,11 +80,12 @@ SOURCES = {
     # values, its rows and last axis; c0, its columns, its first claim's;
     # the beta tables (count, host arrays of pointers and plane strides);
     # the plan's tab, slot_tab, starts, liu_starts, dg, coef, terms, idx,
-    # gate, liu_ref, lists, the thread, warp and block slots, rs, its
-    # pairs; out, its rs region's offset; the stream
+    # gate, liu_ref, lists, the slots, a thread slot's most terms, the warp
+    # and block slots, rs, its pairs; out, its rs region's offset; the
+    # stream
     "gkr_inits": {
         entry: (f"vpt_{entry}", [_P, _L, _L, _P, _L, _L, _I, _P, _P]
-                + [_P] * 6 + [_L] + [_P] * 4 + [_I] * 3 + [_P, _L, _P, _L,
+                + [_P] * 6 + [_L] + [_P] * 4 + [_I] * 4 + [_P, _L, _P, _L,
                                                              _P])
         for entry in ("gkr_p1_inits", "gkr_p2_inits")},
     # values, its rows and last axis; x_idx, y_idx, the coefficients, the
