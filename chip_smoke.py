@@ -24,9 +24,11 @@ package.  Phases, one line each, any failure exits non-zero:
    for an empty output; the wrappers' output shape against
    ``torch.broadcast_shapes``, with the host time of each; then the field
    chains (X1: ``gf_table``, ``gf_segsum``) against their plain twins on
-   canonical inputs: beta tables of 2^0 to 2^20 entries (strided
-   challenges, 3 and 63 tables), power tables of a by-value base (n up to
-   2^20 - 3, not a power of two) and of tensor bases, tree sums of 0 to
+   canonical inputs: beta tables of 2^0 to 2^20 entries (either side of a
+   warp task and of a block, strided challenges, 3 and 63 tables), power
+   tables of a by-value base (its squarings from the host; n = 2^0 to
+   2^20, and up to 2^20 - 3, not a power of two) and of tensor bases,
+   tree sums of 0 to
    2^18 terms (rank 2 and 3, transposed), scatter plans with empty
    segments, one segment of 2^18 terms, a skewed plan and mean segment
    lengths on either side of the summers' thresholds; then the transforms
@@ -34,8 +36,11 @@ package.  Phases, one line each, any failure exits non-zero:
    coefficients onto 2^12 points at 64 rows and at leads (16, 64) and
    (64, 64), onto 2^16 and 2^19, IFFTs at 2^7, 2^8 and 2^11 (one launch)
    and at 2^12 and 2^16 (two launches), 2^19 coefficients onto 2^19
-   points (two launches), strided and transposed rows, one coefficient,
-   one point, an empty lead; folds of 65 slices at N = 2, 64 and 4096, a
+   points (two launches), 2^1 to 2^12 onto as many points (odd and even
+   stage counts), strided and transposed rows, one coefficient, one
+   point, an empty lead, and a root whose twiddles a capture asked for
+   first (it must raise, then run eagerly); folds of 65 slices at N = 2,
+   64 and 4096, a
    B = 64 batch, strided, empty; launches as ``fft.launches(lg_coef)``,
    one a fold; the largest shapes timed against their bounds; then the
    GKR init stages (X1: ``gkr_p1_inits``, ``gkr_p2_inits``) against their
@@ -1164,7 +1169,8 @@ def main():
     logs = kernels.build()
     for src, log in logs.items():
         regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "spill" in ln
+                or "Compiling entry" in ln]
         say(f"phase 1 build {src}: {'; '.join(regs) or log.strip()}")
     say(f"phase 1 ok: kernels built in {time.perf_counter() - t0:.1f} s")
 
@@ -1309,7 +1315,9 @@ def main():
         n_chain += 1
 
     largest = {}       # the largest shapes, timed below
-    beta_bits = (0, 1, 5, 8, 9, 13, 20)
+    # gf_table's edges: a warp task of 2^7 entries (2^6-2^8), a block of
+    # eight tasks (2^9-2^11), the task sizes of the large tables (2^17-2^20)
+    beta_bits = (0, 1, 5, 6, 7, 8, 9, 10, 11, 13, 17, 18, 20)
     for k in beta_bits:
         r = canon(2, 2 * k + 1)[:, ::2]                # strided r[:, :k]
         ins = (chains.BETA, canon(2), r[:, :k], 1 << k, dev)
@@ -1322,7 +1330,9 @@ def main():
                   f"3 beta tables of 2^{k} entries, strided rs")
     chain("gf_table", (chains.BETA, canon(2, 63), canon(2, 63, 13), 1 << 10,
                        dev), "63 beta tables of 2^10 entries")
-    power_n = (0, 1, 7, 256, 1000, 4096, (1 << 20) - 3)
+    # host factors at k = 0..20 bits (n = 2^k), and n not a power of two
+    power_n = tuple(1 << k for k in range(21)) + (0, 7, 1000, 4097,
+                                                   (1 << 20) - 3)
     for n in power_n:
         base = tuple(int(v) for v in rng.integers(0, M, 2, dtype=np.uint64))
         ins = (chains.POWER, base, None, n, dev)
@@ -1378,15 +1388,18 @@ def main():
     say(f"phase 3 X1 chains ok: gf_table and gf_segsum == their plain twins "
         f"bit for bit in {n_chain} calls on canonical inputs: beta tables of "
         f"2^k entries, k in {beta_bits} (k <= 13 also 3 tables, strided), "
-        f"63 of 2^10; power tables of a by-value base, n in {power_n}, of "
-        f"tensor bases; tree sums of lengths {tree_n}, rank 2 and 3, "
+        f"63 of 2^10; power tables of a by-value base (its squarings from "
+        f"the host), n in {power_n}, of tensor bases; tree sums of lengths "
+        f"{tree_n}, rank 2 and 3, "
         f"transposed; plans: {list(plans)}; one launch a call, none for an "
         f"empty output")
     def time_largest(largest):
-        """Each shape's time beside its bound.  These calls take longer on
-        the card than their host issue, so CUDA events around back-to-back
-        calls time the device (and keep the profiler for the per-shape
-        rows at the end)."""
+        """Each shape's time beside its bound: CUDA events around
+        back-to-back calls.  The profiler is kept for the per-shape rows at
+        the end (profiles here make the closing ones miss launches); a call
+        whose host issue takes longer than its device time (gf_table's
+        2^20-entry tables) reads as its host issue, and
+        scripts/check_transforms.py profiles those."""
         timed = []
         for what, (entry, ins) in largest.items():
             ms = event_ms(torch, lambda: cuda_fn[entry](*ins),
@@ -1436,10 +1449,30 @@ def main():
          False),
         ("one point", (2, 1), 0, False, False),
         ("an empty lead", (2, 0, 128), 12, False, False)]
+    # the radix-4 passes: odd and even stage counts, one launch
+    fft_shapes += [(f"2^{lg} onto 2^{lg}, 3 rows", (2, 3, 1 << lg), lg,
+                    lg % 2 == 0, False) for lg in range(1, 13)]
     for what, shape, lg, inverse, timed in fft_shapes:
         x = canon(*shape)
         transform("gf_fft", (x,) + fft._inverse(shape[-1], rou(lg))
                   if inverse else (x, lg, rou(lg)), what, timed)
+    # a root's twiddles are made outside a capture, never during one: a
+    # root no call has used yet raises on the capturing stream
+    fresh = gf.pow_int(rou(9), 3)
+    if (fresh, 9, dev) in fft._TWIDDLES or any(
+            k[0] == fresh for k in fft._TWIDDLES):
+        fail("phase 3: the fresh root's twiddles exist already")
+    graph, x = torch.cuda.CUDAGraph(), canon(2, 4, 512)
+    try:
+        with torch.cuda.graph(graph):
+            fft.fft_cuda(x, 9, fresh)
+        fail("gf_fft made a twiddle table inside a capture")
+    except RuntimeError as exc:
+        if "capturing" not in str(exc):
+            raise
+    del graph
+    transform("gf_fft", (x, 9, fresh), "a fresh root of order 2^9 after "
+              "the refused capture")
     transform("gf_fft", (canon(2, 64, 256)[..., 128:], 12, rou(12)),
               "strided rows x[..., 128:] onto 2^12")
     transform("gf_fft", (canon(2, 64, 16, 128).transpose(1, 2), 12, rou(12)),
@@ -1459,12 +1492,14 @@ def main():
               "a codeword, w and r read at stride 2")
     say(f"phase 3 X1 transforms ok: gf_fft and gf_fri_fold == their plain "
         f"twins bit for bit in {n_tr} calls on canonical inputs: "
-        f"{[f[0] for f in fft_shapes]}, strided and transposed rows; folds "
+        f"{[f[0] for f in fft_shapes]}, strided and transposed rows, a "
+        f"fresh root after a capture that asked for its twiddles raised; "
+        f"folds "
         f"{[f[0] for f in fold_shapes]}, strided; launches as "
         f"fft.launches(lg_coef), one a fold, none for an empty output")
     say(f"phase 3 X1 transforms, time of the largest shapes ({card}; CUDA "
-        f"events over {PROFILE_REPS['gf_fft']} calls each; gf_fft with its "
-        f"twiddle table): " + time_largest(largest))
+        f"events over {PROFILE_REPS['gf_fft']} calls each; gf_fft's "
+        f"twiddles made before): " + time_largest(largest))
 
     # ---- phase 3, X1 inits: gkr_p1_inits and gkr_p2_inits at fixed shapes -
     def init_circuit(layers, bits, seed, long=0):

@@ -9,9 +9,10 @@ chip_smoke.py's report line carries: walls (median, min, max, in ms),
 device busy ms and kernels of the profiled calls, proofs per second of
 the batched replays, sharded walls per rank and the run's length, and the
 GKR init stages' profiled device ms and bound ms by rows.  For the SASS it prints the static instruction count of ``gf_fft_tile``'s
-butterfly loop (the smallest loop holding its four shared-memory loads
-and stores), of the loops nested in it (the twiddle index's), and the
-loop's most frequent opcodes.
+pass loop (the smallest loop holding four shared-memory loads and stores
+and two global loads: the four-slot kernel's pass, both radix
+branches), of the loops nested in it, and the loop's most frequent
+opcodes.
 """
 
 import collections
@@ -71,8 +72,10 @@ def init_kernels(lines):
 
 
 def butterfly_loop(sass: str) -> dict:
-    """The static size of gf_fft_tile's butterfly loop in the SASS."""
-    body = sass[sass.index("gf_fft_tile"):]
+    """The static size of gf_fft_tile's pass loop in the SASS: the
+    four-slot kernel's (gf_fft_tile<4>) where the library has one."""
+    four = sass.find("gf_fft_tileILi4E")
+    body = sass[four if four >= 0 else sass.index("gf_fft_tile"):]
     nxt = body.find("Function :")
     body = body if nxt < 0 else body[:nxt]
     ins = [(int(m.group(1), 16), m.group(2), m.group(3))

@@ -15,6 +15,14 @@ segments of the last axis; on a CUDA tensor each is one launch of
   ``_prove_p2_combine`` on the phase-2 fold results of small ``randomize``
   circuits (one with bound terms below a layer's largest dad table, one
   without), and with a batch lead (3,) == three single calls;
+* ``emulate_gf_table``, a host copy of ``gf_table``'s blocks (the task
+  size rule with the constants read from the source; the block's
+  factors: beta r_j and 1 - r_j, a by-value base's host squarings from
+  ``chains.power_factors``, a tensor base's squarings; the four groups of
+  bits a lane, chunk, warp and block; one product an entry) on ``gf``'s
+  plain ops, == ``table_plain`` and the JAX functions for beta and power
+  tables at k = 0, 1, 2, 5, 8, 9, 13, at forced small tasks and at 40
+  bits;
 * the twins run with the dispatching chains and field ops patched to
   raise, so on the card they launch no kernel of X1;
 * the CPU dispatch counts ``kernels.PLAIN_CALLS`` and launches nothing;
@@ -24,6 +32,7 @@ Inputs are canonical, from numpy with a seed; field arithmetic is exact,
 so the tolerance is 0.  The kernels run only on a card: chip_smoke.py holds
 them against the twins there."""
 
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -209,6 +218,162 @@ def test_p2_combine_batch_equals_single_calls(combine):
         for i, (polys, claims) in single.items():
             assert torch.equal(got[i][0][:, :, b], polys), (b, i)
             assert torch.equal(got[i][1][:, :, b], claims), (b, i)
+
+
+# ---------------------------------------------------------------------------
+# gf_table's warp tasks on the host
+# ---------------------------------------------------------------------------
+
+def _table_constants(*names):
+    """constexpr int constants of csrc/gf_chains.cu."""
+    src = (kernels.CSRC / "gf_chains.cu").read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in names]
+
+
+TASK_LOG, MIN_TASK_LOG, TABLE_BLOCKS = _table_constants(
+    "TASK_LOG", "MIN_TASK_LOG", "TABLE_BLOCKS")
+
+
+def emulate_gf_table(op, a, r, n, task_log=TASK_LOG,
+                     min_task_log=MIN_TASK_LOG, table_blocks=TABLE_BLOCKS,
+                     only=None):
+    """vpt_gf_table and gf_table with every thread of every block side by
+    side: the same task size rule, the block's factors (beta r_j and
+    1 - r_j, a by-value base's host squarings from ``chains.power_factors``,
+    a tensor base's squarings), the four groups of bits (lo over a lane's
+    five bits, mid over a chunk's with the init, wrp over a warp's three,
+    blk over a block's, each the product of its factors) and one product
+    hb[chunk] lo[lane] an entry, on gf's plain ops.  Returns (tables,
+    task_log); with `only` (block indices, one table) the (2, blocks,
+    2^(task_log + 3)) entries of those blocks instead of the tables."""
+    mul = gf.mul_plain
+    one = lambda *s: gf.ones(s, "cpu")
+    tensor = isinstance(a, torch.Tensor)
+    k = max(n - 1, 0).bit_length()
+    lead = a.shape[1] if tensor and a.dim() == 2 else 1
+    blocks = lambda log: -(-n >> (log + 3))
+    while task_log > min_task_log and blocks(task_log) * lead < table_blocks:
+        task_log -= 1
+    tl, nblk = task_log, blocks(task_log)
+    assert nblk * lead < 1 << 31
+    out = []
+    for t in range(lead):
+        f1, f0 = one(64), one(64)
+        init = one(1)[:, 0]
+        if op == chains.BETA:
+            rt = r[:, t] if r.dim() == 3 else r
+            f1[:, :k] = rt[:, :k]
+            f0[:, :k] = gf.sub_plain(one(k), rt[:, :k])
+            init = a[:, t] if a.dim() == 2 else a
+        elif tensor:
+            x = a[:, t] if a.dim() == 2 else a
+            for j in range(k):
+                f1[:, j] = x
+                x = mul(x, x)
+        else:
+            words = list(chains.power_factors(tuple(a), k))[:2 * k]
+            f1[:, :k] = torch.tensor(words, dtype=torch.int64).reshape(
+                -1, 2).T
+
+        def group(j0, bits, limit, sel):
+            """prod_{b < bits, j0 + b < limit} (bit b of sel ? f1 : f0)
+            [j0 + b], for each value of the tensor sel."""
+            x = one(*sel.shape)
+            for b in range(bits):
+                if j0 + b < limit:
+                    x = mul(x, torch.where(((sel >> b) & 1).bool(),
+                                           f1[:, j0 + b, None],
+                                           f0[:, j0 + b, None]))
+            return x
+
+        idx = torch.arange(32)
+        lo = group(0, 5, k, idx)
+        mid = mul(init[:, None], group(5, 5, min(tl, k), idx))
+        wrp = group(tl, 3, k, torch.arange(8))
+        bt = torch.arange(nblk) if only is None else only
+        blk = group(tl + 3, max(k - tl - 3, 0), k, bt)    # (2, blocks)
+        hb = mul(mul(blk[:, :, None], wrp[:, None, :])[..., None],
+                 mid[:, None, None, :])                   # (2, blk, warp, lane)
+        ent = mul(hb[..., :1 << (tl - 5), None], lo[:, None, None, None, :])
+        ent = ent.reshape(2, bt.shape[0], -1)
+        if only is not None:
+            return ent, tl
+        out.append(ent.reshape(2, -1)[:, :n])
+    got = torch.stack(out, 1)
+    return (got if tensor and a.dim() == 2 else got[:, 0]), tl
+
+
+EMU_BITS = (0, 1, 2, 5, 8, 9, 13)
+
+
+@pytest.mark.parametrize("k", EMU_BITS)
+def test_table_tasks_match_the_twin_and_jax(tables, k):
+    """Beta tables (one, and three batched over strided rs) and power
+    tables (a by-value base, n not a power of two past k = 1; two tensor
+    bases) at 2^k entries == table_plain, and == JAX where the module's
+    fixture holds k (BITS)."""
+    rng = np.random.default_rng(16 + k)
+    T = gf.tensor
+    if k in BITS:
+        init, r, inits, rs, want, want_b = tables[0][k]
+        rs_t = T(np.ascontiguousarray(rs.base))[..., ::2]
+    else:
+        init, r, inits = _canon(rng, 2), _canon(rng, 2, k), _canon(rng, 2, 3)
+        rs_t, want, want_b = T(_canon(rng, 2, 3, k)), None, None
+    n = 1 << k
+    base = tuple(int(v) for v in _canon(rng, 2))
+    cases = [(chains.BETA, T(init), T(r)[:, :k], n, want),
+             (chains.BETA, T(inits), rs_t[..., :k], n, want_b),
+             (chains.POWER, base, None, n - (k > 1), None),
+             (chains.POWER, T(_canon(rng, 2, 2)), None, n, None)]
+    for op, a, r_, m, w in cases:
+        got, _ = emulate_gf_table(op, a, r_, m)
+        if w is not None:
+            assert np.array_equal(gf.to_numpy(got), w), (op, m)
+        assert torch.equal(got, chains.table_plain(op, a, r_, m, "cpu"))
+
+
+@pytest.mark.parametrize("n", POWERS)
+def test_power_table_tasks_match_jax(tables, n):
+    base, els, want, want_els = tables[1][n]
+    got, _ = emulate_gf_table(chains.POWER, base, None, n)
+    assert np.array_equal(gf.to_numpy(got), want)
+    got, _ = emulate_gf_table(chains.POWER, gf.tensor(els), None, n)
+    for c in range(3):
+        assert np.array_equal(gf.to_numpy(got[:, c]), want_els[c])
+
+
+# (op, k, task_log, least task_log): a by-value power table of 40 bits
+# (2^26 blocks, their bits past 32 tested), beta and power at a forced
+# small task (several warps and blocks a table, one and two chunks a warp)
+@pytest.mark.parametrize("op, k, task_log, min_log", [
+    (chains.POWER, 40, 10, 10), (chains.BETA, 12, 7, 5),
+    (chains.POWER, 11, 6, 6)])
+def test_table_tasks_at_forced_sizes(op, k, task_log, min_log):
+    rng = np.random.default_rng(17 + k)
+    T = gf.tensor
+    if op == chains.BETA:
+        a, r, n = T(_canon(rng, 2, 2)), T(_canon(rng, 2, 2, k)), 1 << k
+    else:
+        a, r = tuple(int(v) for v in _canon(rng, 2)), None
+        n = (1 << (k - 1)) + 77
+    if k > 32:
+        # 2^39 + 77 entries: a few blocks (the first, ones with high bits
+        # set, the last) against pow_int
+        only = torch.tensor([0, 1, (1 << 25) + 5, (1 << 26) - 1,
+                             (n - 1) >> (min_log + 3)])
+        got, log = emulate_gf_table(op, a, r, n, task_log, min_log, 1 << 30,
+                                    only)
+        assert log == min_log
+        for i, q in enumerate(only.tolist()):
+            for e in (0, 1, 31, 4095, 8191):
+                want = gf.pow_int(a, (q << (log + 3)) + e)
+                assert tuple(got[:, i, e].tolist()) == want, (q, e)
+        return
+    got, log = emulate_gf_table(op, a, r, n, task_log, min_log, 1 << 30)
+    assert log == min_log
+    assert torch.equal(got, chains.table_plain(op, a, r, n, "cpu"))
 
 
 def _raise(*args):

@@ -12,11 +12,16 @@ plain twins (``fft_plain``, ``ifft_plain``, ``fold_step_plain``).  Here:
   (), (64,) and (4, 64), and strided input rows;
 * ``fold_step`` == JAX ``fold_step`` at small N, and a batch of codewords
   == one call a codeword;
-* ``emulate_gf_fft``, a line-by-line host copy of ``gf_fft_tile``'s
-  index arithmetic (which tile slot a thread loads, pairs, twiddles and
-  stores) run with ``gf``'s plain ops, == ``fft_plain`` on the
-  shared-memory route (one launch) and on the multi-launch route at a
-  forced small tile, writing every output exactly once;
+* ``emulate_gf_fft``, a host copy of ``gf_fft_tile``'s passes (the
+  launch split and block rule, with the constants read from the source;
+  which four slots a thread holds in each pass, the radix-2 and radix-4
+  passes with the fourth root +-i, the twiddles' 32-bit indices into
+  ``fft.stage_tables``, the stores) run with ``gf``'s plain ops, ==
+  ``fft_plain`` at stage counts 0-13 (odd and even), at the timed prove's
+  (lg_coef, order) pairs and on the multi-launch route, natural and at a
+  forced small tile, each pass holding every slot once and each launch
+  writing every output once; and == the JAX functions on the module's
+  FFT and IFFT cases;
 * ``kernels.row_layout`` (the rows the kernels read in place);
 * the twins call only ``gf``'s plain ops, a CPU call counts
   ``kernels.PLAIN_CALLS`` and launches nothing, a CUDA tensor reaches the
@@ -27,6 +32,7 @@ so the tolerance is 0 everywhere.  The kernels run only on a card:
 chip_smoke.py holds them against the twins there."""
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +47,20 @@ from virgo_plus_tpu_torch.field import chains, gf
 from virgo_plus_tpu_torch.pc import fft, virgo_pc
 
 M = gf.MOD
-BLOCK_LOG = 9    # csrc/gf_fft.cu: least entries a block holds
+
+
+def _source_constants(*names):
+    """constexpr int constants of csrc/gf_fft.cu."""
+    src = (kernels.CSRC / "gf_fft.cu").read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in names]
+
+
+# csrc/gf_fft.cu: entries a block (log2), the grid's least blocks before a
+# block takes fewer columns, the threads at four slots below which a
+# thread takes two, the most stages a launch
+BLOCK_LOG, FFT_BLOCKS, FFT_PAIRS_BELOW, TILE_LOG = _source_constants(
+    "BLOCK_LOG", "FFT_BLOCKS", "FFT_PAIRS_BELOW", "TILE_LOG")
 # (lg_coef, log_order, lead): the paths' shapes (the slice IFFTs at 2^7 and
 # 2^8, 128 coefficients onto 2^10 points) and edges (one coefficient, one
 # point, short rows several to a block)
@@ -141,7 +160,7 @@ def test_fold_step_batch_equals_single_calls():
 
 
 # ---------------------------------------------------------------------------
-# gf_fft_tile's schedule on the host
+# gf_fft_tile's passes on the host
 # ---------------------------------------------------------------------------
 
 def _bitrev(t, k):
@@ -151,97 +170,224 @@ def _bitrev(t, k):
     return out
 
 
+def _insert0(b, pos):
+    return ((b >> pos) << (pos + 1)) | (b & ((1 << pos) - 1))
+
+
+def _pass_of(k, g, i, V=4):
+    """pass_of<V>: (first stage r, radix 4, hi, lo)."""
+    if V == 2:
+        return (i, False, k - 1 - i + g, 0) if k else (0, False, 0, 0)
+    if k == 0:
+        return 0, False, 1, 0
+    if k & 1:
+        if i == 0:
+            return 0, False, k - 1 + g, k - 2 + g if k >= 3 else g - 1
+        r = 2 * i - 1
+    else:
+        r = 2 * i
+    return r, True, k - 1 - r + g, k - 2 - r + g
+
+
+def _at(tw, idx):
+    """tw (N, 2) rows at idx -> (2, *idx.shape)."""
+    return tw[torch.from_numpy(idx)].movedim(-1, 0)
+
+
 def emulate_gf_fft(coeffs, log_order, rou_int, scale=None,
-                   tile_log=fft.TILE_LOG, block_log=BLOCK_LOG):
-    """vpt_gf_fft and gf_fft_tile with every block of a launch side by
-    side: the same launch split, tile and block sizes, and the same index
-    formulas for loads, butterfly slots, twiddle exponents and stores, on
-    gf's plain ops.  Asserts that each launch writes every output once."""
+                   tile_log=TILE_LOG, block_log=BLOCK_LOG,
+                   fft_blocks=FFT_BLOCKS, pairs_below=FFT_PAIRS_BELOW):
+    """vpt_gf_fft and gf_fft_tile with every thread of every block of a
+    launch side by side: the same launch split, choice of two or four
+    slots a thread, block rule, slot groups, twiddle indices and radix-2 /
+    radix-4 arithmetic, on gf's plain ops.  Asserts that each pass's
+    groups hold every slot of a block once and that each launch writes
+    every output once.  Returns (evaluations, launches, the slots a thread
+    of each launch)."""
     lg_coef = coeffs.shape[-1].bit_length() - 1
     L, order = log_order, 1 << log_order
     lead = tuple(coeffs.shape[1:-1])
     R = math.prod(lead)
     src = coeffs.reshape(2, R, -1)
-    tw = chains.table_plain(chains.POWER, rou_int, None, order // 2, "cpu")
+    tw = fft.stage_tables(chains.table_plain(chains.POWER, rou_int, None,
+                                             order // 2, "cpu"))
+    i_neg = L >= 2 and gf.pow_int(rou_int, 1 << (L - 2)) == (0, M - 1)
+    neg = lambda v: gf.neg_plain(v)
     n = max(1, -(-lg_coef // tile_log))
-    D, in_log = lg_coef - 1, lg_coef
+    D, in_log, Vs = lg_coef - 1, lg_coef, []
     for i in range(n):
         k = lg_coef // n + (i < lg_coef % n)
         cols_log = L - k
         cols = R << cols_log
-        g = max(block_log - k, 0)
-        while g > 0 and (1 << (g - 1)) >= cols:
+        V = 2 if k <= block_log and cols << k < 4 * pairs_below else 4
+        v_log = V.bit_length() - 1
+        g_min = v_log - k if k < v_log else 0
+        g = block_log - k if k < block_log else 0
+        blocks = lambda g: -(-cols // (1 << g))
+        while g > g_min and blocks(g) < fft_blocks:
             g -= 1
         E = 1 << (k + g)
-        gmask, cmask, low = (1 << g) - 1, (1 << cols_log) - 1, D - k + 1
-        C0 = np.arange(-(-cols // (1 << g)), dtype=np.int64)[:, None] << g
-        s = np.arange(E, dtype=np.int64)[None, :]
-        C = C0 + (s & gmask)                              # (blocks, E)
-        valid = C < cols
-        c, row = C & cmask, np.minimum(C >> cols_log, R - 1)
-        x = (c & ((1 << low) - 1)) | ((s >> g) << low) | ((c >> low)
-                                                          << (D + 1))
-        sm = src[:, torch.from_numpy(row), torch.from_numpy(
-            x & ((1 << in_log) - 1))]                     # (2, blocks, E)
-        for r in range(k):
-            dep, p = D - r, k - 1 - r
-            b = np.arange(E // 2, dtype=np.int64)[None, :]
-            cc, tb = b & gmask, b >> g
-            te = ((tb >> p) << (p + 1)) | (tb & ((1 << p) - 1))
-            j = ((C0 + cc) & cmask) >> low
-            for q in range(r):
-                j = j | (((te >> (k - r + q)) & 1) << (L - D - 2 + r - q))
-            e = j << dep
-            assert e.max() < order // 2
-            se = (te << g) | cc
-            so = se + (1 << (p + g))
-            se, so = (torch.from_numpy(np.broadcast_to(a, e.shape).copy())
-                      for a in (se, so))
-            blk = torch.arange(e.shape[0])[:, None]
-            t = gf.mul_plain(tw[:, torch.from_numpy(e)], sm[:, blk, so])
-            ev = sm[:, blk, se]
-            sm = sm.clone()
-            sm[:, blk, se] = gf.add_plain(ev, t)
-            sm[:, blk, so] = gf.sub_plain(ev, t)
-        if scale is not None and i == n - 1:
-            sm = gf.mul_plain(sm, gf.full((1,), scale[0], scale[1]))
-        o = ((C >> cols_log) * order + c
-             + (_bitrev(np.broadcast_to(s >> g, C.shape), k) << cols_log))
-        o = o[valid]
-        assert np.array_equal(np.sort(o), np.arange(R * order))
+        C0 = (np.arange(blocks(g), dtype=np.int64) << g)[:, None]
+        b = np.arange(E >> v_log, dtype=np.int64)[None, :]
+        low, gmask, cmask = D - k + 1, (1 << g) - 1, (1 << cols_log) - 1
+        col = lambda s: C0 + (s & gmask)
+
+        def slots(P):
+            _, _, hi, lo = P
+            if V == 2:
+                s0 = _insert0(b, hi)
+                ss = [s0, s0 | (1 << hi)]
+            else:
+                s0 = _insert0(_insert0(b, lo), hi)
+                ss = [s0 | ((e & 1) << lo) | ((e >> 1) << hi)
+                      for e in range(4)]
+            assert np.array_equal(np.sort(np.concatenate(ss, 1)[0]),
+                                  np.arange(E))
+            return ss
+
+        def twiddles(P, s0):
+            r, radix4, _, lo = P
+            dep = D - r
+            base = order - (order >> dep)
+            high = lambda s: (col(s) & cmask) >> low
+            top = _bitrev((s0 >> g) >> (k - r), r) if r else 0 * s0
+            j = high(s0) | (top << (L - 1 - D))
+            if V == 2:
+                return [_at(tw, base + j)]
+            if not radix4:
+                return [_at(tw, base + high(s0)),
+                        _at(tw, base + high(s0 | (1 << lo)))]
+            below, half = order - (order >> (dep - 1)), order >> dep
+            assert j.max() < half // 2
+            j3 = 3 * j
+            w_c = _at(tw, below + np.where(j3 < half, j3, j3 - half))
+            w_c = torch.where(torch.from_numpy(j3 >= half), neg(w_c), w_c)
+            return [_at(tw, base + j), _at(tw, below + j), w_c]
+
+        def run(P, w, x):
+            mul, add, sub = gf.mul_plain, gf.add_plain, gf.sub_plain
+            if V == 2:
+                t = mul(w[0], x[1])
+                return [add(x[0], t), sub(x[0], t)]
+            if not P[1]:
+                t0, t1 = mul(w[0], x[2]), mul(w[1], x[3])
+                return [add(x[0], t0), add(x[1], t1), sub(x[0], t0),
+                        sub(x[1], t1)]
+            c, bb, d = mul(w[0], x[2]), mul(w[1], x[1]), mul(w[2], x[3])
+            u, v, sp, dm = add(x[0], c), sub(x[0], c), add(bb, d), sub(bb, d)
+            idm = (torch.stack([dm[1], neg(dm[0])]) if i_neg
+                   else torch.stack([neg(dm[1]), dm[0]]))
+            return [add(u, sp), sub(u, sp), add(v, idm), sub(v, idm)]
+
+        P = _pass_of(k, g, 0, V)
+        ss, x = slots(P), []
+        for s in ss:
+            C = col(s)
+            row = np.minimum(C >> cols_log, R - 1)
+            c = C & cmask
+            xi = ((c & ((1 << low) - 1)) | ((s >> g) << low)
+                  | ((c >> low) << (D + 1)))
+            v = src[:, torch.from_numpy(row),
+                    torch.from_numpy(xi & ((1 << in_log) - 1))]
+            x.append(torch.where(torch.from_numpy(C < cols), v, 0))
+        passes = k if V == 2 else (k + 1) // 2
+        for pi in range(passes):
+            x = run(P, twiddles(P, ss[0]), x)
+            if pi + 1 == passes:
+                break
+            sm = torch.zeros((2, C0.shape[0], E), dtype=torch.int64)
+            blk = torch.arange(C0.shape[0])[:, None]
+            for s, v in zip(ss, x):
+                sm[:, blk, torch.from_numpy(s)] = v
+            P = _pass_of(k, g, pi + 1, V)
+            ss = slots(P)
+            x = [sm[:, blk, torch.from_numpy(s)] for s in ss]
         dst = torch.zeros((2, R * order), dtype=torch.int64)
-        dst[:, torch.from_numpy(o)] = sm[:, torch.from_numpy(valid)]
+        outs = []
+        for s, v in zip(ss, x):
+            if scale is not None and i == n - 1:
+                v = gf.mul_plain(v, gf.full((1,), scale[0], scale[1]))
+            C = col(s)
+            valid = C < cols
+            o = (((C >> cols_log) << L) + (C & cmask)
+                 + (_bitrev(np.broadcast_to(s >> g, C.shape), k) << cols_log))
+            dst[:, torch.from_numpy(o[valid])] = v[:, torch.from_numpy(valid)]
+            outs.append(o[valid])
+        assert np.array_equal(np.sort(np.concatenate(outs)),
+                              np.arange(R * order))
         src = dst.reshape(2, R, order)
         D, in_log = D - k, L
-    return src.reshape((2,) + lead + (order,)), n
+        Vs.append(V)
+    return src.reshape((2,) + lead + (order,)), n, Vs
 
 
-# (lg_coef, log_order, lead, tile_log, block_log, launches): the paths'
-# shapes on the one-launch route, then a forced small tile (2 and 3
-# launches, the ping-pong through the scratch buffer, blocks that hold
-# several tiles and several rows)
-EMULATED = [(7, 12, (64,), fft.TILE_LOG, BLOCK_LOG, 1),
-            (7, 7, (64,), fft.TILE_LOG, BLOCK_LOG, 1),
-            (8, 8, (2, 3), fft.TILE_LOG, BLOCK_LOG, 1),
-            (11, 11, (), fft.TILE_LOG, BLOCK_LOG, 1),
-            (0, 4, (3,), fft.TILE_LOG, BLOCK_LOG, 1),
-            (3, 3, (5,), fft.TILE_LOG, BLOCK_LOG, 1),
-            (10, 10, (2,), 5, 6, 2), (7, 9, (3,), 4, 5, 2),
-            (9, 9, (), 3, 4, 3), (8, 11, (2,), 3, 2, 3)]
+# (lg_coef, log_order, lead, tile_log, block_log, pairs_below, launches,
+# slots a thread of each launch): stage counts 0-13, odd and even, one
+# coefficient onto many points, a one-stage tile (its radix-2 pass pairs
+# two columns), the timed prove's pairs (128 coefficients onto 2^12 at 64
+# rows, the IFFTs at 2^7 and 2^8 over 64 rows: two slots a thread), short
+# rows several to a block; 2^13 (two launches); then a forced small tile
+# (2 and 3 launches, the ping-pong through the scratch buffer, blocks that
+# hold several tiles and several rows), four slots forced where two would
+# be taken and two forced where four would
+P2 = FFT_PAIRS_BELOW
+EMULATED = [(7, 12, (64,), TILE_LOG, BLOCK_LOG, P2, 1, [4]),
+            (7, 7, (64,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (8, 8, (64,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (8, 8, (2, 3), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (11, 11, (), TILE_LOG, BLOCK_LOG, P2, 1, [4]),
+            (0, 4, (3,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (0, 0, (), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (1, 1, (), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (1, 3, (3,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (2, 2, (3,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (3, 3, (5,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (5, 9, (2,), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (9, 9, (), TILE_LOG, BLOCK_LOG, P2, 1, [2]),
+            (13, 13, (), TILE_LOG, BLOCK_LOG, P2, 2, [2, 2]),
+            (7, 7, (64,), TILE_LOG, BLOCK_LOG, 0, 1, [4]),
+            (0, 4, (3,), TILE_LOG, BLOCK_LOG, 0, 1, [4]),
+            (1, 3, (3,), TILE_LOG, BLOCK_LOG, 0, 1, [4]),
+            (3, 3, (5,), TILE_LOG, BLOCK_LOG, 0, 1, [4]),
+            (5, 9, (2,), TILE_LOG, BLOCK_LOG, 0, 1, [4]),
+            (13, 13, (), TILE_LOG, BLOCK_LOG, 0, 2, [4, 4]),
+            (7, 12, (64,), TILE_LOG, BLOCK_LOG, 1 << 20, 1, [2]),
+            (10, 10, (2,), 5, 6, P2, 2, [2, 2]),
+            (7, 9, (3,), 4, 5, 0, 2, [4, 4]),
+            (9, 9, (), 3, 4, P2, 3, [2, 2, 2]),
+            (8, 11, (2,), 3, 2, 0, 3, [4, 4, 4])]
 
 
 @pytest.mark.parametrize("case", EMULATED, ids=str)
 def test_kernel_schedule_matches_the_twin(case):
-    lg_coef, log_order, lead, tile_log, block_log, launches = case
+    (lg_coef, log_order, lead, tile_log, block_log, pairs_below, launches,
+     slots) = case
     rng = np.random.default_rng(35 + lg_coef)
     x = gf.tensor(_canon(rng, 2, *lead, 1 << lg_coef))
     rou = gf.root_of_unity_int(log_order)
     scale = tuple(int(v) for v in _canon(rng, 2))
-    got, n = emulate_gf_fft(x, log_order, rou, scale, tile_log, block_log)
-    assert n == launches
-    if tile_log == fft.TILE_LOG:
-        assert n == fft.launches(lg_coef)
+    got, n, Vs = emulate_gf_fft(x, log_order, rou, scale, tile_log,
+                                block_log, pairs_below=pairs_below)
+    assert n == launches and Vs == slots
+    if tile_log == TILE_LOG:
+        assert TILE_LOG == fft.TILE_LOG and n == fft.launches(lg_coef)
     assert torch.equal(got, fft.fft_plain(x, log_order, rou, scale))
+
+
+@pytest.mark.parametrize("case", FFT_CASES + [("ifft",) + c
+                                              for c in IFFT_CASES], ids=str)
+def test_kernel_schedule_matches_jax(refs, case):
+    """The emulated passes on the module's inputs == the JAX functions
+    (an IFFT at the inverse root with 1/n in the last store)."""
+    x, want = refs[case]
+    if case[0] == "ifft":
+        args = fft._inverse(x.shape[-1], gf.root_of_unity_int(case[1]))
+    else:
+        args = (case[1], gf.root_of_unity_int(case[1]))
+    for pairs_below in (FFT_PAIRS_BELOW, 0):      # as the kernel, four slots
+        got, _, _ = emulate_gf_fft(gf.tensor(x), *args,
+                                   pairs_below=pairs_below)
+        assert np.array_equal(gf.to_numpy(got), want)
 
 
 # ---------------------------------------------------------------------------

@@ -26,21 +26,30 @@
 //   beta:  out[., t, i] = init[t] * prod_{j<k} (bit_j(i) ? r[t, j] : 1 - r[t, j]),
 //          n = 2^k;
 //   power: out[., t, i] = base[t]^i, i < n, k = ceil(log2 n); the base is
-//          a tensor (2, L), or one element passed by value (L = 1).
-// A block covers 2^s consecutive entries of one table (s = min(k,
-// TABLE_LOG)): it loads the table's factors into shared memory once
-// (beta: r_j and 1 - r_j; power: base^(2^j), k squarings by one thread),
-// builds the 2^s-entry table of its low s bits in shared memory by
-// doubling (one product, and for beta one difference, per new entry), and
-// one thread computes the factor of its high k - s bits (at most k - s
-// products).  Each entry is then one product, written coalesced to both
-// planes: about two products per entry.  Strided inputs (r[:, :k],
-// rs[:, :, j:j+1]) are read in place from strides passed by value, the
-// by-value base needs no tensor, and nothing is copied from the host, so a
-// CUDA graph captures the launch.
-// What bounds it: the 16 bytes written per entry at 3.35 TB/s; the two
-// products per entry (24 32-bit multiplies) take a quarter of that at the
-// integer rate.  Below some thousands of entries a call is the launch.
+//          a tensor (2, L), or one element whose k factors base^(2^j) the
+//          host passes by value (L = 1).
+// Entry i is a product of one factor a bit, so it splits into four
+// groups of bits: a block writes 2^(task_log + 3) consecutive entries of
+// one table, a warp 2^task_log of them as 32-entry chunks, and entry
+// (block, warp, chunk, lane) = blk * wrp[warp] * mid[chunk] * lo[lane].  A
+// block loads the table's factors into shared memory once (beta: r_j and
+// 1 - r_j from strided r (r[:, :k], rs[:, :, j:j+1]) read in place; a
+// by-value base's squarings from the host, in the launch's arguments
+// (__grid_constant__: read in place), so nothing is copied from the host
+// and a CUDA graph captures the launch; a tensor base's k squarings by
+// one thread), then three warps make lo, mid and wb = blk wrp side by
+// side, each from four chains of products and a tree (depth 3 up to eight
+// bits, no product by one), one barrier; then a warp makes hb[chunk] =
+// wb[warp] mid[chunk] for its 32 chunks at once, lane by lane, and each
+// entry is one product hb[chunk] lo[lane], four chunks at a time, written
+// coalesced to both planes.  No shuffle (nothing the compiler must make
+// convergent), two barriers, and a dependent chain of five or six
+// products whatever the table's size.  task_log is the largest (at most TASK_LOG) that still
+// gives TABLE_BLOCKS blocks, down to MIN_TASK_LOG.
+// What bounds it: the 16 bytes written per entry at 3.35 TB/s; one
+// product an entry (12 32-bit multiplies) takes a quarter of that at the
+// integer rate.  Below some thousands of entries a call is the launch
+// and the chain of products.
 //
 // gf_segsum.  out (R, G) contiguous: R rows (the input's leading axes, up
 // to SEG_AXES, any strides), G segments of the last axis:
@@ -73,7 +82,9 @@ typedef long long i64;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TABLE_LOG = 8;          // log2 of the entries one block writes
+constexpr int TASK_LOG = 10;          // most entries (log2) a warp writes
+constexpr int MIN_TASK_LOG = 5;       // least: one chunk of 32
+constexpr int TABLE_BLOCKS = 128;     // blocks a table call asks for, entries allowing
 constexpr int MAX_BITS = 62;          // bits of a table index
 constexpr int MAX_BLOCKS = 132 * 16;  // grid cap of the grid-stride loops
 constexpr int SEG_AXES = 4;           // row axes of gf_segsum's input
@@ -85,84 +96,115 @@ enum { SEG_THREAD = 0, SEG_WARP = 1, SEG_BLOCK = 2 };
 
 __device__ __forceinline__ F2 one2() { return {1, 0}; }
 
+// gf_table's product: field.cuh's mul2_split (fewer instructions than
+// mul2 on the card, the same bits)
+__device__ __forceinline__ F2 mul(F2 x, F2 y) { return vpt::mul2_split(x, y); }
+
 // ---------------------------------------------------------------------------
 // gf_table
 // ---------------------------------------------------------------------------
 
 struct TableArgs {
-    const u64* a;        // init (beta) or base (power); null: by-value base
+    const u64* a;        // init (beta) or base (power); null: by-value factors
     const u64* r;        // beta challenges
     u64* out;
     i64 a_plane, a_lead;             // element strides of a
     i64 r_plane, r_lead, r_bit;      // element strides of r
-    u64 base_re, base_im;            // the by-value base
     long long n;                     // entries a table
-    int k, s, lead, chunks;          // index bits, low bits a block, tables, blocks a table
+    int k, lead, task_log, blocks;   // index bits, tables, a warp's entries, blocks a table
+    u64 f[2 * MAX_BITS];             // by-value factors base^(2^j): (re, im), j < k
 };
 
-template <int OP>
-__global__ void __launch_bounds__(THREADS) gf_table(TableArgs A) {
-    __shared__ u64 lo_re[1 << TABLE_LOG], lo_im[1 << TABLE_LOG];
-    __shared__ F2 f1[MAX_BITS], f0[MAX_BITS];   // beta: r_j, 1 - r_j; power: base^(2^j)
-    __shared__ F2 high;
-    const int t = blockIdx.x / A.chunks;
-    const long long first = (long long)(blockIdx.x - t * A.chunks) << A.s;
-    const int tid = threadIdx.x;
+// prod_{b < n} (bit b of sel ? f1 : f0)[j0 + b]: four chains of products
+// and a tree over the chains (depth 3 for n <= 8), no product by one
+__device__ __forceinline__ F2 bit_product(const F2* f1, const F2* f0, int j0, int n,
+                                          unsigned sel) {
+    F2 acc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        acc[u] = u < n ? ((sel >> u) & 1 ? f1[j0 + u] : f0[j0 + u]) : one2();
+    for (int b = 4; b < n; b += 4)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int c = b + u;
+            if (c < n)
+                acc[u] = mul(acc[u], c < 32 && ((sel >> c) & 1) ? f1[j0 + c] : f0[j0 + c]);
+        }
+    if (n > 1) acc[0] = mul(acc[0], acc[1]);
+    if (n > 3) acc[2] = mul(acc[2], acc[3]);
+    if (n > 2) acc[0] = mul(acc[0], acc[2]);
+    return acc[0];
+}
 
-    if constexpr (OP == TABLE_BETA) {
-        for (int j = tid; j < A.k; j += THREADS) {
-            const u64* rj = A.r + t * A.r_lead + j * A.r_bit;
+template <int OP>
+__global__ void __launch_bounds__(THREADS) gf_table(const __grid_constant__ TableArgs A) {
+    __shared__ F2 f1[MAX_BITS], f0[MAX_BITS];   // factor j, bit j set / clear
+    __shared__ F2 lo[32], mid[32], wb[WARPS], hb[WARPS][32];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int t = blockIdx.x / A.blocks;
+    const unsigned bt = blockIdx.x - t * A.blocks;        // the block in its table
+    const int tl = A.task_log;
+    // the factors, once a block
+    if (tid < A.k) {
+        if constexpr (OP == TABLE_BETA) {
+            const u64* rj = A.r + t * A.r_lead + tid * A.r_bit;
             const F2 r = {rj[0], rj[A.r_plane]};
-            f1[j] = r;
-            f0[j] = vpt::sub2(one2(), r);
-        }
-    } else if (tid == 0) {
-        F2 b = A.a ? F2{A.a[t * A.a_lead], A.a[t * A.a_lead + A.a_plane]}
-                   : F2{A.base_re, A.base_im};
-        for (int j = 0; j < A.k; ++j) {
-            f1[j] = b;
-            b = vpt::mul2(b, b);
+            f1[tid] = r;
+            f0[tid] = vpt::sub2(one2(), r);
+        } else {
+            if (!A.a) f1[tid] = {A.f[2 * tid], A.f[2 * tid + 1]};
+            f0[tid] = one2();
         }
     }
-    __syncthreads();
-    if (tid == 0) {
-        F2 h = OP == TABLE_BETA ? F2{A.a[t * A.a_lead], A.a[t * A.a_lead + A.a_plane]}
-                                : one2();
-        for (int j = A.s; j < A.k; ++j) {
-            if ((first >> j) & 1) h = vpt::mul2(h, f1[j]);
-            else if (OP == TABLE_BETA) h = vpt::mul2(h, f0[j]);
-        }
-        high = h;
-        lo_re[0] = 1;
-        lo_im[0] = 0;
-    }
-    __syncthreads();
-    // the low table by doubling: step j writes entries [2^j, 2^(j+1)) and,
-    // for beta, rewrites [0, 2^j)
-    for (int j = 0; j < A.s; ++j) {
-        const int half = 1 << j;
-        for (int i = tid; i < half; i += THREADS) {
-            const F2 x = {lo_re[i], lo_im[i]};
-            const F2 hi = vpt::mul2(x, f1[j]);
-            lo_re[i + half] = hi.re;
-            lo_im[i + half] = hi.im;
-            if (OP == TABLE_BETA) {
-                const F2 lo = vpt::sub2(x, hi);
-                lo_re[i] = lo.re;
-                lo_im[i] = lo.im;
+    F2 init = one2();
+    if (A.a) init = {A.a[t * A.a_lead], A.a[t * A.a_lead + A.a_plane]};
+    if (OP == TABLE_POWER && A.a) {
+        // a tensor base: its squarings, one thread
+        if (tid == 0) {
+            F2 x = init;
+            for (int j = 0; j < A.k; ++j) {
+                f1[j] = x;
+                x = mul(x, x);
             }
         }
-        __syncthreads();
+        init = one2();
     }
-    const F2 h = high;
+    __syncthreads();
+    // the factors of an entry's bit groups, side by side: its lane's five
+    // bits (lo), its chunk's task_log - 5 (mid, with the init), and its
+    // warp's three times its block's (wb)
+    const int bits = A.k < tl ? A.k : tl;    // the low bits the table has
+    if (warp == 0) {
+        lo[lane] = bit_product(f1, f0, 0, bits < 5 ? bits : 5, lane);
+    } else if (warp == 1) {
+        mid[lane] = bits > 5 ? mul(init, bit_product(f1, f0, 5, bits - 5, lane)) : init;
+    } else if (warp == 2 && lane < WARPS) {
+        const int w_bits = A.k - tl < 0 ? 0 : A.k - tl < 3 ? A.k - tl : 3;
+        const F2 w = bit_product(f1, f0, tl, w_bits, lane);
+        wb[lane] = A.k > tl + 3 ? mul(w, bit_product(f1, f0, tl + 3, A.k - tl - 3, bt)) : w;
+    }
+    __syncthreads();
+    // a warp's entries: hb[lane] = wb[warp] mid[lane] for its chunk lane,
+    // then one product an entry, four chunks at a time
+    const F2 l = lo[lane];
+    hb[warp][lane] = mul(wb[warp], mid[lane]);
+    __syncwarp();
+    const long long first = (((long long)bt << 3) + warp) << tl;
+    const int chunks = 1 << (tl - 5);
     const long long plane = (long long)A.lead * A.n;
     u64* out = A.out + t * A.n;
-    for (int i = tid; i < (1 << A.s); i += THREADS) {
-        const long long e = first + i;
-        if (e < A.n) {
-            const F2 v = vpt::mul2({lo_re[i], lo_im[i]}, h);
-            out[e] = v.re;
-            out[plane + e] = v.im;
+    for (int m = 0; m < chunks && first + (m << 5) < A.n; m += 4) {
+        F2 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (u == 0 || m + u < chunks) v[u] = mul(hb[warp][m + u], l);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const long long e = first + ((m + u) << 5) + lane;
+            if (m + u < chunks && e < A.n) {
+                out[e] = v[u].re;
+                out[plane + e] = v[u].im;
+            }
         }
     }
 }
@@ -280,26 +322,33 @@ int capped(long long blocks) { return (int)(blocks < MAX_BLOCKS ? blocks : MAX_B
 // out (2, lead, n) = the tables of op (0 beta, 1 power), k index bits
 // (n = 2^k for beta, n <= 2^k for power).  a: init (beta) or base
 // (power) with element strides (a_plane, a_lead); null for a power table
-// of the by-value base (base_re, base_im), lead = 1.  r: the beta
-// challenges, strides (r_plane, r_lead, r_bit).  One launch, none for an
-// empty output.
+// of a by-value base, lead = 1, whose k factors base^(2^j) are `factors`
+// (host memory, (re, im) pairs, copied into the launch's arguments).  r:
+// the beta challenges, strides (r_plane, r_lead, r_bit).  One launch, none
+// for an empty output.
 extern "C" int vpt_gf_table(int op, const u64* a, const u64* r, u64* out, int lead,
                             int k, long long n, long long a_plane, long long a_lead,
                             long long r_plane, long long r_lead, long long r_bit,
-                            u64 base_re, u64 base_im, void* stream_ptr) {
+                            const u64* factors, void* stream_ptr) {
     if (lead <= 0 || n <= 0) return 0;
-    if (k < 0 || k > MAX_BITS || n > (1ll << k) || (op == TABLE_BETA && (!a || (k && !r))))
+    if (k < 0 || k > MAX_BITS || n > (1ll << k) || (op == TABLE_BETA && (!a || (k && !r)))
+        || (op == TABLE_POWER && !a && (lead != 1 || (k && !factors))))
         return (int)cudaErrorInvalidValue;
-    const int s = k < TABLE_LOG ? k : TABLE_LOG;
-    const long long chunks = (n + (1ll << s) - 1) >> s;
-    if (chunks * lead >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-    const TableArgs A = {a, r, out, a_plane, a_lead, r_plane, r_lead, r_bit,
-                         base_re, base_im, n, k, s, lead, (int)chunks};
+    TableArgs A = {a, r, out, a_plane, a_lead, r_plane, r_lead, r_bit, n, k, lead,
+                   TASK_LOG, 0, {}};
+    // a block writes 2^(task_log + 3) entries: the largest task that still
+    // gives TABLE_BLOCKS blocks, down to MIN_TASK_LOG
+    auto blocks = [&](int log) { return (n + (1ll << (log + 3)) - 1) >> (log + 3); };
+    while (A.task_log > MIN_TASK_LOG && blocks(A.task_log) * lead < TABLE_BLOCKS) --A.task_log;
+    if (blocks(A.task_log) * lead >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    A.blocks = (int)blocks(A.task_log);
+    if (op == TABLE_POWER && !a)
+        for (int j = 0; j < 2 * k; ++j) A.f[j] = factors[j];
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-    const unsigned blocks = (unsigned)(chunks * lead);
+    const unsigned grid = (unsigned)(A.blocks * lead);
     switch (op) {
-        case TABLE_BETA: gf_table<TABLE_BETA><<<blocks, THREADS, 0, stream>>>(A); break;
-        case TABLE_POWER: gf_table<TABLE_POWER><<<blocks, THREADS, 0, stream>>>(A); break;
+        case TABLE_BETA: gf_table<TABLE_BETA><<<grid, THREADS, 0, stream>>>(A); break;
+        case TABLE_POWER: gf_table<TABLE_POWER><<<grid, THREADS, 0, stream>>>(A); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

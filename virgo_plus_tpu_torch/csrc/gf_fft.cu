@@ -21,20 +21,41 @@
 // So k consecutive stages dep = D, ..., D - k + 1 only ever pair entries
 // that differ in the k bits [D - k + 1, D] of the input index: a tile of 2^k
 // entries with the other L - k bits (its column c = low | high << (D - k + 1))
-// fixed.  A launch loads each tile into shared memory once, runs its k
-// stages in place (stage r pairs tile slots t and t | 2^(k-1-r), each
-// thread two slots, one barrier a stage) and writes slot t to
-// c + bitrev_k(t) 2^(L-k), which is where the k rotations put it.  The
-// twiddle of stage r is T[j 2^dep], dep = D - r, T[e] = rou^e (e < 2^(L-1),
-// one gf_table launch by the wrapper), j = high + the top r bits of t
-// reversed, placed at bits L - D - 2 + r - q (derivation: the rotations).
+// fixed.  Stage r of a tile pairs slots t and t | 2^p, p = k - 1 - r, with
+// the twiddle S_dep[j], S_dep = stage dep's table rou^(j 2^dep), j = high
+// + bitrev_r(t >> (p + 1)) 2^(L-1-D) (derivation: the rotations); slot t
+// ends at c + bitrev_k(t) 2^(L-k), which is where the k rotations put it.
+// Two stages r, r + 1 are one radix-4 pass: a thread holds the four slots
+// that differ in bits p and p - 1 in registers, with w_a = S_dep[j], w_b =
+// S_{dep-1}[j] (w_a = w_b^2) and w_c = S_{dep-1}[3j] (= w_b^3, -S[3j - half]
+// past the table's half), and writes
+//   y0 = (x0 + C) + (B + D), y1 = (x0 + C) - (B + D),
+//   y2 = (x0 - C) + I (B - D), y3 = (x0 - C) - I (B - D),
+// C = w_a x2, B = w_b x1, D = w_c x3, I = rou^(2^(L-2)) = +-i, where
+// I (a + bi) is a negation and a swap: three products for four
+// butterflies.  The butterflies are lazy: each product is folded once
+// (field.cuh mul2_fold, below p + 8), the sums carry multiples of p, and
+// each output word is reduced once.  An odd stage count starts with one
+// radix-2 pass (two butterflies a thread, one twiddle a column).  A
+// launch runs ceil(k / 2) passes: the first loads its slots from global
+// memory, each later one
+// takes them from shared memory after the one barrier a pass, and the
+// last stores to global memory; a pass's twiddles are loaded a pass
+// ahead, three (radix-2: two) 16-byte loads a thread, by 32-bit index
+// arithmetic and one __brev.  The twiddles are the table of the wrapper's
+// twiddle cache (pc/fft.py twiddles: every S_dep, (re, im) pairs, made
+// once per (root, order, device)), so a call makes no other launch.
 // Replicated coefficients need no copy: entry x of the first launch's
 // input is coefficient x mod coef_len, so a 128-coefficient row onto 4096
 // points is 32 tiles of 128 that all read the same row.  A block holds
-// 2^g tiles of consecutive columns (2^(k+g) >= 2^BLOCK_LOG entries where
-// the columns allow, several rows where rows are short), so that its
-// loads and stores run along consecutive columns: coalesced stores of
-// 2^g words, and coefficient reads that hit one row.  Up to TILE_LOG
+// 2^g tiles of consecutive columns (2^(k+g) = 2^BLOCK_LOG entries where the
+// columns allow, fewer while the grid has under FFT_BLOCKS blocks), a
+// thread a group of four slots, the columns in the threads' low bits, so
+// that loads and stores run along consecutive columns.  Where four slots
+// a thread would leave the grid under FFT_PAIRS_BELOW threads (the 64-row
+// IFFTs at 2^7 and 2^8: one warp a tile), a thread takes two slots and
+// the launch runs k radix-2 stages, twice the warps for a chain of
+// dependent products that is what bounds those calls.  Up to TILE_LOG
 // stages are one launch (32 KB of shared memory, under the 48 KB a block
 // gets without an attribute); more coefficients take ceil(lg_coef /
 // TILE_LOG) launches of near-equal stage counts through a scratch buffer.
@@ -44,24 +65,25 @@
 // srec:] is a strided view), so nothing is copied and nothing comes from
 // the host: a CUDA graph captures the launches.
 // What bounds it: the integer units, lg_coef butterflies per pair of
-// outputs, each a GF(p^2) product and two sums (chip_smoke.py's bound
-// counts 36 32-bit operations a butterfly; the three 64x64->128 products
-// and their Mersenne folds compile to several times that), before the
-// bytes (each coefficient read and each evaluation written once, 16 bytes
-// an element at 3.35 TB/s).
+// outputs (chip_smoke.py's bound counts 36 32-bit operations a radix-2
+// butterfly: a product and two sums; the radix-4 passes make three
+// products where that count has four, but a product is ~75 SASS
+// instructions and a radix-4 pass ~530 a thread), before the bytes (each
+// coefficient read and each evaluation written once, 16 bytes an element
+// at 3.35 TB/s).
 //
 // gf_fri_fold: a thread an output pair of words, the rows over grid axis
 // y; the codeword rows read in place like gf_fft's, w and r by strides.
 // What bounds it: 1.5 codeword words read a word written (48 bytes an
 // output element), three products' worth of integer work an element.
 //
-// Bits.  Every operation returns the canonical representative, so on the
+// Bits.  Every output word is the canonical representative, so on the
 // canonical inputs every caller passes, kernel and twin give the same
 // bits as the JAX package, whatever the order of the stages' work.
 //
-// Why CUDA and not Triton: exact 64-bit products (__umul64hi), shared
-// memory tiles with a barrier a stage, and the loader and launch counting
-// of kernels.py, shared with the other entries.
+// Why CUDA and not Triton: exact 64-bit products (__umul64hi), register
+// groups exchanged through shared memory, and the loader and launch
+// counting of kernels.py, shared with the other entries.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include "field.cuh"
@@ -73,9 +95,12 @@ namespace {
 
 typedef long long i64;
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;       // gf_fri_fold's block
 constexpr int TILE_LOG = 11;       // most stages a launch: 2^11 entries, 32 KB
-constexpr int BLOCK_LOG = 9;       // least entries a block, columns allowing
+constexpr int BLOCK_LOG = 10;      // entries a block (log2), columns allowing
+constexpr int FFT_BLOCKS = 264;    // fewer blocks: fewer columns a block
+constexpr int FFT_THREADS = 1 << (TILE_LOG - 2);   // a thread four slots
+constexpr int FFT_PAIRS_BELOW = 16384;   // fewer threads at four slots: two a thread
 constexpr int FFT_AXES = 3;        // lead axes of the input rows
 constexpr int MAX_LOG = 40;        // largest log2 of a transform's order
 constexpr int MAX_ROW_BLOCKS = 65535;   // grid axis y of gf_fri_fold
@@ -108,84 +133,214 @@ __device__ __forceinline__ i64 row_offset(const Rows& R, unsigned row) {
 struct FftArgs {
     const u64* in;
     Rows rows;
-    const u64* tw;       // T (2, 2^(L-1)) contiguous
-    u64* out;            // (2, R, 2^L) contiguous
-    long long R;         // rows
-    int L;               // log2 of the order
-    int k;               // stages of this launch
-    int D;               // its first stage's dep
-    int g;               // log2 of the tiles (columns) a block
-    int in_log;          // log2 of an input row's length
-    int scaled;          // multiply the stores by (s_re, s_im)
+    const ulonglong2* tw;   // S_dep at 2^L - 2^(L-dep), (re, im) pairs
+    u64* out;               // (2, R, 2^L) contiguous
+    unsigned cols;          // tiles: R 2^(L-k)
+    int L;                  // log2 of the order
+    int k;                  // stages of this launch
+    int D;                  // its first stage's dep
+    int g;                  // log2 of the tiles (columns) a block
+    int in_log;             // log2 of an input row's length
+    int i_neg;              // rou^(2^(L-2)) = -i (else i)
+    int scaled;             // multiply the stores by (s_re, s_im)
     u64 s_re, s_im;
 };
 
-__global__ void __launch_bounds__(THREADS) gf_fft_tile(FftArgs A) {
-    extern __shared__ u64 sm[];
-    const int E = 1 << (A.k + A.g);
-    u64* s_re = sm;
-    u64* s_im = sm + E;
-    const int cols_log = A.L - A.k;
-    const long long cols = A.R << cols_log;
-    const long long c_mask = (1ll << cols_log) - 1;
-    const long long C0 = (long long)blockIdx.x << A.g;
-    const int g_mask = (1 << A.g) - 1;
-    const int low = A.D - A.k + 1;             // column bits below the tile's
-    const long long order = 1ll << A.L;
-    const long long half = order >> 1;
-    const u64 in_mask = (1ull << A.in_log) - 1;
+// b with a zero bit inserted at pos
+__device__ __forceinline__ unsigned insert0(unsigned b, int pos) {
+    return ((b >> pos) << (pos + 1)) | (b & ((1u << pos) - 1));
+}
 
-    long long row_of = -1;     // the row of `in`, recomputed when it changes
-    const u64* in = A.in;
-    for (int s = threadIdx.x; s < E; s += THREADS) {
-        const long long C = C0 + (s & g_mask);
-        if (C >= cols) continue;
-        if (C >> cols_log != row_of) {
-            row_of = C >> cols_log;
-            in = A.in + row_offset(A.rows, (unsigned)row_of);
-        }
-        const long long c = C & c_mask;
-        const long long x = (c & ((1ll << low) - 1)) | ((long long)(s >> A.g) << low)
-                            | ((c >> low) << (A.D + 1));
-        const u64* p = in + (i64)(x & in_mask) * A.rows.term;
-        s_re[s] = p[0];
-        s_im[s] = p[A.rows.plane];
+__device__ __forceinline__ u64 negp(u64 x) { return x ? vpt::P - x : 0; }
+
+// the top r bits of t (of k) reversed
+__device__ __forceinline__ unsigned top_rev(unsigned t, int k, int r) {
+    return r ? __brev(t >> (k - r)) >> (32 - r) : 0;
+}
+
+__device__ __forceinline__ F2 tw_at(const ulonglong2* tw, unsigned e) {
+    const ulonglong2 w = tw[e];
+    return {w.x, w.y};
+}
+
+// a pass of the launch: its first stage r, radix 2 or 4, and the bits
+// (hi > lo) of the block's slot index s = t 2^g + column that vary across a
+// thread's V slots: with four slots the pair bit(s), and for radix 2 a
+// spare bit (the next tile bit, or for a one-stage tile a column bit);
+// with two slots the pair bit (a column bit for a tile of one slot)
+struct Pass {
+    int r, radix4, hi, lo;
+};
+
+template <int V>
+__device__ __forceinline__ Pass pass_of(const FftArgs& A, int i) {
+    if (V == 2) return A.k ? Pass{i, 0, A.k - 1 - i + A.g, 0} : Pass{0, 0, 0, 0};
+    if (A.k == 0) return {0, 0, 1, 0};          // four columns, no stage
+    if (A.k & 1) {
+        if (i == 0) return {0, 0, A.k - 1 + A.g, A.k >= 3 ? A.k - 2 + A.g : A.g - 1};
+        const int r = 2 * i - 1;
+        return {r, 1, A.k - 1 - r + A.g, A.k - 2 - r + A.g};
     }
-    __syncthreads();
-    for (int r = 0; r < A.k; ++r) {
-        const int dep = A.D - r;
-        const int p = A.k - 1 - r;             // the tile bit this stage pairs on
-        for (int b = threadIdx.x; b < E / 2; b += THREADS) {
-            const int cc = b & g_mask;
-            const int tb = b >> A.g;
-            const int te = ((tb >> p) << (p + 1)) | (tb & ((1 << p) - 1));
-            long long j = ((C0 + cc) & c_mask) >> low;
-            for (int q = 0; q < r; ++q)
-                j |= (long long)((te >> (A.k - r + q)) & 1) << (A.L - A.D - 2 + r - q);
-            const long long e = j << dep;
-            const F2 w = {A.tw[e], A.tw[half + e]};
-            const int se = (te << A.g) | cc;
-            const int so = se + (1 << (p + A.g));
-            const F2 t = vpt::mul2(w, {s_re[so], s_im[so]});
-            const F2 ev = {s_re[se], s_im[se]};
-            const F2 lo = vpt::add2(ev, t);
-            const F2 hi = vpt::sub2(ev, t);
-            s_re[se] = lo.re;
-            s_im[se] = lo.im;
-            s_re[so] = hi.re;
-            s_im[so] = hi.im;
+    const int r = 2 * i;
+    return {r, 1, A.k - 1 - r + A.g, A.k - 2 - r + A.g};
+}
+
+// the first slot of thread b in pass P, and its slot e
+template <int V>
+__device__ __forceinline__ unsigned first_slot(unsigned b, const Pass& P) {
+    return V == 2 ? insert0(b, P.hi) : insert0(insert0(b, P.lo), P.hi);
+}
+
+template <int V>
+__device__ __forceinline__ unsigned slot(unsigned s0, const Pass& P, int e) {
+    return V == 2 ? s0 | (e << P.hi) : s0 | ((e & 1) << P.lo) | ((e >> 1) << P.hi);
+}
+
+// the twiddles of pass P for the thread whose first slot is s0: radix 4
+// (w_a, w_b, w_c); radix 2 with four slots the twiddle of each pair's
+// column (its first stage); with two slots the stage's
+template <int V>
+__device__ __forceinline__ void pass_twiddles(const FftArgs& A, const Pass& P, unsigned s0,
+                                              F2 (&w)[3]) {
+    const int low = A.D - A.k + 1;
+    const unsigned c_mask = (1u << (A.L - A.k)) - 1;
+    const unsigned gmask = (1u << A.g) - 1;
+    const unsigned C0 = blockIdx.x << A.g;
+    const int dep = A.D - P.r;
+    const unsigned base = (1u << A.L) - (1u << (A.L - dep));   // S_dep
+    const unsigned j = (((C0 + (s0 & gmask)) & c_mask) >> low)
+                       | (top_rev(s0 >> A.g, A.k, P.r) << (A.L - 1 - A.D));
+    w[0] = tw_at(A.tw, base + j);
+    if (V == 2) return;
+    if (!P.radix4) {
+        const unsigned s1 = s0 | (1u << P.lo);
+        w[1] = tw_at(A.tw, base + (((C0 + (s1 & gmask)) & c_mask) >> low));
+        return;
+    }
+    const unsigned below = (1u << A.L) - (1u << (A.L - dep + 1));   // S_{dep-1}
+    const unsigned half = 1u << (A.L - dep);                       // its length
+    w[1] = tw_at(A.tw, below + j);
+    const unsigned j3 = 3 * j;
+    w[2] = tw_at(A.tw, below + (j3 < half ? j3 : j3 - half));
+    if (j3 >= half) w[2] = {negp(w[2].re), negp(w[2].im)};
+}
+
+// the butterflies of a pass, lazily: each product folded once (below p +
+// 8, mul2_fold), the sums carry multiples of p that keep them positive
+// (2p, 4p), and each output component is reduced once (vpt::canon); every
+// value stays below 2^64 (radix 4: u, sp < 2^62 + 16; v, dm < 2^62 +
+// 2^61 + 8 < 4p; the outputs below 2^63 + 2^62 + 2^61)
+template <int V>
+__device__ __forceinline__ void run_pass(const Pass& P, bool i_neg, const F2 (&w)[3],
+                                         F2 (&x)[V]) {
+    constexpr u64 P2 = 2 * vpt::P, P4 = 4 * vpt::P;
+    using vpt::canon;
+    auto radix2 = [](F2& a, F2& b, const F2& w) {
+        const F2 t = vpt::mul2_fold(w, b);
+        b = {canon(a.re + (P2 - t.re)), canon(a.im + (P2 - t.im))};
+        a = {canon(a.re + t.re), canon(a.im + t.im)};
+    };
+    if constexpr (V == 2) {
+        radix2(x[0], x[1], w[0]);
+    } else {
+        if (!P.radix4) {
+            radix2(x[0], x[2], w[0]);
+            radix2(x[1], x[3], w[1]);
+            return;
+        }
+        const F2 c = vpt::mul2_fold(w[0], x[2]);
+        const F2 b = vpt::mul2_fold(w[1], x[1]);
+        const F2 d = vpt::mul2_fold(w[2], x[3]);
+        const F2 u = {x[0].re + c.re, x[0].im + c.im};
+        const F2 v = {x[0].re + (P2 - c.re), x[0].im + (P2 - c.im)};
+        const F2 sp = {b.re + d.re, b.im + d.im};
+        const F2 dm = {b.re + (P2 - d.re), b.im + (P2 - d.im)};
+        // (+-i) dm: a swap and a negation (-y = 4p - y)
+        const F2 idm = i_neg ? F2{dm.im, P4 - dm.re} : F2{P4 - dm.im, dm.re};
+        x[0] = {canon(u.re + sp.re), canon(u.im + sp.im)};
+        x[1] = {canon(u.re + (P4 - sp.re)), canon(u.im + (P4 - sp.im))};
+        x[2] = {canon(v.re + idm.re), canon(v.im + idm.im)};
+        x[3] = {canon(v.re + (P4 - idm.re)), canon(v.im + (P4 - idm.im))};
+    }
+}
+
+// V slots a thread: four (radix-4 passes), or two (radix-2 stages, twice
+// the threads, for grids short of threads)
+template <int V>
+__global__ void __launch_bounds__(FFT_THREADS) gf_fft_tile(FftArgs A) {
+    extern __shared__ ulonglong2 sm[];
+    const int cols_log = A.L - A.k;
+    const unsigned c_mask = (1u << cols_log) - 1;
+    const unsigned gmask = (1u << A.g) - 1;
+    const unsigned C0 = blockIdx.x << A.g;
+    const int low = A.D - A.k + 1;             // column bits below the tile's
+    const unsigned in_mask = (1u << A.in_log) - 1;
+    const int passes = V == 2 ? A.k : (A.k + 1) >> 1;
+
+    // a pass's twiddles are loaded a pass ahead of it
+    Pass P = pass_of<V>(A, 0), Pn = P;
+    unsigned s0 = first_slot<V>(threadIdx.x, P), sn = s0;
+    F2 w[3], wn[3];
+    if (passes > 0) pass_twiddles<V>(A, P, s0, w);
+    if (passes > 1) {
+        Pn = pass_of<V>(A, 1);
+        sn = first_slot<V>(threadIdx.x, Pn);
+        pass_twiddles<V>(A, Pn, sn, wn);
+    }
+    F2 x[V];
+    unsigned row = ~0u;
+    i64 off = 0;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+        const unsigned s = slot<V>(s0, P, e);
+        const unsigned C = C0 + (s & gmask);
+        x[e] = {0, 0};
+        if (C >= A.cols) continue;
+        if (C >> cols_log != row) {
+            row = C >> cols_log;
+            off = row_offset(A.rows, row);
+        }
+        const unsigned c = C & c_mask;
+        const unsigned xi = (c & ((1u << low) - 1)) | ((s >> A.g) << low)
+                            | ((c >> low) << (A.D + 1));
+        const u64* p = A.in + off + (i64)(xi & in_mask) * A.rows.term;
+        x[e] = {p[0], p[A.rows.plane]};
+    }
+    for (int i = 0; i < passes; ++i) {
+        run_pass<V>(P, A.i_neg, w, x);
+        if (i + 1 == passes) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) sm[slot<V>(s0, P, e)] = {x[e].re, x[e].im};
+        P = Pn;
+        s0 = sn;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) w[e] = wn[e];
+        if (i + 2 < passes) {
+            Pn = pass_of<V>(A, i + 2);
+            sn = first_slot<V>(threadIdx.x, Pn);
+            pass_twiddles<V>(A, Pn, sn, wn);
         }
         __syncthreads();
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+            const ulonglong2 v = sm[slot<V>(s0, P, e)];
+            x[e] = {v.x, v.y};
+        }
     }
-    const long long plane = A.R * order;
-    for (int s = threadIdx.x; s < E; s += THREADS) {
-        const long long C = C0 + (s & g_mask);
-        if (C >= cols) continue;
-        const int t = s >> A.g;
-        const long long rev = A.k ? (long long)(__brev(t) >> (32 - A.k)) : 0;
-        const long long o = (C >> cols_log) * order + (C & c_mask) + (rev << cols_log);
-        F2 v = {s_re[s], s_im[s]};
-        if (A.scaled) v = vpt::mul2(v, {A.s_re, A.s_im});
+    const size_t plane = (size_t)(A.cols >> cols_log) << A.L;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+        const unsigned s = slot<V>(s0, P, e);
+        const unsigned C = C0 + (s & gmask);
+        if (C >= A.cols) continue;
+        const unsigned t = s >> A.g;
+        const unsigned rev = A.k ? __brev(t) >> (32 - A.k) : 0;
+        const size_t o = ((size_t)(C >> cols_log) << A.L) + (C & c_mask) + (rev << cols_log);
+        F2 v = x[e];
+        if (A.scaled) {
+            v = A.s_im ? vpt::mul2_split(v, {A.s_re, A.s_im})
+                       : F2{vpt::mulp(v.re, A.s_re), vpt::mulp(v.im, A.s_re)};
+        }
         A.out[o] = v.re;
         A.out[plane + o] = v.im;
     }
@@ -236,34 +391,49 @@ Rows rows_of(int d0, int d1, int d2, long long s0, long long s1, long long s2,
 
 // out (2, R, 2^log_order) = the FFT of the (2, R, 2^lg_coef) coefficient
 // rows `in` (lead sizes d0 d1 d2 = R, element strides s0 s1 s2, plane and
-// last-axis strides) at the root whose powers tw (2, 2^(log_order-1))
-// holds, times (s_re, s_im) if scaled.  ceil(lg_coef / TILE_LOG) launches
-// (one for lg_coef = 0), through tmp (out's shape) when more than one;
-// none for R = 0.
+// last-axis strides) at the root whose stage tables tw (pc/fft.py
+// twiddles: (2^log_order - 1) (re, im) pairs) holds, i_neg when
+// rou^(2^(log_order-2)) = -i, times (s_re, s_im) if scaled.
+// ceil(lg_coef / TILE_LOG) launches (one for lg_coef = 0), through tmp
+// (out's shape) when more than one; none for R = 0.  R 2^log_order must
+// be below 2^31 (32-bit indices).
 extern "C" int vpt_gf_fft(const u64* in, int d0, int d1, int d2, long long s0,
                           long long s1, long long s2, long long plane, long long term,
                           const u64* tw, u64* out, u64* tmp, int lg_coef, int log_order,
-                          int scaled, u64 s_re, u64 s_im, void* stream_ptr) {
+                          int i_neg, int scaled, u64 s_re, u64 s_im, void* stream_ptr) {
     const long long R = (long long)d0 * d1 * d2;
     if (R <= 0) return 0;
-    if (lg_coef < 0 || lg_coef > log_order || log_order > MAX_LOG)
+    if (lg_coef < 0 || lg_coef > log_order || log_order > MAX_LOG
+        || (R << log_order) >= (1ll << 31))
         return (int)cudaErrorInvalidValue;
     const int n = lg_coef ? (lg_coef + TILE_LOG - 1) / TILE_LOG : 1;
     if (n > 1 && !tmp) return (int)cudaErrorInvalidValue;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-    FftArgs A = {in, rows_of(d0, d1, d2, s0, s1, s2, plane, term), tw, nullptr, R,
-                 log_order, 0, lg_coef - 1, 0, lg_coef, 0, s_re, s_im};
+    FftArgs A = {in, rows_of(d0, d1, d2, s0, s1, s2, plane, term),
+                 reinterpret_cast<const ulonglong2*>(tw), nullptr, 0, log_order, 0,
+                 lg_coef - 1, 0, lg_coef, i_neg, 0, s_re, s_im};
     for (int i = 0; i < n; ++i) {
         A.k = lg_coef / n + (i < lg_coef % n);
         A.out = (n - 1 - i) % 2 == 0 ? out : tmp;     // the last launch writes out
         A.scaled = scaled && i == n - 1;
-        const long long cols = R << (log_order - A.k);
+        A.cols = (unsigned)(R << (log_order - A.k));
+        // two slots a thread where four would leave the grid short of
+        // threads (and a block's tile fits 2 FFT_THREADS slots)
+        const int V = A.k <= BLOCK_LOG && ((unsigned long long)A.cols << A.k) < 4ull * FFT_PAIRS_BELOW
+                          ? 2 : 4;
+        // 2^BLOCK_LOG entries a block, at least V; fewer columns a block
+        // while the grid is short of FFT_BLOCKS
+        const int v_log = V == 2 ? 1 : 2;
+        const int g_min = A.k < v_log ? v_log - A.k : 0;
         A.g = A.k < BLOCK_LOG ? BLOCK_LOG - A.k : 0;
-        while (A.g > 0 && (1ll << (A.g - 1)) >= cols) --A.g;
-        const long long blocks = (cols + (1ll << A.g) - 1) >> A.g;
-        if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-        const size_t smem = 2 * sizeof(u64) << (A.k + A.g);
-        gf_fft_tile<<<(unsigned)blocks, THREADS, smem, stream>>>(A);
+        auto blocks = [&](int g) { return (A.cols + (1u << g) - 1) >> g; };
+        while (A.g > g_min && blocks(A.g) < FFT_BLOCKS) --A.g;
+        const unsigned threads = 1u << (A.k + A.g - v_log);
+        const size_t smem = sizeof(ulonglong2) << (A.k + A.g);
+        if (V == 2)
+            gf_fft_tile<2><<<blocks(A.g), threads, smem, stream>>>(A);
+        else
+            gf_fft_tile<4><<<blocks(A.g), threads, smem, stream>>>(A);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         // the next launch reads this one's output, rows contiguous

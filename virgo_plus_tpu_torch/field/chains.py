@@ -18,7 +18,8 @@ sum (``apply_scatter_arrays``).  Here each such chain is one call:
 
 ``lead`` has at most one axis and ``rows`` at most ``SEG_AXES``.  A CUDA
 tensor goes to ``csrc/gf_chains.cu`` (``gf_table``, ``gf_segsum``), which
-reads strided inputs in place and takes a Python-int base by value; a CPU
+reads strided inputs in place and takes a Python-int base's squarings
+(``power_factors``) by value; a CPU
 tensor to the plain twin (``table_plain``, ``segsum_plain``: the doubling
 loops, the log tree and the prefix-sum route on ``gf``'s plain ops only),
 which counts ``kernels.PLAIN_CALLS``.  Every field op returns the canonical
@@ -27,6 +28,9 @@ give the same bits.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -88,6 +92,19 @@ def table_plain(op: int, a, r, n: int, device):
     return out[:, :n]
 
 
+@functools.lru_cache(maxsize=256)
+def power_factors(base, k: int):
+    """The k factors base^(2^j), j < k, of a power table of a Python-int
+    base, as gf_table takes them by value: (re, im) pairs in host memory,
+    kept per (base, k) and only read (the C entry copies them into the
+    launch's arguments)."""
+    words, cur = [], base
+    for _ in range(k):
+        words += cur
+        cur = gf._py_mul(cur, cur)
+    return (ctypes.c_ulonglong * max(len(words), 1))(*words)
+
+
 def table_cuda(op: int, a, r, n: int, device):
     """gf_table on the card, one launch: same signature and bits as
     table_plain on canonical inputs."""
@@ -122,9 +139,11 @@ def table_cuda(op: int, a, r, n: int, device):
         a_st = (a.stride(0), a.stride(1) if lead else 0) if tensor else (0, 0)
         r_st = ((r.stride(0), r.stride(1) if lead else 0, r.stride(-1))
                 if r is not None else (0, 0, 0))
+        factors = None if tensor else power_factors(base, k)
         kernels.launch("gf_table", 1, op, a.data_ptr() if tensor else None,
                        None if r is None else r.data_ptr(), out.data_ptr(),
-                       tables, k, n, *a_st, *r_st, *base,
+                       tables, k, n, *a_st, *r_st,
+                       None if factors is None else ctypes.addressof(factors),
                        kernels.stream_ptr())
     return out
 

@@ -57,23 +57,25 @@ SOURCES = {
                    + [_P]),
     },
     # gf_table: op, a, r, out, tables, index bits, entries, a's 2 and r's
-    # 3 strides, the by-value base, the stream; gf_segsum: x, idx, starts,
-    # ends, out, segments, the last axis' length, SEG_AXES row sizes and
-    # strides, the last axis' stride, the summer, the stream
+    # 3 strides, a by-value base's factors (host memory), the stream;
+    # gf_segsum: x, idx, starts, ends, out, segments, the last axis'
+    # length, SEG_AXES row sizes and strides, the last axis' stride, the
+    # summer, the stream
     "gf_chains": {
         "gf_table": ("vpt_gf_table", [_I] + [_P] * 3 + [_I, _I] + [_L] * 6
-                     + [_U, _U, _P]),
+                     + [_P, _P]),
         "gf_segsum": ("vpt_gf_segsum", [_P] * 5 + [_I, _L] + [_I] * 4
                       + [_L] * 5 + [_I, _P]),
     },
     # the input rows (pointer, FFT_AXES lead sizes and strides, plane and
     # last-axis strides), then gf_fft: the twiddles, out, scratch, log2 of
-    # the coefficients and of the order, the scale flag and its by-value
-    # element, the stream; gf_fri_fold: w and its 2 strides, r and its
-    # plane stride, out, log2 of the output row, the stream
+    # the coefficients and of the order, the sign of the fourth root, the
+    # scale flag and its by-value element, the stream; gf_fri_fold: w and
+    # its 2 strides, r and its plane stride, out, log2 of the output row,
+    # the stream
     "gf_fft": {
         "gf_fft": ("vpt_gf_fft", [_P] + [_I] * 3 + [_L] * 5 + [_P] * 3
-                   + [_I] * 3 + [_U, _U, _P]),
+                   + [_I] * 4 + [_U, _U, _P]),
         "gf_fri_fold": ("vpt_gf_fri_fold", [_P] + [_I] * 3 + [_L] * 5
                         + [_P, _L, _L, _P, _L, _P, _I, _P]),
     },

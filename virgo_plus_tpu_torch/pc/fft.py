@@ -6,9 +6,12 @@ and batch over any leading axes after the component axis: x is (2, ..., n);
 roots of unity are python-int pairs computed on the host.
 
 ``fft`` and ``ifft`` send a CUDA tensor to ``gf_fft`` (``csrc/gf_fft.cu``):
-one twiddle table (``powers``, one ``gf_table`` launch) and
 ``launches(lg_coef)`` launches, one up to 2^TILE_LOG coefficients, reading
-strided rows in place, with the IFFT's 1/n in the last store.  A CPU
+strided rows in place, with the IFFT's 1/n in the last store.  Their
+twiddles are ``twiddles``' stage tables, made once per (root, order,
+device) by one ``gf_table`` launch (``powers``) and kept, so a call
+launches nothing else; none is made inside a CUDA-graph capture (the
+eager warm-up before it makes it).  A CPU
 tensor goes to the plain twin ``fft_plain`` (``ifft_plain``): the
 self-sorting stage loop, each stage a reshape, one product and an add/sub
 pair on ``gf``'s plain ops, which counts ``kernels.PLAIN_CALLS["gf_fft"]``.
@@ -31,6 +34,46 @@ def powers(base_int, n: int, device):
     """base: python-int pair -> (2, n) [1, base, base^2, ...], one
     ``chains.table`` call (the base goes by value)."""
     return chains.table(chains.POWER, base_int, None, n, device)
+
+
+def stage_tables(table):
+    """The power table (2, 2^(L-1)) of a root of order 2^L -> gf_fft's
+    twiddles (2^L - 1, 2): stage dep's 2^(L-1-dep) powers of rou^(2^dep)
+    (table[:, ::2^dep]) at 2^L - 2^(L-dep), one (re, im) pair a row."""
+    order = 2 * table.shape[1]
+    return torch.cat([table[:, ::1 << dep]
+                      for dep in range(order.bit_length() - 1)]
+                     + [table[:, :0]], dim=1).T.contiguous()
+
+
+_TWIDDLES = {}   # (root, log2 of the order, device) -> (stage tables, i_neg)
+
+
+def twiddles(rou_int, log_order: int, device):
+    """gf_fft's twiddles for the root rou_int of order 2^log_order on a
+    CUDA device: (``stage_tables`` of its powers, whether rou^(2^(L-2)) is
+    -i), made once per (root, order, device) by one ``gf_table`` launch
+    and kept: a CUDA graph replays it, and none is made inside a capture
+    (the eager warm-up call before it makes it)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rou = tuple(int(v) for v in rou_int)
+    key = (rou, log_order, dev)
+    if key not in _TWIDDLES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"gf_fft: no twiddles for the order 2^"
+                               f"{log_order} on the capturing stream; an "
+                               f"eager call makes them first")
+        if log_order and gf.pow_int(rou, 1 << (log_order - 1)) != (
+                gf.MOD - 1, 0):
+            raise ValueError(f"gf_fft: {rou} is not a root of order 2^"
+                             f"{log_order}")
+        i_neg = log_order >= 2 and gf.pow_int(
+            rou, 1 << (log_order - 2)) == (0, gf.MOD - 1)
+        _TWIDDLES[key] = (stage_tables(powers(rou, (1 << log_order) // 2,
+                                              dev)), int(i_neg))
+    return _TWIDDLES[key]
 
 
 def launches(lg_coef: int) -> int:
@@ -108,8 +151,8 @@ def fft_plain(coeffs, log_order: int, rou_int, scale=None):
 
 def fft_cuda(coeffs, log_order: int, rou_int, scale=None):
     """gf_fft on the card: same signature and bits as fft_plain on
-    canonical inputs; launches(lg_coef) launches and one twiddle table, none
-    for an empty output."""
+    canonical inputs; launches(lg_coef) launches (and the root's twiddles
+    once), none for an empty output."""
     if coeffs.device.type != "cuda":
         raise ValueError("gf_fft: coeffs must be on a CUDA device")
     if (coeffs.dtype != torch.int64 or coeffs.dim() < 2
@@ -125,14 +168,14 @@ def fft_cuda(coeffs, log_order: int, rou_int, scale=None):
     out = torch.empty((2,) + lead + (1 << log_order,), dtype=torch.int64,
                       device=coeffs.device)
     if out.numel():
-        kernels.check_int("gf_fft", rows=out.numel() // 2 >> log_order)
-        tw = powers(rou_int, (1 << log_order) // 2, coeffs.device)
+        kernels.check_int("gf_fft", points=out.numel() // 2)
+        tw, i_neg = twiddles(rou_int, log_order, coeffs.device)
         n = launches(lg_coef)
         tmp = torch.empty_like(out) if n > 1 else None
         s = (0, 0) if scale is None else tuple(int(v) for v in scale)
         kernels.launch("gf_fft", n, coeffs.data_ptr(), *sizes, *strides,
                        coeffs.stride(0), coeffs.stride(-1), tw.data_ptr(),
                        out.data_ptr(), None if tmp is None else tmp.data_ptr(),
-                       lg_coef, log_order, int(scale is not None), *s,
+                       lg_coef, log_order, i_neg, int(scale is not None), *s,
                        kernels.stream_ptr())
     return out
