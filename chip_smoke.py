@@ -55,7 +55,11 @@ package.  Phases, one line each, any failure exits non-zero:
    (3,)), the whole evaluation equal to the CPU's with every padding
    word untouched, and the fft_gkr stage tables (X1:
    ``fg_stage_tables``) against their twin at lg = 1, 7 and 12 in both
-   phases;
+   phases, the fft_gkr circuit (X1: ``fg_build_circuit``) at lg = 0, 1, 7
+   and 12 (one launch) and 13 and 18 (``fft_gkr.circuit_launches(lg)``),
+   and the public commit's virtual oracle (X1: ``pc_virtual_oracle``) at
+   2^12 columns with no batch axis and at B = 4 and 64, and on a sharded
+   rank's columns (rank 1 of 2, rank 3 of 4, its own tables);
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -163,7 +167,8 @@ field; from there on ``driver.load_circuit`` uses it.  Then each kernel
 entry's device time per call at every shape the glibc, FS, batched and
 sharded paths gave it, from the profiler (a profile that drops launches
 is repeated, up to 10 times, and the run fails if none holds every
-launch), beside its bound and its plain
+launch), and at phase 3's fixed shapes of ``fg_build_circuit`` and
+``pc_virtual_oracle``, beside its bound and its plain
 twin (a sharded shape on random inputs of that shape: rank 0's calls are
 held in its own process), and last
 the whole-call profiles (three eager calls, then one replay of the timed
@@ -231,10 +236,12 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 # neither name matches)
                 "gkr_p1_inits": ("gkr_p1_inits",),
                 "gkr_p2_inits": ("gkr_p2_inits",),
-                # (the namespaces carry "circuit_eval" and "fft_gkr", which
-                # no name matches)
+                # (the namespaces carry "circuit_eval", "fft_gkr" and
+                # "virgo_pc", which no name matches)
                 "gf_eval_layer": ("gf_eval_layer",),
-                "fg_stage_tables": ("fg_stage_tables",)}
+                "fg_stage_tables": ("fg_stage_tables",),
+                "fg_build_circuit": ("fg_build_",),
+                "pc_virtual_oracle": ("pc_virtual_oracle",)}
 # X1: the elementwise field ops, the field chains and the transforms,
 # called thousands of times a prove (a batched transform reads up to 2^25
 # words): each call's twin runs as it returns (Recorder), and its calls
@@ -246,16 +253,19 @@ GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum", "gf_fft",
 # and sharded provers keep their own per-layer inits)
 INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
 # X1: a circuit layer's evaluation (in place in the values buffer, so its
-# twin runs on a copy of the input) and the fft_gkr tape's stage tables,
-# one launch a layer and one a phase on every path
-FUSED_ENTRIES = ("gf_eval_layer", "fg_stage_tables")
+# twin runs on a copy of the input), the fft_gkr tape's stage tables and
+# circuit, and the public commit's virtual oracle: one launch a layer, a
+# phase, a tape (circuit_launches(lg) above lg = 12) and a commit
+FUSED_ENTRIES = ("gf_eval_layer", "fg_stage_tables", "fg_build_circuit",
+                 "pc_virtual_oracle")
 IN_PLACE = ("gf_eval_layer",)
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
 # sponge's: every FS prove launches it and these but the GKR init stages)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
                 *GF_ENTRIES, *INIT_ENTRIES, *FUSED_ENTRIES)
 # a batched call has no fft_gkr tape
-BATCH_ENTRIES = tuple(e for e in PATH_ENTRIES if e != "fg_stage_tables")
+BATCH_ENTRIES = tuple(e for e in PATH_ENTRIES
+                      if e not in ("fg_stage_tables", "fg_build_circuit"))
 FS_ENTRIES = tuple(e for e in KERNEL_NAMES if e not in INIT_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
@@ -270,6 +280,7 @@ _X1F = "virgo_plus_tpu_torch/csrc/gf_fft.cu"
 _X1I = "virgo_plus_tpu_torch/csrc/gkr_inits.cu"
 _X1E = "virgo_plus_tpu_torch/csrc/circuit_eval.cu"
 _X1T = "virgo_plus_tpu_torch/csrc/fft_gkr.cu"
+_X1V = "virgo_plus_tpu_torch/csrc/virgo_pc.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
@@ -287,13 +298,18 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "gf_eval_layer": (
                            _X1E, "virgo_plus_tpu/circuits/compile.py:185"),
                        "fg_stage_tables": (
-                           _X1T, "virgo_plus_tpu/pc/fft_gkr.py:202")}
+                           _X1T, "virgo_plus_tpu/pc/fft_gkr.py:202"),
+                       "fg_build_circuit": (
+                           _X1T, "virgo_plus_tpu/pc/fft_gkr.py:107"),
+                       "pc_virtual_oracle": (
+                           _X1V, "virgo_plus_tpu/pc/virgo_pc.py:142")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
                 "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
                 "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20,
-                "gf_eval_layer": 20, "fg_stage_tables": 20}
+                "gf_eval_layer": 20, "fg_stage_tables": 20,
+                "fg_build_circuit": 20, "pc_virtual_oracle": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -315,6 +331,9 @@ INIT_TERM_OPS = {"gkr_p1_inits": (4, 4), "gkr_p2_inits": (5, 4)}
 # phase (fg_stage_tables)
 EVAL_OPS = (4, 3)
 STAGE_OPS = {1: (2, 2), 2: (4, 2)}
+# products and sums of an element of the virtual oracle (pc_virtual_oracle)
+ORACLE_OPS = (4, 2)
+POINTS = 64                  # the fft_gkr circuit's evaluation points
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
 MAIN_FOREST = [2048, 2048, 1024, 512, 256, 128, 64, 32, 16]
@@ -329,6 +348,15 @@ BATCH_RUNS = 2               # wall-clock runs of a batched call per B
 PROFILED_BATCH = 16          # B of the profiled batched call
 SHARDED = ((2, ("glibc", "fs")), (4, ("glibc",)))   # S, transcripts
 SHARDED_RUNS = 1             # timed proves per rank after the recorded one
+# phase 3's fixed shapes of the fused entries that the paths meet at one
+# size only, also profiled with the paths' shapes: the fft_gkr circuit at
+# lg = 0, 1, 7, 12 (one launch) and 13, 18 (lg + 3 launches), the virtual oracle
+# at 2^12 columns (no batch axis, B = 4, 64) and a sharded rank's columns
+# (rank 1 of 2, rank 3 of 4)
+ORACLE_RANKS = ((2, 1), (4, 3))
+FIXED_SHAPES = {"fg_build_circuit": [(lg,) for lg in (0, 1, 7, 12, 13, 18)],
+                "pc_virtual_oracle": [(1, 4096), (4, 4096), (64, 4096)]
+                + [(1, 4096 // S) for S, _ in ORACLE_RANKS]}
 # K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
 # five table groups at S = 2 and 4, and tails of 1-3 bits
 K1_SHARDED = ([(bl - s, k) for s in (1, 2) for bl, k in
@@ -710,14 +738,28 @@ def init_cost(entry, ins):
 
 def fused_cost(entry, ins):
     """(bytes, 32-bit integer operations) of one gf_eval_layer call
-    (values, x_idx, y_idx, co, x_off, out_off) or fg_stage_tables call
-    (phase, bg, xp, src, vu, dep0): each word read once (a layer's
+    (values, x_idx, y_idx, co, x_off, out_off), fg_stage_tables call
+    (phase, bg, xp, src, vu, dep0), fg_build_circuit call (build_cost) or
+    pc_virtual_oracle call (l, q, h, c0, srec, xn1, inv_x: l's and h's data
+    slices, q's 64 slices, c0 and both tables read, vo and h_full written;
+    ORACLE_OPS an element): each word read once (a layer's
     coefficients and indices, the distinct values columns it gathers on
     each row; the stages' bg tables, the V or bu words and twiddles their
     items take, vu), each output word written once (a layer's gates on
     each row; both tables of every stage); the products and sums of each
     gate a row or item."""
     import torch
+    if entry == "fg_build_circuit":
+        return build_cost(ins[0])
+    if entry == "pc_virtual_oracle":
+        l_eval, _q, h_eval, c0, _srec, _xn1, _inv = ins
+        cols = l_eval.shape[-1]
+        elems = h_eval.numel() // 2
+        products, sums = ORACLE_OPS
+        return (8 * (2 * (2 * elems + POINTS * cols + 2 * cols) + c0.numel()
+                     + 2 * l_eval.numel()),
+                elems * (GF_PRODUCT_INT32_OPS * products
+                         + GF_SUM_INT32_OPS * sums))
     if entry == "gf_eval_layer":
         values, x_idx, y_idx, co, x_off, _ = ins
         rows = values.numel() // (2 * values.shape[-1])
@@ -739,11 +781,31 @@ def fused_cost(entry, ins):
                      + GF_SUM_INT32_OPS * sums))
 
 
+def build_cost(lg):
+    """(bytes, 32-bit integer operations) of a 2^lg-point fft_gkr circuit:
+    r, the points and the twiddles read, every layer and the power table
+    written; the tensor layers' 2(n - 1) products, each ifft stage's n / 2
+    products and n sums, the scale's n products, each point's n - 1 power
+    products and lg squarings, its n expansion products and n - 1 sums."""
+    n = 1 << lg
+    words = 2 * ((2 * n - 1) + (lg + 1) * n + 2 * POINTS * n + POINTS)
+    products = (2 * (n - 1) + lg * n // 2 + n
+                + POINTS * (n - 1 + lg) + POINTS * n)
+    sums = lg + lg * n + POINTS * (n - 1)
+    return (8 * (2 * (lg + POINTS + n - 1) + words),
+            GF_PRODUCT_INT32_OPS * products + GF_SUM_INT32_OPS * sums)
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
     chain call; the tree sizes of a forest call; (rows, slots) of a GKR
     init call; (rows, gates) of a circuit layer; (phase, stages, lg) of a
-    stage tables call (a field op's is its gf_bucket)."""
+    stage tables call; (lg,) of an fft_gkr circuit; (instances, columns) of
+    a virtual oracle (a field op's is its gf_bucket)."""
+    if entry == "fg_build_circuit":
+        return (ins[0],)
+    if entry == "pc_virtual_oracle":
+        return (math.prod(ins[0].shape[1:-2]), ins[0].shape[-1])
     if entry == "gf_eval_layer":
         return (ins[0].numel() // (2 * ins[0].shape[-1]), ins[1].numel())
     if entry == "fg_stage_tables":
@@ -912,7 +974,9 @@ def kernel_tables():
                 "gkr_p1_inits": (inits, "p1_inits_cuda"),
                 "gkr_p2_inits": (inits, "p2_inits_cuda"),
                 "gf_eval_layer": (circuit, "eval_layer_cuda"),
-                "fg_stage_tables": (fft_gkr, "stage_tables_cuda")}
+                "fg_stage_tables": (fft_gkr, "stage_tables_cuda"),
+                "fg_build_circuit": (fft_gkr, "build_circuit_cuda"),
+                "pc_virtual_oracle": (virgo_pc, "virtual_oracle_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -926,7 +990,9 @@ def kernel_tables():
             "gkr_p1_inits": inits.p1_inits_plain,
             "gkr_p2_inits": inits.p2_inits_plain,
             "gf_eval_layer": circuit.eval_layer_plain,
-            "fg_stage_tables": fft_gkr.stage_tables_plain}
+            "fg_stage_tables": fft_gkr.stage_tables_plain,
+            "fg_build_circuit": fft_gkr.build_circuit_plain,
+            "pc_virtual_oracle": virgo_pc.virtual_oracle_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
@@ -939,6 +1005,10 @@ def kernel_tables():
             return 1 if ins[1].numel() and ins[0].numel() else 0
         if entry == "fg_stage_tables":
             return 1 if ins[1].shape[1] else 0
+        if entry == "fg_build_circuit":
+            return fft_gkr.circuit_launches(ins[0])
+        if entry == "pc_virtual_oracle":
+            return 1 if ins[0].numel() else 0
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -1025,6 +1095,16 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
         values = torch.cat([canon(2, rows, p), torch.zeros(
             (2, rows, p), dtype=torch.int64, device=dev)], -1)
         return (values, idx(), idx(), canon(4, 2, size), 0, p)
+    if entry == "fg_build_circuit":
+        lg, = shp
+        return (lg, canon(2, lg), canon(2, POINTS))
+    if entry == "pc_virtual_oracle":   # B instances of L columns, random
+        # tables and q of 65 slices
+        b, cols = shp
+        lead = (b,) if b > 1 else ()
+        return (canon(2, *lead, 65, cols), canon(2, 65, cols),
+                canon(2, *lead, 64, cols), canon(2, *lead, 64), 128,
+                canon(2, cols), canon(2, cols))
     if entry == "fg_stage_tables":  # the last `stages` stages of lg
         from virgo_plus_tpu_torch.pc import fft_gkr
         phase, stages, lg = shp
@@ -1620,12 +1700,38 @@ def main():
                                               "fg_stage_tables", shp, dev,
                                               rng),
              f"(phase, stages, lg) = {shp}")
+    for shp in FIXED_SHAPES["fg_build_circuit"]:
+        held("fg_build_circuit", random_inputs(torch, np, gf,
+                                               "fg_build_circuit", shp, dev,
+                                               rng), f"lg = {shp[0]}")
+    for shp in FIXED_SHAPES["pc_virtual_oracle"][:3]:
+        held("pc_virtual_oracle", random_inputs(torch, np, gf,
+                                                "pc_virtual_oracle", shp,
+                                                dev, rng),
+             f"(instances, columns) = {shp}")
+    canon = lambda *s: gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
+                                 dev)
+    for S, rank in ORACLE_RANKS:   # a rank's columns: q's 64 data slices,
+        # the rank's own tables of 2^12 points
+        cols = 4096 // S
+        xn1, inv_x = virgo_pc.oracle_tables(12, 128, cols, dev, S, rank)
+        held("pc_virtual_oracle", (canon(2, 65, cols), canon(2, 64, cols),
+                                   canon(2, 64, cols), canon(2, 64), 128,
+                                   xn1, inv_x),
+             f"rank {rank} of {S}'s {cols} columns")
     say(f"phase 3 X1 fused ok: gf_eval_layer == its plain twin bit for bit, "
         f"one launch a call, at (rows, gates) {eval_shapes} and on every "
         f"layer of randomize(4, 10) with a layer of 1,000 gates, unary gates "
         f"and right inputs from layer 0, lead () and (3,): == the CPU "
         f"evaluation, padding untouched; fg_stage_tables == its plain twin "
-        f"at (phase, stages, lg) {stage_shapes}")
+        f"at (phase, stages, lg) {stage_shapes}; fg_build_circuit == its "
+        f"plain twin in every layer and the power table at lg "
+        f"{[s[0] for s in FIXED_SHAPES['fg_build_circuit']]} (launches "
+        f"{[fft_gkr.circuit_launches(s[0]) for s in FIXED_SHAPES['fg_build_circuit']]}"
+        f"); pc_virtual_oracle == its plain twin (vo and h_full) at "
+        f"(instances, columns) {FIXED_SHAPES['pc_virtual_oracle'][:3]} and on "
+        f"the columns of (rank, S) "
+        f"{[(r, S) for S, r in ORACLE_RANKS]}, one launch a call")
 
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
@@ -2544,7 +2650,8 @@ def main():
         per = {}
         found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
                  | set(fs_shapes[entry]) | set(batched_shapes[entry])
-                 | set(sharded_shapes[entry]))
+                 | set(sharded_shapes[entry])
+                 | set(FIXED_SHAPES.get(entry, ())))
         for shp in sorted(found):
             ins = example.get((entry, shp)) or random_inputs(
                 torch, np, gf, entry, shp, dev, rng)
@@ -2586,6 +2693,7 @@ def main():
                 n * per[shp]["ms"] for shp, n in
                 sharded[(tr, S)][0]["shapes"][entry].items())
                 for tr, S in sharded} if exact else None)
+        shared = entry in INIT_ENTRIES or entry in FUSED_ENTRIES
         paths = (f"; rank 0 of a sharded prove (ms): "
                  f"{rows[entry]['sharded_ms']}; one timed prove "
                  f"{rows[entry]['timed_ms']:.4f} ms, one "
@@ -2598,14 +2706,13 @@ def main():
             f"driver prove + verify / timed prove / first FS prove + "
             f"verify_fs / batched calls at B = 4 and 64 / rank 0 of the "
             f"sharded runs, ms per call, launches per call, bound ms"
-            f"{', the bound over the time' if entry in INIT_ENTRIES else ''}"
+            f"{', the bound over the time' if shared else ''}"
             f"): "
             + "; ".join(
                 f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
                 f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
                 f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
-                + (f", share {r['bound'] / r['ms']:.3f}"
-                   if entry in INIT_ENTRIES else "")
+                + (f", share {r['bound'] / r['ms']:.3f}" if shared else "")
                 for s, r in per.items())
             + paths + f"; bound of every recorded call summed: one timed "
             f"prove {rows[entry]['timed_bound']:.5f} ms, one FS prove + "

@@ -7,7 +7,8 @@ segments of the last axis; on a CUDA tensor each is one launch of
 
 * the port's ``beta_table`` / ``beta_tables_batched`` (k = 0, 1, 5, 9;
   K = 3; a strided r), ``fft.powers`` (n a power of two and not) and
-  ``fft_gkr.powers_el`` == the JAX functions;
+  ``chains.table`` of tensor bases == the JAX functions (``fft.powers``,
+  ``fft_gkr.powers_el``);
 * ``tree_sum`` (lengths 0, 1, 7, 64, 1000, rank 3) and
   ``apply_scatter_arrays`` on a random ``ScatterPlan`` with empty segments
   == JAX;
@@ -52,7 +53,7 @@ from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.field import chains, gf
 from virgo_plus_tpu_torch.gkr import beta, protocol, sumcheck
-from virgo_plus_tpu_torch.pc import fft, fft_gkr
+from virgo_plus_tpu_torch.pc import fft
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
 M = gf.MOD
@@ -108,7 +109,8 @@ def test_beta_tables_match_jax(tables, k):
 def test_power_tables_match_jax(tables, n):
     base, els, want, want_els = tables[1][n]
     assert np.array_equal(gf.to_numpy(fft.powers(base, n, "cpu")), want)
-    got = gf.to_numpy(fft_gkr.powers_el(gf.tensor(els), n))
+    got = gf.to_numpy(chains.table(chains.POWER, gf.tensor(els), None, n,
+                                   "cpu"))
     assert got.shape == (2, 3, n)
     for c in range(3):
         assert np.array_equal(got[:, c], want_els[c])

@@ -2,7 +2,7 @@
 
 Inside the JAX package's jits XLA fuses whole chains of field ops into one
 loop: a beta table's doubling steps (``virgo_plus_tpu/gkr/beta.py``), a
-power table's (``pc/fft.py`` ``powers``, ``pc/fft_gkr.py`` ``powers_el``),
+power table's (``pc/fft.py`` ``powers``),
 a log-tree sum (``gkr/sumcheck.py`` ``tree_sum``) or a gate scatter's prefix
 sum (``apply_scatter_arrays``).  Here each such chain is one call:
 

@@ -13,8 +13,9 @@ A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
 its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
 ``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain,
-each fold, each GKR init stage, each circuit layer and each phase of
-the fft_gkr stage tables: one, none for an empty output), and its
+each fold, each GKR init stage, each circuit layer, each phase of
+the fft_gkr stage tables and each virtual oracle: one, none for an empty
+output; the fft_gkr circuit: ``fft_gkr.circuit_launches(lg)``), and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -101,6 +102,17 @@ SOURCES = {
     "fft_gkr": {
         "fg_stage_tables": ("vpt_fg_stage_tables", [_I] + [_P] * 5
                             + [_I] * 3 + [_P]),
+        # r and the evaluation points, each with its plane and element
+        # strides; the twiddles; inv_n's two words; out, the partial sums;
+        # lg; the stream
+        "fg_build_circuit": ("vpt_fg_build_circuit", [_P, _L, _L] * 2
+                             + [_P, _U, _U, _P, _P, _I, _P]),
+    },
+    # l, q, h and c0, each with its plane stride; the two tables; srec;
+    # vo, h_full; the elements a plane; log2 of the columns; the stream
+    "virgo_pc": {
+        "pc_virtual_oracle": ("vpt_pc_virtual_oracle", [_P, _L] * 4
+                              + [_P, _P, _U, _P, _P, _L, _I, _P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}

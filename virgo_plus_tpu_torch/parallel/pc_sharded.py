@@ -135,7 +135,6 @@ def sharded_commit_public(mesh: Mesh, bl: int):
     st_local = (1 << (RATE - 1)) // S
     rou_small = gf.root_of_unity_int(bl - LOG_SLICE)
     rou_2s = gf.root_of_unity_int(bl - LOG_SLICE + 1)
-    rou = gf.root_of_unity_int(lg_ss)
 
     def run(l_local, q_values):
         dev = l_local.device
@@ -151,16 +150,13 @@ def sharded_commit_public(mesh: Mesh, bl: int):
         srec_el = gf.full((1,), srec % gf.MOD, 0, dev)
         all_sum = torch.cat([gf.mul(c0, srec_el), gf.zeros((1,), dev)], 1)
         h_local = _coset_fft(h_coef, lg_ss, mesh)
-        # vo[p] = (l·q[p] - (x^srec - 1)·h[p] - c0)·srec·rou^(-p)
-        xn = _local_powers(gf.pow_int(rou, srec), L, mesh, dev)
-        inv_x = _local_powers(gf.inv_int(rou), L, mesh, dev)
-        g = gf.sub(gf.mul(l_local[:, :SLICES], q_local),
-                   gf.mul(gf.sub(xn, gf.ones((1,), dev))[:, None, :],
-                          h_local))
-        vo = gf.mul(gf.mul(gf.sub(g, c0[..., None]), srec_el[:, :, None]),
-                    inv_x[:, None, :])
-        h_oracle = sharded_oracle_tree(_with_mask_slice(h_local), mesh)
-        return h_oracle, all_sum, _with_mask_slice(vo)
+        # vo[p] = (l·q[p] - (x^srec - 1)·h[p] - c0)·srec·rou^(-p) at this
+        # rank's columns p = t·S + q, with the mask slices
+        xn1, inv_x = virgo_pc.oracle_tables(lg_ss, srec, L, dev, S,
+                                            mesh.sp_rank)
+        vo, h_full = virgo_pc.virtual_oracle(l_local, q_local, h_local, c0,
+                                             srec, xn1, inv_x)
+        return sharded_oracle_tree(h_full, mesh), all_sum, vo
 
     return run
 

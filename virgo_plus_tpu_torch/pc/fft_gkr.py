@@ -4,12 +4,15 @@ Counterpart of ``virgo_plus_tpu/pc/fft_gkr.py`` (reference
 lib/virgo/src/fft_circuit_GKR.cpp): a second GKR system that proves the VPD
 verifier's q-polynomial FFT evaluation.  Circuit: beta-extension tensor
 layers -> IFFT stages -> 1/n scale -> 64 evaluation points -> summation
-(fft_circuit_GKR.cpp:22-101).  Every sumcheck is a fold, so on the card
-each goes through K1: the prover's tape (``prove_messages``) folds all lg
-ifft stages of a phase in one K1 call, and makes their tables in one
-``fg_stage_tables`` launch (``csrc/fft_gkr.cu``; ``stage_tables``, plain
-twin ``stage_tables_plain``); ``run`` goes stage by stage, as its verify
-mode checks each stage in draw order.  The verifier's closed-form wiring
+(fft_circuit_GKR.cpp:22-101), built with the evaluation points' power
+table by one ``fg_build_circuit`` launch up to lg = 12
+(``csrc/fft_gkr.cu``; ``build_circuit``, plain twin
+``build_circuit_plain``).  Every sumcheck is a fold, so on the card each
+goes through K1: the prover's tape (``prove_messages``) folds all lg ifft
+stages of a phase in one K1 call, and makes their tables in one
+``fg_stage_tables`` launch (``stage_tables``, plain twin
+``stage_tables_plain``); ``run`` goes stage by stage, as its verify mode
+checks each stage in draw order.  The verifier's closed-form wiring
 predicates are O(lg) host computations in exact ints.
 
 Randomness is drawn from the shared transcript stream in the reference's
@@ -103,11 +106,6 @@ class _Tape:
         return self.emit(None), self.emit(None)
 
 
-def powers_el(base, n: int):
-    """(2, K) elements -> (2, K, n) powers, one ``chains.table`` call."""
-    return chains.table(chains.POWER, base, None, n, base.device)
-
-
 def _rot_mul(lg: int):
     rot = gf.inv_int(gf.root_of_unity_int(lg))
     out = []
@@ -117,10 +115,46 @@ def _rot_mul(lg: int):
     return out
 
 
+POINTS = 64             # evaluation points
+# csrc/fft_gkr.cu: the largest lg fg_build_circuit builds in one launch,
+# the words of a point an expansion block takes above it, the largest lg
+ONE_LAUNCH_LOG = 12
+CHUNK_LOG = 10
+MAX_BUILD_LOG = 21
+
+
+def circuit_launches(lg: int) -> int:
+    """fg_build_circuit's launches for a 2^lg-point circuit: one up to
+    ONE_LAUNCH_LOG; above it the tensor layers, one an ifft stage, the
+    expansion and the sums."""
+    return 1 if lg <= ONE_LAUNCH_LOG else lg + 3
+
+
+def circuit_sizes(lg: int):
+    """The words a plane of each layer build_circuit returns, in order:
+    the tensor layers 2^0..2^lg, lg ifft layers and the scale layer of
+    2^lg, the expansion and the sums."""
+    n = 1 << lg
+    return ([1 << k for k in range(lg + 1)] + [n] * (lg + 1)
+            + [POINTS * n, POINTS])
+
+
 def build_circuit(lg: int, r, eval_points):
     """fft_circuit_GKR.cpp:22-101.  r (2, lg), eval_points (2, 64) tensors.
-    Returns the list of layer value tensors (2, size) in build order.  The
-    ifft stages' twiddles are ``stage_powers``' tables."""
+    Returns (the list of layer value tensors (2, size) in build order, the
+    points' power table (2, 64, 2^lg), which the mult layer reads too).
+    The ifft stages' twiddles are ``stage_powers``' tables.  A CUDA tensor
+    goes to ``fg_build_circuit`` (``circuit_launches(lg)`` launches), a
+    CPU tensor to ``build_circuit_plain``."""
+    fn = build_circuit_cuda if gf._on_cuda(r) else build_circuit_plain
+    return fn(lg, r, eval_points)
+
+
+def build_circuit_plain(lg: int, r, eval_points):
+    """Plain twin of fg_build_circuit: the layer loops on gf's plain ops,
+    the powers by doubling, the sums by the log tree."""
+    kernels.PLAIN_CALLS["fg_build_circuit"] += 1
+    add, sub, mul = gf.add_plain, gf.sub_plain, gf.mul_plain
     dev = r.device
     xp = stage_powers(lg, dev)
     one = gf.ones((1,), dev)
@@ -128,8 +162,8 @@ def build_circuit(lg: int, r, eval_points):
     for i in range(lg):
         prev = layers[-1]
         ri = r[:, i:i + 1]
-        hi = gf.mul(prev, ri)                    # index j<<1
-        lo = gf.mul(prev, gf.sub(one, ri))       # index j<<1|1
+        hi = mul(prev, ri)                       # index j<<1
+        lo = mul(prev, sub(one, ri))             # index j<<1|1
         layers.append(torch.stack([hi, lo], dim=2).reshape(2, -1))
     # ifft stages (dep = lg-1 .. 0)
     n = 1 << lg
@@ -139,16 +173,58 @@ def build_circuit(lg: int, r, eval_points):
         w = stage_twiddles(xp, lg, dep)
         pre = layers[-1].reshape(2, half_blk, 2, m)
         e = pre[:, :, 0, :]
-        t = gf.mul(w[:, :, None], pre[:, :, 1, :])
-        layers.append(torch.cat([gf.add(e, t), gf.sub(e, t)], 1).reshape(2, n))
+        t = mul(w[:, :, None], pre[:, :, 1, :])
+        layers.append(torch.cat([add(e, t), sub(e, t)], 1).reshape(2, n))
     # scale by inv_n (fastPow(n, mod-2), base field)
     inv_n = gf.pow_int((n % MOD, 0), MOD - 2)
-    layers.append(gf.mul(layers[-1], gf.full((1,), inv_n[0], inv_n[1], dev)))
+    layers.append(mul(layers[-1], gf.full((1,), inv_n[0], inv_n[1], dev)))
     # 64 evaluation points: out[j + (i<<lg)] = scaled[j] * ep_i^j
-    expansion = gf.mul(layers[-1][:, None, :], powers_el(eval_points, n))
-    layers.append(expansion.reshape(2, 64 * n))
-    layers.append(tree_sum(expansion))              # (2, 64)
-    return layers
+    pw = gf.ones((POINTS, 1), dev)
+    cur = eval_points
+    while pw.shape[-1] < n:
+        pw = torch.cat([pw, mul(pw, cur[..., None])], dim=-1)
+        cur = mul(cur, cur)
+    expansion = mul(layers[-1][:, None, :], pw)
+    layers.append(expansion.reshape(2, POINTS * n))
+    layers.append(chains.tree_sum_plain(expansion))     # (2, 64)
+    return layers, pw
+
+
+def build_circuit_cuda(lg: int, r, eval_points):
+    """fg_build_circuit on the card: same arguments, results and bits as
+    build_circuit_plain.  The layers and the power table are views of one
+    buffer; r and eval_points are read in place (any strides)."""
+    if not 0 <= lg <= MAX_BUILD_LOG:
+        raise ValueError(f"fg_build_circuit: lg = {lg}, 0 to {MAX_BUILD_LOG} "
+                         f"taken")
+    dev = r.device
+    if dev.type != "cuda" or eval_points.device != dev:
+        raise ValueError("fg_build_circuit: r and eval_points must be on one "
+                         "CUDA device")
+    if r.dtype != torch.int64 or eval_points.dtype != torch.int64:
+        raise TypeError("fg_build_circuit: expected int64 tensors")
+    if tuple(r.shape) != (2, lg) or tuple(eval_points.shape) != (2, POINTS):
+        raise ValueError(f"fg_build_circuit: r {tuple(r.shape)}, eval_points "
+                         f"{tuple(eval_points.shape)}; (2, {lg}), (2, "
+                         f"{POINTS}) taken")
+    xp = stage_powers(lg, dev)
+    n = 1 << lg
+    buf = torch.empty(2 * (sum(circuit_sizes(lg)) + POINTS * n),
+                      dtype=torch.int64, device=dev)
+    parts = (torch.empty(2 * POINTS * (n >> CHUNK_LOG), dtype=torch.int64,
+                         device=dev) if lg > ONE_LAUNCH_LOG else None)
+    inv_n = gf.pow_int((n % MOD, 0), MOD - 2)
+    kernels.launch("fg_build_circuit", circuit_launches(lg), r.data_ptr(),
+                   r.stride(0), r.stride(1), eval_points.data_ptr(),
+                   eval_points.stride(0), eval_points.stride(1),
+                   xp.data_ptr(), inv_n[0], inv_n[1], buf.data_ptr(),
+                   None if parts is None else parts.data_ptr(), lg,
+                   kernels.stream_ptr())
+    layers, off = [], 0
+    for size in circuit_sizes(lg):
+        layers.append(buf[2 * off:2 * (off + size)].view(2, size))
+        off += size
+    return layers, buf[2 * off:].view(2, POINTS, n)
 
 
 def _two_point_beta(r0, r1, alpha, beta, bits: int):
@@ -312,7 +388,7 @@ def prove_messages(lg: int, d: dict, device):
     every stage's phase-1 sumcheck in one K1 call at (bl, K) = (lg, lg),
     then the bu tables, the phase-2 tables and a second K1 call."""
     T = lambda x: _t(x, device)
-    layers = build_circuit(lg, T(d["r"]), T(d["eval_points"]))
+    layers, pw = build_circuit(lg, T(d["r"]), T(d["eval_points"]))
     r0, r1 = T(d["r0"]), T(d["r1"])
     msgs = [mle_fold(layers[-1], r0[:, :6])]
     n = 1 << lg
@@ -330,7 +406,6 @@ def prove_messages(lg: int, d: dict, device):
     # mult layer
     bg_full = _two_point_beta(T(d["add_ru"]), T(d["add_rv"]), one_el,
                               zero_el, lg + 6)
-    pw = powers_el(T(d["eval_points"]), n)
     am = tree_sum(gf.mul(bg_full.reshape(2, 64, n), pw).transpose(1, 2))
     V = layers[2 * lg + 1]
     polys, (vb, _a, _m) = scan_sumcheck(V, torch.zeros_like(V), am,
@@ -390,8 +465,8 @@ def run(lg: int, rng, replay=None, *, device) -> FFTGKRResult:
 
     r = _draw_vec(rng, lg)
     eval_points = _draw_vec(rng, 64)
-    layers = build_circuit(lg, T(r), T(eval_points)) if tape.recording \
-        else None
+    layers, pw = (build_circuit(lg, T(r), T(eval_points)) if tape.recording
+                  else (None, None))
 
     r_0 = _draw_vec(rng, lg + 10)
     r_1 = _draw_vec(rng, lg + 10)
@@ -447,7 +522,6 @@ def run(lg: int, rng, replay=None, *, device) -> FFTGKRResult:
 
     def _mult_layer():
         bg_full = _two_point_beta(T(r_0), T(r_1), T(alpha), T(beta), length_g)
-        pw = powers_el(T(eval_points), n)
         am = tree_sum(gf.mul(bg_full.reshape(2, 64, n), pw)
                            .transpose(1, 2))
         V = layers[2 * lg + 1]                            # scale layer (2, n)

@@ -9,6 +9,10 @@ one launch of its forest kernel.  Fold step
 (fri.cpp:315-334):
     next[i] = 1/2 * ((v[i] + v[i+N/2]) + r * rou^{-i} * (v[i] - v[i+N/2])).
 Slice 64 is the reference's single zero mask slice, hashed into every chain.
+The public commit's virtual oracle and h codeword are one
+``pc_virtual_oracle`` launch (``csrc/virgo_pc.cu``; ``virtual_oracle``,
+plain twin ``virtual_oracle_plain``) over tables kept per (root, order,
+columns, device) (``oracle_tables``).
 """
 
 from __future__ import annotations
@@ -157,22 +161,107 @@ def commit_public_eval(l_eval, q_values, bl: int):
                          torch.zeros((2,) + lead + (1,), dtype=torch.int64,
                                      device=dev)],
                         dim=-1)                         # mask slice: 0
-
-    # virtual oracle (poly_commit.h:294-318):
-    #   vo[j] = (l*q[j] - (x^srec - 1)*h[j] - c0) * srec * rou^{-j}
-    rou_int = gf.root_of_unity_int(lg_ss)
-    xn = powers(gf.pow_int(rou_int, srec), ss, dev)     # rou^(srec*j)
-    inv_x = powers(gf.inv_int(rou_int), ss, dev)        # rou^{-j}
-    one = gf.ones((1,), dev)
-    lq_full = gf.mul(l_eval[..., :SLICES, :], q_eval[:, :SLICES])
-    g = gf.sub(lq_full, gf.mul(gf.sub(xn, one)[:, None, :], h_eval))
-    vo = gf.mul(gf.mul(gf.sub(g, c0[..., None]), srec_el[:, :, None]),
-                inv_x[:, None, :])
-    zero_slice = torch.zeros((2,) + lead + (1, ss), dtype=torch.int64,
-                             device=dev)
-    vo = torch.cat([vo, zero_slice], dim=-2)
-    h_full = torch.cat([h_eval, zero_slice], dim=-2)
+    xn1, inv_x = oracle_tables(lg_ss, srec, ss, dev)
+    vo, h_full = virtual_oracle(l_eval, q_eval, h_eval, c0, srec, xn1,
+                                inv_x)
     return h_full, q_eval, q_coefs, all_sum, vo
+
+
+_ORACLE_TABLES = {}   # (lg_ss, srec, columns, shards, rank, device) -> tables
+
+
+def oracle_tables(lg_ss: int, srec: int, n_local: int, device, shards=1,
+                  rank=0):
+    """The virtual oracle's tables at the columns p = t·shards + rank, t <
+    n_local, of a 2^lg_ss codeword (x = rou^p, rou of order 2^lg_ss):
+    (x^srec - 1, x^-1), each (2, n_local); a sharded rank's own columns
+    with shards > 1.  Made once per (root, order, columns, device) and
+    kept: a CUDA graph replays them, and none is made inside a capture (the
+    eager warm-up call before it makes them)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (lg_ss, srec, n_local, shards, rank, dev)
+    if key not in _ORACLE_TABLES:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"pc_virtual_oracle: no tables for 2^{lg_ss} "
+                               f"points on the capturing stream; an eager "
+                               f"call makes them first")
+        rou = gf.root_of_unity_int(lg_ss)
+
+        def at(base):
+            step = powers(gf.pow_int(base, shards), n_local, dev)
+            if rank == 0:
+                return step
+            r, i = gf.pow_int(base, rank)
+            return gf.mul(step, gf.full((1,), r, i, dev))
+
+        _ORACLE_TABLES[key] = (
+            gf.sub(at(gf.pow_int(rou, srec)), gf.ones((1,), dev)),
+            at(gf.inv_int(rou)))
+    return _ORACLE_TABLES[key]
+
+
+def virtual_oracle(l_eval, q_eval, h_eval, c0, srec: int, xn1, inv_x):
+    """The virtual oracle (poly_commit.h:294-318) and the h codeword with
+    their mask slices: vo[..., s, j] = (l·q[s, j] - xn1[j]·h[..., s, j] -
+    c0[..., s])·srec·inv_x[j] and h_full[..., s, j] = h[..., s, j] for s <
+    64, both 0 at s = 64.  l_eval (2, ..., 65, L) (its 64 data slices
+    read), q_eval (2, >= 64, L) shared by a batch, h_eval (2, ..., 64, L),
+    c0 (2, ..., 64), the tables (2, L) (``oracle_tables``).  Returns (vo,
+    h_full), each (2, ..., 65, L).  A CUDA tensor goes to
+    ``pc_virtual_oracle`` (one launch), a CPU tensor to
+    ``virtual_oracle_plain``."""
+    fn = (virtual_oracle_cuda if gf._on_cuda(l_eval)
+          else virtual_oracle_plain)
+    return fn(l_eval, q_eval, h_eval, c0, srec, xn1, inv_x)
+
+
+def virtual_oracle_plain(l_eval, q_eval, h_eval, c0, srec: int, xn1, inv_x):
+    """Plain twin of pc_virtual_oracle, on gf's plain ops in the JAX
+    package's order."""
+    kernels.PLAIN_CALLS["pc_virtual_oracle"] += 1
+    mul, sub = gf.mul_plain, gf.sub_plain
+    dev = l_eval.device
+    srec_el = gf.full((1,), srec % gf.MOD, 0, dev)
+    lq_full = mul(l_eval[..., :SLICES, :], q_eval[:, :SLICES])
+    g = sub(lq_full, mul(xn1[:, None, :], h_eval))
+    vo = mul(mul(sub(g, c0[..., None]), srec_el[:, :, None]),
+             inv_x[:, None, :])
+    zero_slice = torch.zeros(h_eval.shape[:-2] + (1, h_eval.shape[-1]),
+                             dtype=torch.int64, device=dev)
+    return (torch.cat([vo, zero_slice], dim=-2),
+            torch.cat([h_eval, zero_slice], dim=-2))
+
+
+def virtual_oracle_cuda(l_eval, q_eval, h_eval, c0, srec: int, xn1, inv_x):
+    """pc_virtual_oracle on the card, one launch (none for no element):
+    same arguments, results and bits as virtual_oracle_plain; every tensor
+    contiguous."""
+    lead = tuple(l_eval.shape[1:-2])
+    n = l_eval.shape[-1] if l_eval.dim() >= 3 else 0
+    lg_len = max(n, 1).bit_length() - 1
+    if l_eval.dim() < 3 or n != 1 << lg_len or q_eval.dim() != 3 or \
+            q_eval.shape[1] < SLICES:
+        raise ValueError(f"pc_virtual_oracle: l {tuple(l_eval.shape)}, q "
+                         f"{tuple(q_eval.shape)}: (2, ..., 65, L), L a power "
+                         f"of two, and (2, >= 64, L) taken")
+    kernels.check_cuda("pc_virtual_oracle",
+                       (l_eval, q_eval, h_eval, c0, xn1, inv_x),
+                       [(2,) + lead + (SLICES + 1, n),
+                        (2, q_eval.shape[1], n), (2,) + lead + (SLICES, n),
+                        (2,) + lead + (SLICES,), (2, n), (2, n)])
+    vo = torch.empty_like(l_eval)
+    h_full = torch.empty_like(l_eval)
+    items = vo.numel() // 2
+    if items:
+        kernels.launch("pc_virtual_oracle", 1, l_eval.data_ptr(),
+                       l_eval.stride(0), q_eval.data_ptr(), q_eval.stride(0),
+                       h_eval.data_ptr(), h_eval.stride(0), c0.data_ptr(),
+                       c0.stride(0), xn1.data_ptr(), inv_x.data_ptr(),
+                       srec % gf.MOD, vo.data_ptr(), h_full.data_ptr(), items,
+                       lg_len, kernels.stream_ptr())
+    return vo, h_full
 
 
 def commit_public(l_eval, q_values, bl: int):
