@@ -29,7 +29,9 @@ package.  Phases, one line each, any failure exits non-zero:
    tables of a by-value base (its squarings from the host; n = 2^0 to
    2^20, and up to 2^20 - 3, not a power of two) and of tensor bases,
    tree sums of 0 to
-   2^18 terms (rank 2 and 3, transposed), scatter plans with empty
+   2^18 terms (rank 2 and 3, transposed), (2, N) sums at N = 2^10 to
+   2^20 (the long sums' route: a cluster of 8 blocks an output) and at
+   64 rows (one block an output), scatter plans with empty
    segments, one segment of 2^18 terms, a skewed plan and mean segment
    lengths on either side of the summers' thresholds; then the transforms
    (X1: ``gf_fft``, ``gf_fri_fold``) against their plain twins: 128
@@ -48,12 +50,15 @@ package.  Phases, one line each, any failure exits non-zero:
    circuits: randomize(4, 3), and randomize circuits with assert gates
    and segments long enough for a warp (lead (3,)) and for a block (lead
    (2, 2), and (5, 13): 65 rows, several row tiles and a short last
-   pass), every summer class taken; then a circuit layer's evaluation
-   (X1: ``gf_eval_layer``) against its plain twin at (rows, gates) (1,
-   8192) and (64, 8192) and on every layer of a circuit with a layer of
-   1,000 gates, unary gates and right inputs from layer 0 (lead () and
-   (3,)), the whole evaluation equal to the CPU's with every padding
-   word untouched, and the fft_gkr stage tables (X1:
+   pass), every summer class taken; then whole circuit evaluations (X1:
+   ``gf_evaluate``, one cluster launch an evaluation, a very wide layer
+   a launch of its own) against their plain twin: 13 random layers of
+   8192 gates at 1 and 64 rows, layers of more gates than a cluster has
+   threads at 3 rows, a layer of 2^18 gates at 1 and 4 rows, and a
+   circuit with a layer of 1,000 gates, unary gates and right inputs
+   from layer 0 (lead () and (3,)), equal to the CPU's; every padding
+   word zero, the launches of each printed and the first ones timed
+   against their bound; and the fft_gkr stage tables (X1:
    ``fg_stage_tables``) against their twin at lg = 1, 7 and 12 in both
    phases, the fft_gkr circuit (X1: ``fg_build_circuit``) at lg = 0, 1, 7
    and 12 (one launch) and 13 and 18 (``fft_gkr.circuit_launches(lg)``),
@@ -238,7 +243,7 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "gkr_p2_inits": ("gkr_p2_inits",),
                 # (the namespaces carry "circuit_eval", "fft_gkr" and
                 # "virgo_pc", which no name matches)
-                "gf_eval_layer": ("gf_eval_layer",),
+                "gf_evaluate": ("gf_evaluate",),
                 "fg_stage_tables": ("fg_stage_tables",),
                 "fg_build_circuit": ("fg_build_",),
                 "pc_virtual_oracle": ("pc_virtual_oracle",)}
@@ -252,13 +257,12 @@ GF_ENTRIES = ELEMENTWISE + ("gf_table", "gf_segsum", "gf_fft",
 # X1: the GKR init stages, one launch a stage on the glibc paths (the FS
 # and sharded provers keep their own per-layer inits)
 INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
-# X1: a circuit layer's evaluation (in place in the values buffer, so its
-# twin runs on a copy of the input), the fft_gkr tape's stage tables and
-# circuit, and the public commit's virtual oracle: one launch a layer, a
-# phase, a tape (circuit_launches(lg) above lg = 12) and a commit
-FUSED_ENTRIES = ("gf_eval_layer", "fg_stage_tables", "fg_build_circuit",
+# X1: a whole circuit evaluation, the fft_gkr tape's stage tables and
+# circuit, and the public commit's virtual oracle: one launch an
+# evaluation (compile.eval_launches for a very wide layer), a phase, a
+# tape (circuit_launches(lg) above lg = 12) and a commit
+FUSED_ENTRIES = ("gf_evaluate", "fg_stage_tables", "fg_build_circuit",
                  "pc_virtual_oracle")
-IN_PLACE = ("gf_eval_layer",)
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
 # sponge's: every FS prove launches it and these but the GKR init stages)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
@@ -295,7 +299,7 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                                         "virgo_plus_tpu/gkr/protocol.py:698"),
                        "gkr_p2_inits": (_X1I,
                                         "virgo_plus_tpu/gkr/protocol.py:784"),
-                       "gf_eval_layer": (
+                       "gf_evaluate": (
                            _X1E, "virgo_plus_tpu/circuits/compile.py:185"),
                        "fg_stage_tables": (
                            _X1T, "virgo_plus_tpu/pc/fft_gkr.py:202"),
@@ -308,7 +312,7 @@ PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
                 "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
                 "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20,
-                "gf_eval_layer": 20, "fg_stage_tables": 20,
+                "gf_evaluate": 20, "fg_stage_tables": 20,
                 "fg_build_circuit": 20, "pc_virtual_oracle": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
@@ -327,9 +331,9 @@ GF_SUM_INT32_OPS = 12        # a GF(p^2) sum (two words, as gf_lin)
 # inner sums and two accumulations; phase 2 five and four (an assert gate
 # one product more); a Liu term one accumulation
 INIT_TERM_OPS = {"gkr_p1_inits": (4, 4), "gkr_p2_inits": (5, 4)}
-# products and sums of a gate a row (gf_eval_layer), of an item of each
-# phase (fg_stage_tables)
-EVAL_OPS = (4, 3)
+# sums of a gate a row (gf_evaluate: its products are the plan's), products
+# and sums of an item of each phase (fg_stage_tables)
+EVAL_SUMS = 3
 STAGE_OPS = {1: (2, 2), 2: (4, 2)}
 # products and sums of an element of the virtual oracle (pc_virtual_oracle)
 ORACLE_OPS = (4, 2)
@@ -737,17 +741,16 @@ def init_cost(entry, ins):
 
 
 def fused_cost(entry, ins):
-    """(bytes, 32-bit integer operations) of one gf_eval_layer call
-    (values, x_idx, y_idx, co, x_off, out_off), fg_stage_tables call
-    (phase, bg, xp, src, vu, dep0), fg_build_circuit call (build_cost) or
-    pc_virtual_oracle call (l, q, h, c0, srec, xn1, inv_x: l's and h's data
-    slices, q's 64 slices, c0 and both tables read, vo and h_full written;
-    ORACLE_OPS an element): each word read once (a layer's
-    coefficients and indices, the distinct values columns it gathers on
-    each row; the stages' bg tables, the V or bu words and twiddles their
-    items take, vu), each output word written once (a layer's gates on
-    each row; both tables of every stage); the products and sums of each
-    gate a row or item."""
+    """(bytes, 32-bit integer operations) of one gf_evaluate call (inputs,
+    plan), fg_stage_tables call (phase, bg, xp, src, vu, dep0),
+    fg_build_circuit call (build_cost) or pc_virtual_oracle call (l, q, h,
+    c0, srec, xn1, inv_x: l's and h's data slices, q's 64 slices, c0 and
+    both tables read, vo and h_full written; ORACLE_OPS an element): each
+    word read once (the inputs and the plan's indices and coefficients;
+    the stages' bg tables, the V or bu words and twiddles their items
+    take, vu), each output word written once (every values word of each
+    row: an evaluation's gathers read its own writes; both tables of every
+    stage); the products and sums of each gate a row or item."""
     import torch
     if entry == "fg_build_circuit":
         return build_cost(ins[0])
@@ -760,15 +763,18 @@ def fused_cost(entry, ins):
                      + 2 * l_eval.numel()),
                 elems * (GF_PRODUCT_INT32_OPS * products
                          + GF_SUM_INT32_OPS * sums))
-    if entry == "gf_eval_layer":
-        values, x_idx, y_idx, co, x_off, _ = ins
-        rows = values.numel() // (2 * values.shape[-1])
-        size = x_idx.numel()
-        cols = int(torch.unique(torch.cat([x_idx + x_off, y_idx])).numel())
-        products, sums = EVAL_OPS
-        return (16 * rows * (cols + size) + 8 * (co.numel() + 2 * size),
-                rows * size * (GF_PRODUCT_INT32_OPS * products
-                               + GF_SUM_INT32_OPS * sums))
+    if entry == "gf_evaluate":
+        # the products this plan's coefficients need: A x, B y and C (x y)
+        # where the coefficient is not (0, 0) (x y with C)
+        inputs, plan = ins
+        rows = math.prod(inputs.shape[1:-1])
+        gates = plan.x_idx.numel()
+        nz = (plan.co[:3] != 0).any(dim=1)
+        products = int(nz[0].sum() + nz[1].sum() + 2 * nz[2].sum())
+        return (8 * (inputs.numel() + plan.co.numel() + 2 * rows * plan.total)
+                + 4 * 2 * gates,
+                rows * (GF_PRODUCT_INT32_OPS * products
+                        + GF_SUM_INT32_OPS * EVAL_SUMS * gates))
     phase, bg, _xp, _src, _vu, dep0 = ins
     stages, n = bg.shape[1], bg.shape[2]
     items = stages * n // 2
@@ -799,15 +805,18 @@ def build_cost(lg):
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
     chain call; the tree sizes of a forest call; (rows, slots) of a GKR
-    init call; (rows, gates) of a circuit layer; (phase, stages, lg) of a
+    init call; (rows, widest layer's gates, layers after the inputs) of a
+    circuit evaluation; (phase, stages, lg) of a
     stage tables call; (lg,) of an fft_gkr circuit; (instances, columns) of
     a virtual oracle (a field op's is its gf_bucket)."""
     if entry == "fg_build_circuit":
         return (ins[0],)
     if entry == "pc_virtual_oracle":
         return (math.prod(ins[0].shape[1:-2]), ins[0].shape[-1])
-    if entry == "gf_eval_layer":
-        return (ins[0].numel() // (2 * ins[0].shape[-1]), ins[1].numel())
+    if entry == "gf_evaluate":
+        steps = ins[1].steps
+        return (math.prod(ins[0].shape[1:-1]), int(steps[1:, 1].max(
+            initial=0)), len(steps) - 1)
     if entry == "fg_stage_tables":
         return (ins[0], ins[1].shape[1], ins[1].shape[2].bit_length() - 1)
     if entry in INIT_ENTRIES:
@@ -973,7 +982,7 @@ def kernel_tables():
                 "gf_fri_fold": (virgo_pc, "fold_step_cuda"),
                 "gkr_p1_inits": (inits, "p1_inits_cuda"),
                 "gkr_p2_inits": (inits, "p2_inits_cuda"),
-                "gf_eval_layer": (circuit, "eval_layer_cuda"),
+                "gf_evaluate": (circuit, "evaluate_cuda"),
                 "fg_stage_tables": (fft_gkr, "stage_tables_cuda"),
                 "fg_build_circuit": (fft_gkr, "build_circuit_cuda"),
                 "pc_virtual_oracle": (virgo_pc, "virtual_oracle_cuda")}
@@ -989,7 +998,7 @@ def kernel_tables():
             "gf_fri_fold": virgo_pc.fold_step_plain,
             "gkr_p1_inits": inits.p1_inits_plain,
             "gkr_p2_inits": inits.p2_inits_plain,
-            "gf_eval_layer": circuit.eval_layer_plain,
+            "gf_evaluate": circuit.evaluate_plain,
             "fg_stage_tables": fft_gkr.stage_tables_plain,
             "fg_build_circuit": fft_gkr.build_circuit_plain,
             "pc_virtual_oracle": virgo_pc.virtual_oracle_plain}
@@ -1001,8 +1010,10 @@ def kernel_tables():
             return gf_launches(entry, ins)
         if entry in INIT_ENTRIES:
             return 1
-        if entry == "gf_eval_layer":
-            return 1 if ins[1].numel() and ins[0].numel() else 0
+        if entry == "gf_evaluate":
+            return len(circuit.eval_launches(
+                ins[1].steps, math.prod(ins[0].shape[1:-1]),
+                circuit._fits(ins[0].device)))
         if entry == "fg_stage_tables":
             return 1 if ins[1].shape[1] else 0
         if entry == "fg_build_circuit":
@@ -1079,6 +1090,32 @@ def bound_ms(costs, int32_rate):
                for (b, o), n in costs.items())
 
 
+def random_plan(torch, np, gf, widths, dev, rng):
+    """A circuit evaluation plan (compile.make_plan) of random layers: an
+    input block of widths[0] values, then a layer of each further width
+    (its block padded to a power of two), its left inputs in the layer
+    before, its right inputs anywhere in earlier blocks, canonical
+    coefficients of mixed gate kinds: add (C = 0), mul (A = B = 0), all
+    four, and A with D alone."""
+    from virgo_plus_tpu_torch.circuits import compile as circuit
+    padded = [1 << max(w - 1, 0).bit_length() for w in widths]
+    off = [0]
+    for p in padded:
+        off.append(off[-1] + p)
+    layers = []
+    for i, w in enumerate(widths[1:], 1):
+        co = rng.integers(0, gf.MOD, (4, 2, w), dtype=np.uint64)
+        kind = rng.integers(0, 4, w)
+        co[2, :, kind == 0] = 0
+        co[:2, :, kind == 1] = 0
+        co[1:3, :, kind == 3] = 0
+        co[3, :, kind < 2] = 0
+        layers.append((rng.integers(0, padded[i - 1], w),
+                       rng.integers(0, off[i], w), co, off[i - 1], off[i],
+                       padded[i]))
+    return circuit.make_plan(layers, padded[0], off[-1], dev)
+
+
 def random_inputs(torch, np, gf, entry, shp, dev, rng):
     """Random inputs of one kernel call at shape `shp` (shape_of's); a GKR
     init call's inputs are a circuit's, so every path's shapes are
@@ -1088,13 +1125,10 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
     M = gf.MOD
     canon = lambda *s: gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
                                  dev)
-    if entry == "gf_eval_layer":   # a layer reading a block of 2^k values
-        rows, size = shp
-        p = 1 << max(size - 1, 0).bit_length()
-        idx = lambda: torch.from_numpy(rng.integers(0, p, size=size)).to(dev)
-        values = torch.cat([canon(2, rows, p), torch.zeros(
-            (2, rows, p), dtype=torch.int64, device=dev)], -1)
-        return (values, idx(), idx(), canon(4, 2, size), 0, p)
+    if entry == "gf_evaluate":     # `layers` random layers of `gates`
+        rows, gates, layers = shp
+        return (canon(2, *((rows,) if rows > 1 else ()), gates),
+                random_plan(torch, np, gf, [gates] * (layers + 1), dev, rng))
     if entry == "fg_build_circuit":
         lg, = shp
         return (lg, canon(2, lg), canon(2, POINTS))
@@ -1220,7 +1254,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     import numpy as np
     from virgo_plus_tpu_torch import driver, fused, graphs, native, proof_io
-    from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
+    from virgo_plus_tpu_torch.circuits import compile as circuit
+    from virgo_plus_tpu_torch.circuits.compile import (COPY, compile_circuit,
                                                        eval_arrays, evaluate,
                                                        input_buffer)
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
@@ -1260,15 +1295,11 @@ def main():
 
     def held(entry, ins, what):
         """Run one kernel call and its twin on the same inputs; fail unless
-        equal bit for bit and the call made its expected launches.  An
-        entry that writes in place gets a copy of the inputs for its
-        twin."""
-        twin_ins = (tuple(kept(a) for a in ins) if entry in IN_PLACE
-                    else ins)
+        equal bit for bit and the call made its expected launches."""
         before = kernels.LAUNCHES[entry]
         got = flatten(cuda_fn[entry](*ins))
         launched = kernels.LAUNCHES[entry] - before
-        want = flatten(twin[entry](*twin_ins))
+        want = flatten(twin[entry](*ins))
         torch.cuda.synchronize()
         e = max_abs_err(torch, got, want)
         err[entry] = max(err[entry], e)
@@ -1432,6 +1463,19 @@ def main():
                   f"a tree sum of {rows} rows of {n}")
     chain("gf_segsum", (canon(2, 128, 64).transpose(1, 2), None, None,
                         None), "tree sums over a transposed (2, 64, 128)")
+    # (2, N) sums, a cluster of chains.seg_cluster(2) = 8 blocks an output
+    # (SEG_BLOCK from 2^10 terms), and 2^10 and 2^14 at 64 rows (one
+    # block an output)
+    long_n = tuple(1 << k for k in range(10, 21))
+    for n in long_n:
+        ins = (canon(2, n), None, None, None)
+        chain("gf_segsum", ins, f"a sum of (2, {n})")
+        if n in (1 << 13, 1 << 14, 1 << 20):
+            largest[f"a sum of (2, 2^{n.bit_length() - 1})"] = ("gf_segsum",
+                                                               ins)
+    for n in (1 << 10, 1 << 14):
+        chain("gf_segsum", (canon(2, 64, n), None, None, None),
+              f"a sum of (2, 64, {n})")
     # plans: a scatter with empty segments (lead (4,)), one segment of
     # 2^18 terms, one long segment among short ones, and means at the
     # summers' thresholds
@@ -1471,7 +1515,8 @@ def main():
         f"63 of 2^10; power tables of a by-value base (its squarings from "
         f"the host), n in {power_n}, of tensor bases; tree sums of lengths "
         f"{tree_n}, rank 2 and 3, "
-        f"transposed; plans: {list(plans)}; one launch a call, none for an "
+        f"transposed; (2, N) sums at N in {long_n} ({chains.seg_cluster(2)} "
+        f"blocks an output), (2, 64, N) at N = 2^10, 2^14 (one); plans: {list(plans)}; one launch a call, none for an "
         f"empty output")
     def time_largest(largest):
         """Each shape's time beside its bound: CUDA events around
@@ -1642,12 +1687,40 @@ def main():
         f"; slots by thread / warp / block summer (phase 1, phase 2): "
         f"{init_classes}")
 
-    # ---- phase 3, X1 fused: gf_eval_layer and fg_stage_tables ------------
-    eval_shapes = ((1, 8192), (64, 8192))
+    # ---- phase 3, X1 fused: gf_evaluate and fg_stage_tables --------------
+    eval_launches, eval_timed = {}, {}
+
+    def eval_check(ins, what, timed=False):
+        """One gf_evaluate call held against its twin, every padding word
+        of its result zero; its launches kept by `what`."""
+        inputs, plan = ins
+        before = kernels.LAUNCHES["gf_evaluate"]
+        got = held("gf_evaluate", ins, what)[0]
+        eval_launches[what] = kernels.LAUNCHES["gf_evaluate"] - before
+        for _, size, _, off, padded in plan.steps.tolist():
+            lo = off + (inputs.shape[-1] if size == COPY else size)
+            if bool(got[..., lo:off + padded].any()):
+                fail(f"gf_evaluate left a padding word of {what} nonzero")
+        if timed:
+            eval_timed[what] = ins
+
+    # randomize(14, 13)'s shape at one and 64 rows; more gates a layer
+    # than a cluster's 4,096 threads at 3 rows; a layer of 2^18 gates (a
+    # launch of its own) at one row and at 4
+    eval_shapes = ((1, 8192, 13), (64, 8192, 13))
     for shp in eval_shapes:
-        held("gf_eval_layer", random_inputs(torch, np, gf, "gf_eval_layer",
-                                            shp, dev, rng),
-             f"(rows, gates) = {shp}")
+        eval_check(random_inputs(torch, np, gf, "gf_evaluate", shp, dev, rng),
+                   f"(rows, gates, layers) = {shp}", timed=True)
+    eval_plans = {"layers of 4,100-12,000 gates, 3 rows":
+                  ([6000, 5000, 9000, 4100, 12000], (3,)),
+                  "a layer of 2^18 gates, one row":
+                  ([1000, 1 << 18, 3000, 500], ()),
+                  "a layer of 2^18 gates, 4 rows":
+                  ([1000, 1 << 18, 3000, 500], (4,))}
+    for what, (widths, lead) in eval_plans.items():
+        eval_check((canon(2, *lead, widths[0]),
+                    random_plan(torch, np, gf, widths, dev, rng)), what,
+                   timed=lead == ())
 
     def eval_circuit():
         """randomize(4, 10, seed=2) with layer 2 cut to 1,000 gates and,
@@ -1676,15 +1749,17 @@ def main():
         rows = math.prod(lead)
         wit = np.asarray(ecc.source.input_values, dtype=np.uint64)
         wit = np.stack([wit] * rows).reshape(lead + wit.shape) if lead else wit
-        with Recorder(kernels, {"gf_eval_layer": wrappers["gf_eval_layer"]},
+        earrs = eval_arrays(ecc, dev)
+        before = kernels.LAUNCHES["gf_evaluate"]
+        with Recorder(kernels, {"gf_evaluate": wrappers["gf_evaluate"]},
                       twin) as rec:
-            evals = evaluate(ecc, input_buffer(ecc, wit, dev),
-                             eval_arrays(ecc, dev))
+            evals = evaluate(ecc, input_buffer(ecc, wit, dev), earrs)
             torch.cuda.synchronize()
+        eval_launches[f"the cut circuit, lead {lead}"] = (
+            kernels.LAUNCHES["gf_evaluate"] - before)
         _, e_eval, _, _ = compare_calls(torch, rec, twin, expected_launches,
                                         f"cut circuit, lead {lead}")
-        err["gf_eval_layer"] = max(err["gf_eval_layer"],
-                                   e_eval["gf_eval_layer"])
+        err["gf_evaluate"] = max(err["gf_evaluate"], e_eval["gf_evaluate"])
         cpu_evals = evaluate(ecc, input_buffer(ecc, wit, "cpu"),
                              eval_arrays(ecc, "cpu"))
         if not torch.equal(evals.cpu(), cpu_evals):
@@ -1693,7 +1768,7 @@ def main():
         for i, L in enumerate(ecc.layers):
             off = int(ecc.value_off[i])
             if bool(evals[..., off + L.size:off + L.padded].any()):
-                fail(f"gf_eval_layer wrote layer {i}'s padding")
+                fail(f"gf_evaluate left layer {i}'s padding nonzero")
     stage_shapes = [(phase, lg, lg) for lg in (1, 7, 12) for phase in (1, 2)]
     for shp in stage_shapes:
         held("fg_stage_tables", random_inputs(torch, np, gf,
@@ -1719,11 +1794,24 @@ def main():
                                    canon(2, 64, cols), canon(2, 64), 128,
                                    xn1, inv_x),
              f"rank {rank} of {S}'s {cols} columns")
-    say(f"phase 3 X1 fused ok: gf_eval_layer == its plain twin bit for bit, "
-        f"one launch a call, at (rows, gates) {eval_shapes} and on every "
-        f"layer of randomize(4, 10) with a layer of 1,000 gates, unary gates "
-        f"and right inputs from layer 0, lead () and (3,): == the CPU "
-        f"evaluation, padding untouched; fg_stage_tables == its plain twin "
+    timed = []
+    for what, ins in eval_timed.items():
+        ms = event_ms(torch, lambda: cuda_fn["gf_evaluate"](*ins),
+                      PROFILE_REPS["gf_evaluate"])
+        nbytes, ops = fused_cost("gf_evaluate", ins)
+        bound = max(nbytes / HBM_BYTES_S, ops / int32_rate) * 1e3
+        timed.append(f"{what}: {ms * 1e3:.3f} us (bound {bound * 1e3:.3f} "
+                     f"us, {'bytes' if nbytes / HBM_BYTES_S >= ops / int32_rate else 'operations'})")
+    say(f"phase 3 X1 fused, time of gf_evaluate ({card}; CUDA events over "
+        f"{PROFILE_REPS['gf_evaluate']} calls each): " + "; ".join(timed))
+    say(f"phase 3 X1 fused ok: gf_evaluate == its plain twin bit for bit, "
+        f"every padding word zero, launches as eval_launches (clusters "
+        f"that fit at once by blocks a cluster {circuit._fits(dev)}; "
+        f"(blocks a cluster, row groups, rows a group) at 1, 4, 16, 64 rows "
+        f"{[circuit.eval_shape(b, circuit._fits(dev)) for b in BATCHES]}): "
+        f"{eval_launches}; the cut circuit randomize(4, 10) with a layer of "
+        f"1,000 gates, unary gates and right inputs from layer 0, lead () "
+        f"and (3,): == the CPU evaluation; fg_stage_tables == its plain twin "
         f"at (phase, stages, lg) {stage_shapes}; fg_build_circuit == its "
         f"plain twin in every layer and the power table at lg "
         f"{[s[0] for s in FIXED_SHAPES['fg_build_circuit']]} (launches "
@@ -1912,8 +2000,9 @@ def main():
         timed_launches = dict(kernels.LAUNCHES)
         timed_plain = dict(kernels.PLAIN_CALLS)
     check_path("the timed prove", timed_launches, timed_plain)
-    if timed_launches["sha3_chain_x64"] + timed_launches["merkle_forest"] != 2:
-        fail(f"the timed prove's leaf chains and trees took "
+    if (timed_launches["sha3_chain_x64"], timed_launches["merkle_forest"],
+            timed_launches["gf_evaluate"]) != (1, 1, 1):
+        fail(f"the timed prove's leaf chains, trees and evaluation took "
              f"{timed_launches} launches, not one each")
     timed_shapes, timed_costs = check_calls(rec, "timed prove")
     root_l_fused = [int(x) for x in gf.to_numpy(out[1].tree[:, 1])]
@@ -1931,6 +2020,20 @@ def main():
     say(f"phase 5 timed prove: the fft_gkr tape == the CPU's in all "
         f"{len(tape_cpu)} messages; launches by entry {ours}, "
         f"{sum(ours.values())} of the port's entries")
+    routes, segsum_cuda = [], chains.segsum_cuda
+
+    def routed(x, idx, starts, ends):
+        routes.append((tuple(x.shape), chains.seg_route(x, idx, starts)))
+        return segsum_cuda(x, idx, starts, ends)
+
+    chains.segsum_cuda = routed
+    try:
+        timed_prove()
+        torch.cuda.synchronize()
+    finally:
+        chains.segsum_cuda = segsum_cuda
+    say(f"phase 5 timed prove: its gf_segsum calls by (input shape, (summer "
+        f"0 thread / 1 warp / 2 cluster, blocks an output)): {routes}")
 
     t_e2e = wall_ms(torch, timed_prove, TIMED_RUNS)
     t_verify = wall_ms(torch, lambda: driver.verify(c, full, eager_cp),
@@ -2169,9 +2272,9 @@ def main():
         fail(f"launches per batched call depend on B: "
              f"{ {b: per_b[b]['launches'] for b in BATCHES} }")
     if (first["sha3_chain_x64"], first["merkle_forest"],
-            first["sha3_256_x64"]) != (1, 1, 0):
-        fail(f"a batched call launched {first}, not one chain, one forest "
-             f"and no single SHA3")
+            first["sha3_256_x64"], first["gf_evaluate"]) != (1, 1, 0, 1):
+        fail(f"a batched call launched {first}, not one chain, one forest, "
+             f"one evaluation and no single SHA3")
     say(f"phase 8 ok in {time.perf_counter() - t8:.1f} s: launches per "
         f"batched call {first} at every B in {BATCHES}, no plain twin call")
 
@@ -2359,6 +2462,9 @@ def main():
                     for h in graphs.holders(m)]
              for what, m in (("evaluator", cp.evaluator), ("tape", tape),
                              ("e2e prover", e2e))}
+    if max(nodes["evaluator"]) > 2:
+        fail(f"phase 10: the evaluator graph has {nodes['evaluator']} kernel "
+             f"nodes, more than 2")
     say(f"phase 10 kernel nodes by graph: {nodes}")
     staged = protocol.make_prover(cc, cp.plans)
     # every kernel call of the eager provers and of the staged graphs'

@@ -39,6 +39,8 @@ from virgo_plus_tpu_torch.gkr.sumcheck import (ScatterPlan,
 from virgo_plus_tpu_torch.parallel.sharded import (make_batched_full_prover,
                                                    make_batched_prover)
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 MOD = (1 << 61) - 1
 B = 3
 FIELDS = ("p1_polys", "claim_u", "p2_polys", "claims_v", "liu_polys",

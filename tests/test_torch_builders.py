@@ -16,6 +16,7 @@ from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
 from virgo_plus_tpu_torch.field import gf
 
 from test_torch_native import _same
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 

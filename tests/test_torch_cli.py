@@ -12,6 +12,8 @@ import pytest
 
 from virgo_plus_tpu_torch import cli
 
+from torch_shared import THREAD_ENV
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = "tests/data/small1200.pws"
 
@@ -19,7 +21,7 @@ FIXTURE = "tests/data/small1200.pws"
 def _run(args):
     return subprocess.run([sys.executable, "-m", "virgo_plus_tpu_torch"]
                           + args, capture_output=True, text=True, cwd=ROOT,
-                          timeout=300)
+                          timeout=300, env=THREAD_ENV)
 
 
 def _main(argv):

@@ -1,13 +1,14 @@
-"""Circuit evaluation (``circuits/compile.py``: ``gf_eval_layer``) and the
+"""Circuit evaluation (``circuits/compile.py``: ``gf_evaluate``) and the
 fft_gkr tape's stage tables (``pc/fft_gkr.py``: ``fg_stage_tables``) on
 the CPU against the JAX package and the per-stage formulas, and the
-kernels' index arithmetic emulated on the host.
+kernels' schedules emulated on the host.
 
-On a CUDA tensor ``evaluate`` is a zero fill, the input copy and one
-``gf_eval_layer`` launch a layer, and the tape's ifft stages are one
-``fg_stage_tables`` launch a phase between two K1 calls that fold every
-stage at once; on a CPU tensor the launches are the plain twins
-(``eval_layer_plain``, ``stage_tables_plain``).  Here:
+On a CUDA tensor ``evaluate`` is one ``gf_evaluate`` launch over the
+circuit's plan (``eval_launches``: a very wide layer gets a launch of its
+own), and the tape's ifft stages are one ``fg_stage_tables`` launch a
+phase between two K1 calls that fold every stage at once; on a CPU
+tensor the launches are the plain twins (``evaluate_plain``,
+``stage_tables_plain``).  Here:
 
 * ``evaluate`` == JAX ``evaluate`` on randomize(4, 3), on a batch of
   witnesses (2, B, n) row by row, and on a circuit with unary gates, right
@@ -15,10 +16,14 @@ stage at once; on a CPU tensor the launches are the plain twins
 * ``stage_tables_plain`` == the tape's per-stage formulas (each stage's
   tables built alone and interleaved, with ``fft.powers`` twiddles) at
   lg = 1, 3 and 5, and ``stage_powers`` == ``fft.powers`` stage by stage;
-* ``emulate_eval_layer`` and ``emulate_stage_tables``, host copies of
-  ``csrc/circuit_eval.cu``'s and ``csrc/fft_gkr.cu``'s index arithmetic
-  (grid, rows a block, slots an item) on Python-int field elements,
-  == the twins, writing every output word exactly once;
+* ``emulate_evaluate``, a numpy copy of ``csrc/circuit_eval.cu``'s
+  launches, clusters, row groups, gate walk and barriers (at the card's
+  launch shape and a shrunk one, on the cut circuit and on random plans
+  of mixed gate kinds with a layer too wide for a cluster), == the twin,
+  writing every word once and reading only words of earlier steps; the
+  launch rule on randomize(14, 13)'s shape; ``emulate_stage_tables``, a
+  Python-int copy of ``csrc/fft_gkr.cu``'s index arithmetic, == the
+  twin; the constants against the sources;
 * a CPU call counts ``kernels.PLAIN_CALLS`` and launches nothing; the CUDA
   wrappers refuse CPU tensors.
 
@@ -28,6 +33,7 @@ witnesses and numpy with a seed; field arithmetic is exact, so the
 tolerance is 0.  The kernels run only on a card: chip_smoke.py holds them
 against the twins there."""
 
+import re
 from collections import Counter
 
 import jax
@@ -43,13 +49,14 @@ from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
                                                    input_buffer)
 from virgo_plus_tpu_torch.circuits.gates import GateType
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
-from virgo_plus_tpu_torch.field import gf
+from virgo_plus_tpu_torch.field import gf, np_ops
 from virgo_plus_tpu_torch.field.ref import Fq2
 from virgo_plus_tpu_torch.pc import fft, fft_gkr
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
-THREADS = 256                 # csrc/circuit_eval.cu, csrc/fft_gkr.cu
-TARGET_BLOCKS = 132 * 2       # csrc/circuit_eval.cu
+THREADS = 256                 # csrc/fft_gkr.cu
 MAX_BLOCKS = 132 * 8          # csrc/fft_gkr.cu
 
 
@@ -179,57 +186,182 @@ def test_stage_tables_match_per_stage_formulas(lg):
         assert all(torch.equal(g[:, 0], w) for g, w in zip(one, want2))
 
 
-def emulate_eval_layer(values, x_idx, y_idx, co, x_off, out_off):
-    """csrc/circuit_eval.cu's vpt_gf_eval_layer and gf_eval_layer_kernel on
-    Python-int field elements: the grid and rows a block as the C entry
-    picks them, a thread a gate over its block's rows.  Returns the new
-    values (numpy) and the count of each word's writes."""
-    v = gf.to_numpy(values).reshape(2, -1, values.shape[-1]).copy()
-    rows, size = v.shape[1], x_idx.numel()
-    x_idx, y_idx, co = x_idx.tolist(), y_idx.tolist(), gf.to_numpy(co)
-    bx = -(-size // THREADS)
-    want = -(-TARGET_BLOCKS // bx)
-    split = min(want, rows)
-    per = -(-rows // split)
-    writes = Counter()
-    el = lambda r, i: Fq2.raw(int(v[0, r, i]), int(v[1, r, i]))
-    for by in range(-(-rows // per)):
-        for b in range(bx):
-            for t in range(THREADS):
-                g = b * THREADS + t
-                if g >= size:
-                    continue
-                A, B, C, D = (Fq2.raw(int(co[k, 0, g]), int(co[k, 1, g]))
-                              for k in range(4))
-                xi, yi, oi = x_off + x_idx[g], y_idx[g], out_off + g
-                for r in range(by * per, min(rows, by * per + per)):
-                    x, y = el(r, xi), el(r, yi)
-                    out = A * x + B * y + (C * (x * y) + D)
-                    v[0, r, oi], v[1, r, oi] = out.real, out.img
-                    writes[(r, oi)] += 1
-    return v.reshape(tuple(values.shape)), writes
+def _source_constants(name, *consts):
+    src = (kernels.CSRC / name).read_text()
+    return [int(re.search(rf"constexpr int {c} = (-?\d+);", src).group(1))
+            for c in consts]
 
 
-@pytest.mark.parametrize("lead", [(), (3,), (2, 305)])
-def test_emulated_eval_layer_matches_twin(lead):
-    c = _unary_circuit()
-    cc = compile_circuit(c)
-    arrs = eval_arrays(cc, "cpu")
+def test_eval_constants_match_the_source():
+    assert _source_constants(
+        "circuit_eval.cu", "THREADS", "CLUSTER", "MAX_LAYERS",
+        "COPY") == [comp.EVAL_THREADS, comp.EVAL_CLUSTER, comp.EVAL_LAYERS,
+                    comp.COPY]
+    assert comp.eval_shape(5, {1: 9, 2: 4, 4: 0}) == (2, 3, 2)
+
+
+def _coefficients(rng, w):
+    """(4, 2, w) canonical coefficients of a mix of gate kinds: add (C =
+    0), mul (A = B = 0), all four, and A with D alone (a scaled copy)."""
+    co = rng.integers(0, M, (4, 2, w), dtype=np.uint64)
+    kind = rng.integers(0, 4, w)
+    co[2, :, kind == 0] = 0
+    co[:2, :, kind == 1] = 0
+    co[1:3, :, kind == 3] = 0
+    co[3, :, kind < 2] = 0
+    return co
+
+
+def _random_plan(widths, seed):
+    """An EvalPlan of random layers: an input block of widths[0] values,
+    then a layer of each further width, its left inputs in the layer
+    before, its right inputs anywhere in earlier blocks, canonical
+    coefficients of mixed gate kinds (the kernel's arithmetic takes any
+    words)."""
+    rng = np.random.default_rng(seed)
+    padded = [1 << max(w - 1, 0).bit_length() for w in widths]
+    off = np.concatenate([[0], np.cumsum(padded)])
+    return comp.make_plan(
+        [(rng.integers(0, padded[i - 1], w), rng.integers(0, off[i], w),
+          _coefficients(rng, w), int(off[i - 1]), int(off[i]), padded[i])
+         for i, w in enumerate(widths[1:], 1)],
+        padded[0], int(off[-1]), "cpu")
+
+
+def _times(c, v):
+    """gate_value's c * v: (0, 0) where c is (0, 0), without the
+    product."""
+    zero = (c == 0).all(axis=0)
+    return np.where(zero, np.uint64(0), np_ops.mul(c, v))
+
+
+def emulate_evaluate(inputs, plan, fits):
+    """csrc/circuit_eval.cu's vpt_gf_evaluate and gf_evaluate_kernel on
+    numpy words (np_ops' arithmetic), launch by launch as
+    ``compile.eval_launches`` groups the steps: in each launch, each
+    cluster (row group, gate part) walks each step's gates t0 + k * step
+    of its threads over its rows, a barrier between two steps.  A word a
+    step reads must have been written by an earlier launch, or in this
+    launch by an earlier step of the same cluster.  A product by a (0, 0)
+    coefficient is (0, 0), unmade (gate_value).  The buffer starts as
+    random words (torch.empty).  Returns the values and each word's
+    writes."""
+    T, CL = comp.EVAL_THREADS, comp.EVAL_CLUSTER
+    n_in = inputs.shape[-1]
+    lead = tuple(inputs.shape[1:-1])
     rows = int(np.prod(lead))
-    xs = _witnesses(c, rows).reshape(lead + (2, -1)) if lead else None
-    inputs = input_buffer(cc, xs, "cpu")
-    values = torch.zeros(inputs.shape[:-1] + (cc.total_values,),
-                         dtype=torch.int64)
-    values[..., :inputs.shape[-1]] = inputs
-    for i in range(1, cc.depth):
-        args = (arrs[f"x{i}"], arrs[f"y{i}"], arrs[f"co{i}"],
-                int(cc.value_off[i - 1]), int(cc.value_off[i]))
-        got, writes = emulate_eval_layer(values, *args)
-        values = comp.eval_layer_plain(values.clone(), *args)
-        assert np.array_equal(got, gf.to_numpy(values)), i
-        size = cc.layers[i].size
-        assert len(writes) == rows * size and set(writes.values()) == {1}
-    assert torch.equal(values, evaluate(cc, inputs, arrs))
+    xin = gf.to_numpy(inputs).reshape(2, rows, n_in)
+    v = np.random.default_rng(0).integers(0, 2 ** 63, (2, rows, plan.total),
+                                          dtype=np.int64).view(np.uint64)
+    writes = np.zeros((rows, plan.total), dtype=np.int64)
+    when = np.full((rows, plan.total, 3), -1)   # launch, cluster, step
+    xi, yi = plan.x_idx.numpy(), plan.y_idx.numpy()
+    co = gf.to_numpy(plan.co)
+    launches = comp.eval_launches(plan.steps, rows, fits)
+    for n, (first, count, cs, groups, per, split) in enumerate(launches):
+        assert cs <= CL and fits[cs] >= 1 and (split == 1 or (
+            cs == 1 and count == 1))
+        assert count <= comp.EVAL_LAYERS and groups * per >= rows
+        span = split * cs * T              # the kernel's `step`
+        for c in range(groups * split):
+            group, part = divmod(c, split)
+            rs = np.arange(group * per, min(rows, group * per + per))
+            lo = part * cs * T             # its threads' t0
+            for l in range(count):
+                g0, size, x_off, out_off, padded = (
+                    int(a) for a in plan.steps[first + l])
+                g = np.arange(padded)
+                t = g % span
+                mine = g[(t >= lo) & (t < lo + cs * T)]
+                if size == comp.COPY:
+                    vals = np.zeros((2, len(rs), len(mine)), dtype=np.uint64)
+                    live = mine < n_in
+                    vals[:, :, live] = xin[:, rs][:, :, mine[live]]
+                else:
+                    vals = np.zeros((2, len(rs), len(mine)), dtype=np.uint64)
+                    live = mine < size
+                    f = g0 + mine[live]
+                    idx = [x_off + xi[f].astype(np.int64),
+                           yi[f].astype(np.int64)]
+                    for ix in idx:
+                        w = when[rs][:, ix]
+                        ok = (w[..., 0] < n) | (
+                            (w[..., 0] == n) & (w[..., 1] == c)
+                            & (w[..., 2] < l) & (w[..., 2] >= 0))
+                        assert (w[..., 0] >= 0).all() and ok.all(), (n, c, l)
+                    x, y = (v[:, rs][:, :, ix] for ix in idx)
+                    A, B, C, D = (co[q][:, None, f] for q in range(4))
+                    vals[:, :, live] = np_ops.add(
+                        np_ops.add(_times(A, x), _times(B, y)),
+                        np_ops.add(_times(C, np_ops.mul(x, y)), D))
+                cols = out_off + mine
+                v[:, rs[:, None], cols] = vals
+                writes[rs[:, None], cols] += 1
+                when[rs[:, None], cols] = (n, c, l)
+    return v.reshape((2,) + lead + (plan.total,)), writes, launches
+
+
+# the launch shape of the card (csrc/circuit_eval.cu) and a shrunk one:
+# 4 threads a block, clusters of up to 2, 3 steps a launch, a bound of 8
+# gate-rows a thread (a 128-gate layer, and most layers at many rows, a
+# launch of their own); the clusters that fit at once by size, as the
+# card's query gives them (NVIDIA H100 80GB HBM3: 132, 66, 30, 15 and 7
+# clusters of 1, 2, 4, 8 and 16 blocks of 512 threads)
+SHAPES = {"card": ({}, {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}),
+          "small": (dict(EVAL_THREADS=4, EVAL_CLUSTER=2, EVAL_LAYERS=3,
+                         EVAL_WORK=8, EVAL_BLOCKS=6), {1: 5, 2: 2})}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("lead", [(), (3,), (2, 305)])
+def test_emulated_evaluate_matches_twin(lead, shape, monkeypatch):
+    consts, fits = SHAPES[shape]
+    for name, value in consts.items():
+        monkeypatch.setattr(comp, name, value)
+    rows = int(np.prod(lead))
+    if shape == "card":
+        c = _unary_circuit()
+        cc = compile_circuit(c)
+        plan = eval_arrays(cc, "cpu")["ev"]
+        xs = _witnesses(c, rows).reshape(lead + (2, -1)) if lead else None
+        inputs = input_buffer(cc, xs, "cpu")
+    else:
+        plan = _random_plan([13, 8, 16, 5, 128, 3, 40], rows)
+        inputs = _canon(np.random.default_rng(rows), 2, *lead, 13)
+    got, writes, launches = emulate_evaluate(inputs, plan, fits)
+    want = comp.evaluate_plain(inputs, plan)
+    assert np.array_equal(got, gf.to_numpy(want))
+    assert (writes == 1).all()
+    if shape == "card":
+        assert len(launches) == 1 and launches[0][:2] == (0, cc.depth)
+    else:      # several cluster launches and the 128-gate layer alone
+        assert len(launches) >= 3
+        assert (4, 1, 1) in [x[:3] for x in launches]
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 64])
+def test_eval_launch_rule(rows):
+    """randomize(14, 13)'s 14 blocks of 2^13 words are one cluster launch
+    at every batch the paths use, its cluster the size whose groups carry
+    the fewest rows a block (16 blocks at 1 to 16 rows, 2 at 64 on an
+    H100's fits: a cluster a row on 128 SMs); a 2^18-gate layer at one row
+    is a launch of its own over the card."""
+    fits = SHAPES["card"][1]
+    pad = 1 << 13
+    steps = np.array([(0, comp.COPY, 0, 0, pad)]
+                     + [((i - 1) * pad, pad, (i - 1) * pad, i * pad, pad)
+                        for i in range(1, 14)], dtype=np.int64)
+    (launch,) = comp.eval_launches(steps, rows, fits)
+    cs, groups, per = launch[2:5]
+    assert launch[:2] == (0, 14) and launch[5] == 1
+    assert cs == {1: 16, 4: 16, 16: 16, 64: 2}[rows]
+    assert groups * per >= rows and groups <= fits[cs]
+    wide = steps.copy()
+    wide[7, 1:] = (1 << 18, 6 * pad, 7 * pad, 1 << 18)
+    wide[8:, 3] += (1 << 18) - pad
+    got = comp.eval_launches(wide, 1, fits)
+    assert [x[:3] for x in got] == [(0, 7, 16), (7, 1, 1), (8, 6, 16)]
+    assert got[1][5] * comp.EVAL_THREADS == 1 << 18
 
 
 def emulate_stage_tables(phase, bg, xp, src, vu, dep0):
@@ -305,14 +437,11 @@ def test_cpu_routes_to_twins_and_cuda_wrappers_refuse_cpu():
     xp = fft_gkr.stage_powers(3, "cpu")
     fft_gkr.stage_tables(1, bg, xp, V, None, 0)
     fft_gkr.stage_tables(2, bg, xp, bu, vu, 0)
-    assert kernels.PLAIN_CALLS["gf_eval_layer"] == (
-        plain["gf_eval_layer"] + cc.depth - 1)
+    assert kernels.PLAIN_CALLS["gf_evaluate"] == plain["gf_evaluate"] + 1
     assert kernels.PLAIN_CALLS["fg_stage_tables"] == (
         plain["fg_stage_tables"] + 2)
     assert kernels.LAUNCHES == launches
-    values = torch.zeros((2, cc.total_values), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        comp.eval_layer_cuda(values, arrs["x1"], arrs["y1"], arrs["co1"],
-                             0, int(cc.value_off[1]))
+        comp.evaluate_cuda(input_buffer(cc, None, "cpu"), arrs["ev"])
     with pytest.raises(ValueError, match="CUDA"):
         fft_gkr.stage_tables_cuda(1, bg, xp, V, None, 0)

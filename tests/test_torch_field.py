@@ -13,6 +13,8 @@ from virgo_plus_tpu.field import gf as jgf
 from virgo_plus_tpu.field.ref import Fq2
 from virgo_plus_tpu_torch.field import gf
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 EDGE = np.array([0, 1, 2, M - 1, M - 2, M // 2, 1 << 60, (1 << 61) - 3,
                  (1 << 32) - 1, 1 << 32, 0xFFFFFFFF00000000 % M],

@@ -16,6 +16,8 @@ from virgo_plus_tpu.pallas_kernels.sumcheck_fold import (
 from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import sumcheck
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 
 

@@ -16,6 +16,7 @@ from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.config import ProtocolConfig
 
 from test_torch_prove import _bump, _equal_proofs, _saved
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 

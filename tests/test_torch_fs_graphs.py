@@ -44,6 +44,7 @@ from virgo_plus_tpu_torch.pc.interface import PolynomialCommitment, VirgoPC
 from test_reference_parity import FIXTURE
 from test_torch_graphs import _arrays, _same
 from test_torch_prove import _equal_proofs
+import torch_shared  # noqa: F401  (one torch thread)
 
 FORMS = {"staged": (True, True), "unstaged": (False, True),
          "eager": (True, False)}

@@ -20,6 +20,8 @@ from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import fs, protocol
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 MOD = (1 << 61) - 1
 FIELDS = ("p1_polys", "claim_u", "p2_polys", "claims_v", "liu_polys",
           "liu_claim")

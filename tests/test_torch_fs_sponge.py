@@ -16,6 +16,8 @@ from virgo_plus_tpu.gkr import fs as jfs
 from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import fs
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 
 

@@ -24,6 +24,10 @@ segments of the last axis; on a CUDA tensor each is one launch of
   plain ops, == ``table_plain`` and the JAX functions for beta and power
   tables at k = 0, 1, 2, 5, 8, 9, 13, at forced small tasks and at 40
   bits;
+* ``emulate_cluster_segsum``, a host copy of ``gf_segsum``'s cluster
+  route (an output's chunks over a cluster's blocks, LAZY loads a fold,
+  the leader's sum of the partials), == ``segsum_plain`` at N = 1, 7,
+  2^10 + 3 and 2^14, and ``seg_cluster``'s rule;
 * the twins run with the dispatching chains and field ops patched to
   raise, so on the card they launch no kernel of X1;
 * the CPU dispatch counts ``kernels.PLAIN_CALLS`` and launches nothing;
@@ -55,6 +59,8 @@ from virgo_plus_tpu_torch.field import chains, gf
 from virgo_plus_tpu_torch.gkr import beta, protocol, sumcheck
 from virgo_plus_tpu_torch.pc import fft
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
+
+import torch_shared  # noqa: F401  (one torch thread)
 
 M = gf.MOD
 BITS = (0, 1, 5, 9)
@@ -376,6 +382,83 @@ def test_table_tasks_at_forced_sizes(op, k, task_log, min_log):
     got, log = emulate_gf_table(op, a, r, n, task_log, min_log, 1 << 30)
     assert log == min_log
     assert torch.equal(got, chains.table_plain(op, a, r, n, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# gf_segsum's cluster route on the host
+# ---------------------------------------------------------------------------
+
+def test_segsum_constants_match_the_source():
+    assert _table_constants("THREADS", "LAZY", "SEG_CLUSTER") == [
+        chains.SEG_THREADS, chains.LAZY, chains.SEG_CLUSTER]
+
+
+def emulate_cluster_segsum(x, plan, cs):
+    """csrc/gf_chains.cu's gf_segsum<SEG_BLOCK> with clusters of `cs`
+    blocks on Python ints: block `rank` of an output's cluster sums the
+    rank-th chunk of its segment, each thread LAZY loads at a time (those
+    past the chunk predicated off) then one fold (the lazy sum checked
+    below 2^64); the warp and block sums, the partials in the leader's
+    shared memory and its sum of them.  Returns (*rows, G)."""
+    T, LAZY, P = chains.SEG_THREADS, chains.LAZY, M
+    words = x.reshape(-1, x.shape[-1]).numpy().view(np.uint64)
+    idx, starts, ends = plan if plan is not None else (None, None, None)
+    segs = ([(0, x.shape[-1])] if starts is None
+            else list(zip(starts.tolist(), ends.tolist())))
+    take = (lambda t: t) if idx is None else idx.tolist().__getitem__
+
+    def fold(s):
+        assert s < 2 ** 64
+        t = (s >> 61) + (s & P)
+        return t - P if t >= P else t
+
+    out = np.zeros((len(words), len(segs)), dtype=np.uint64)
+    for o in range(out.size):
+        row, (lo, hi) = words[o // len(segs)], segs[o % len(segs)]
+        chunk = -(-(hi - lo) // cs)
+        parts = []
+        for rank in range(cs):
+            clo = min(hi, lo + rank * chunk)
+            chi = min(hi, clo + chunk)
+            block = 0
+            for tid in range(T):
+                s = 0
+                for t in range(clo + tid, chi, LAZY * T):
+                    s = fold(s + sum(int(row[take(k)]) for k in range(
+                        t, min(chi, t + LAZY * T), T)))
+                block = (block + s) % P
+            parts.append(block)
+        out.flat[o] = sum(parts) % P
+    return torch.from_numpy(out.view(np.int64).reshape(
+        tuple(x.shape[:-1]) + (len(segs),)))
+
+
+@pytest.mark.parametrize("n", [1, 7, (1 << 10) + 3, 1 << 14])
+def test_emulated_cluster_segsum_matches_twin(n):
+    rng = np.random.default_rng(n)
+    x = gf.tensor(_canon(rng, 2, n))
+    plans = [None]
+    if n > 7:      # three segments, one empty, over a permutation
+        cut = n // 3
+        plans.append((torch.from_numpy(rng.permutation(n)),
+                      torch.tensor([0, cut, cut]),
+                      torch.tensor([cut, cut, n])))
+    for plan in plans:
+        want = chains.segsum_plain(x, *(plan or (None, None, None)))
+        mine = chains.seg_cluster(want.numel())
+        for cs in sorted({1, 3, mine, chains.SEG_CLUSTER}):
+            got = emulate_cluster_segsum(x, plan, cs)
+            assert torch.equal(got, want), (cs, plan is None)
+
+
+def test_seg_cluster_rule():
+    """vres (2 outputs) and the fft_gkr tape's sums take SEG_CLUSTER = 8
+    blocks an output; 3 rows of 2 planes 8; 44 outputs 3; B = 64's 128
+    rows one (the block route)."""
+    assert chains.seg_cluster(2) == chains.SEG_CLUSTER == 8
+    assert chains.seg_cluster(6) == 8
+    assert chains.seg_cluster(44) == 3
+    assert chains.seg_cluster(128) == 1
 
 
 def _raise(*args):

@@ -46,6 +46,8 @@ from virgo_plus_tpu_torch import kernels
 from virgo_plus_tpu_torch.field import chains, gf
 from virgo_plus_tpu_torch.pc import fft, virgo_pc
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 
 

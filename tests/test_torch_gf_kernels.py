@@ -35,6 +35,8 @@ from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import sumcheck
 from virgo_plus_tpu_torch.pc import keccak, merkle
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 BINARY = ("add", "sub", "mul")
 UNARY = ("neg", "reduce_lazy")

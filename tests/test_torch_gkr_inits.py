@@ -52,6 +52,8 @@ from virgo_plus_tpu_torch.field.ref import Fq2
 from virgo_plus_tpu_torch.gkr import inits, protocol
 from virgo_plus_tpu_torch.gkr.sumcheck import mle_fold
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 
 

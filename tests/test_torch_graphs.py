@@ -45,6 +45,7 @@ from virgo_plus_tpu_torch.pc.interface import VirgoPC
 from test_reference_parity import (FIXTURE, REF_GKR_KB, REF_PC_KB,
                                    REF_ROOT_H, REF_ROOT_L,
                                    REF_TRANSCRIPT_HASH, _transcript_hash)
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 B = 3

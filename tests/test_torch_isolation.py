@@ -18,6 +18,8 @@ from virgo_plus_tpu_torch.config import ProtocolConfig
 from virgo_plus_tpu_torch.gkr import protocol
 from virgo_plus_tpu_torch.parallel import sharded
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "virgo_plus_tpu_torch"
 

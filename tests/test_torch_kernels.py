@@ -28,6 +28,8 @@ from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import sumcheck
 from virgo_plus_tpu_torch.pc import keccak, merkle, virgo_pc
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 
 

@@ -17,6 +17,7 @@ from virgo_plus_tpu_torch.circuits.layered import dag_to_layered, subset_init
 from virgo_plus_tpu_torch.circuits.pws import parse_pws
 
 from test_native import PWS
+import torch_shared  # noqa: F401  (one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 SMALL1200 = ROOT / "tests" / "data" / "small1200.pws"

@@ -29,6 +29,8 @@ from virgo_plus_tpu_torch.gkr import beta
 from virgo_plus_tpu_torch.pc import fft, fft_gkr, merkle, virgo_pc
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 BL = 8          # input bits: 64 slices of 4, codewords of 128 per slice
 

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 
 from virgo_plus_tpu import driver as jdriver
+from virgo_plus_tpu import proof_io as jproof_io
 from virgo_plus_tpu.gkr import protocol as jprotocol
+from virgo_plus_tpu.pc.vpd import QueryAnswers as JQueryAnswers
 from virgo_plus_tpu.utils.glibc_rand import GlibcRandom as JGlibc
 
 from virgo_plus_tpu_torch import convert, driver, proof_io
@@ -24,6 +26,7 @@ from virgo_plus_tpu_torch.gkr import protocol
 from test_reference_parity import (FIXTURE, REF_GKR_KB, REF_PC_KB,
                                    REF_ROOT_H, REF_ROOT_L,
                                    REF_TRANSCRIPT_HASH, _transcript_hash)
+import torch_shared
 
 MOD = (1 << 61) - 1
 
@@ -56,14 +59,86 @@ def _equal_proofs(a, b):
     return all(checks)
 
 
-@pytest.fixture(scope="module")
-def both():
+def _circuit():
     c = randomize(3, 7, seed=21)
     subset_init(c)
+    return c
+
+
+def _proof_arrays(full):
+    """A JAX ``FullProof``'s fields as named numpy arrays, each as
+    np.asarray gives it (dtype and bits kept); the layer keys whose value
+    is None and the meta keys (ints) are listed by name."""
+    d = dict(vres=full.vres, root_l=full.root_l, root_h=full.root_h,
+             all_sum=full.all_sum, level_roots=full.level_roots,
+             final_codeword=full.final_codeword,
+             n_msgs=len(full.fft_gkr_messages), depth=len(full.layers),
+             meta_keys=np.array(sorted(full.meta), dtype=str))
+    for k, m in enumerate(full.fft_gkr_messages):
+        d[f"msg{k}"] = m
+    for i, lp in enumerate(full.layers[1:], 1):
+        d[f"L{i}__keys"] = np.array(list(lp), dtype=str)
+        d[f"L{i}__none"] = np.array([v is None for v in lp.values()])
+        d.update({f"L{i}_{k}": v for k, v in lp.items() if v is not None})
+    qa = full.queries
+    for k in ("init_l_vals", "init_l_paths", "init_h_vals", "init_h_paths"):
+        d[f"q_{k}"] = getattr(qa, k)
+    d["n_lvls"] = len(qa.lvl_vals)
+    for k, (v, p) in enumerate(zip(qa.lvl_vals, qa.lvl_paths)):
+        d[f"q_lvl{k}_vals"], d[f"q_lvl{k}_paths"] = v, p
+    for k, v in full.meta.items():
+        assert isinstance(v, int), (k, v)
+        d[f"meta_{k}"] = v
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def _proof_from(d):
+    """The JAX ``FullProof`` of ``_proof_arrays``' arrays."""
+    layers = [None]
+    for i in range(1, int(d["depth"])):
+        layers.append({k: None if none else d[f"L{i}_{k}"] for k, none in
+                       zip(d[f"L{i}__keys"].tolist(), d[f"L{i}__none"])})
+    lvls = range(int(d["n_lvls"]))
+    queries = JQueryAnswers(
+        **{k: d[f"q_{k}"] for k in ("init_l_vals", "init_l_paths",
+                                    "init_h_vals", "init_h_paths")},
+        lvl_vals=[d[f"q_lvl{k}_vals"] for k in lvls],
+        lvl_paths=[d[f"q_lvl{k}_paths"] for k in lvls])
+    return jproof_io.FullProof(
+        vres=d["vres"], layers=layers, root_l=d["root_l"],
+        root_h=d["root_h"], all_sum=d["all_sum"],
+        level_roots=d["level_roots"], final_codeword=d["final_codeword"],
+        fft_gkr_messages=[d[f"msg{k}"] for k in range(int(d["n_msgs"]))],
+        queries=queries,
+        meta={k: int(d[f"meta_{k}"]) for k in d["meta_keys"].tolist()})
+
+
+def jax_reference_proof(tmp_path_factory):
+    """The JAX ``driver.prove`` of randomize(3, 7, seed=21) (glibc seed
+    3396) and its proof sizes, made once per session
+    (``torch_shared.shared``, its fields as numpy arrays:
+    tests/test_torch_sharded_gkr.py holds its ranks against the same
+    proof)."""
+    def make():
+        c = _circuit()
+        jfull, jinfo = jdriver.prove(c, jdriver.compile_prover(c))
+        return dict(_proof_arrays(jfull),
+                    sizes=np.array([jinfo["gkr_proof_size"],
+                                    jinfo["pc_proof_size"]]))
+    d = torch_shared.shared(tmp_path_factory, "jax-driver-prove-randomize"
+                            "-3-7-21-glibc-3396", make)
+    gkr_size, pc_size = (int(n) for n in d["sizes"])
+    return (_proof_from(d),
+            dict(gkr_proof_size=gkr_size, pc_proof_size=pc_size))
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    c = _circuit()
     cp = driver.compile_prover(c, device="cpu")
     full, info = driver.prove(c, cp)
     jcp = jdriver.compile_prover(c)
-    jfull, jinfo = jdriver.prove(c, jcp)
+    jfull, jinfo = jax_reference_proof(tmp_path_factory)
     return c, cp, full, info, jcp, jfull, jinfo
 
 

@@ -37,6 +37,7 @@ from virgo_plus_tpu_torch.parallel import mesh as pmesh
 
 import torch_mesh_ranks as ranks
 from test_torch_prove import _equal_proofs
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 FIELDS = ("p1_polys", "claim_u", "p2_polys", "claims_v", "liu_polys",

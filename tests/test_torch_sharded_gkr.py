@@ -9,9 +9,10 @@ The ranks run on the CPU over gloo, S processes started by
   the JAX single-device ``driver.prove`` in every proof array (meta adds
   ``mesh_shards``, as the JAX ``prove_sharded``'s does).  The JAX sharded
   prover costs minutes to compile on the CPU (tests/test_gkr_sharded.py
-  takes 120 s at S = 8), so the reference is the single-device prove,
-  whose equality with the JAX sharded one tests/test_gkr_sharded.py:55
-  asserts.  That also checks ``make_sharded_prover``'s polys, which the
+  takes 120 s at S = 8), so the reference is the single-device prove
+  (made once a session with tests/test_torch_prove.py's, which holds the
+  same proof), whose equality with the JAX sharded one
+  tests/test_gkr_sharded.py:55 asserts.  That also checks ``make_sharded_prover``'s polys, which the
   proof carries; every rank returns the same proof; the port's verify
   and the JAX verify accept it and reject it with one coefficient
   changed.
@@ -47,7 +48,8 @@ from virgo_plus_tpu_torch.parallel import mesh as pmesh
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
 import torch_mesh_ranks as ranks
-from test_torch_prove import _equal_proofs
+from test_torch_prove import _equal_proofs, jax_reference_proof
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 TIMEOUT = 240
@@ -87,7 +89,7 @@ def _prove_and_jax_verify(c, small):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     c = _circuit(3, 7, 21)
     small = _circuit(4, 3, 3)
     tables = _tables()
@@ -98,7 +100,7 @@ def run():
                                   timeout=TIMEOUT,
                                   args=(c, small, tables, True)),
                    4: pool.submit(_prove_and_jax_verify, c, small)}
-        jfull, _ = jdriver.prove(c, jdriver.compile_prover(c))
+        jfull, _ = jax_reference_proof(tmp_path_factory)
         jmesh = JMesh(np.array(jax.devices()[:2]), ("sp",))
         v, a, m, rs = (jgf.from_u64(t[0], t[1]) for t in tables)
         jpolys, jbound = jax.jit(jsumcheck(jmesh, "sp"))(v, a, m, rs)

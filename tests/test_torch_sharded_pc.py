@@ -52,6 +52,7 @@ from virgo_plus_tpu_torch.pc import virgo_pc, vpd
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
 import torch_mesh_ranks as ranks
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 BL = 7

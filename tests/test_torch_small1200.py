@@ -10,6 +10,7 @@ from virgo_plus_tpu_torch import driver
 
 from test_reference_parity import FIXTURE
 from test_torch_prove import _equal_proofs
+import torch_shared  # noqa: F401  (one torch thread)
 
 
 def test_small1200_proof_matches_jax():

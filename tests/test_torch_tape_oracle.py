@@ -45,6 +45,8 @@ from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.field.ref import Fq2
 from virgo_plus_tpu_torch.pc import fft_gkr, virgo_pc
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 M = gf.MOD
 BUILD_LGS = (0, 1, 3, 7)
 ORACLE_BLS = (7, 9)

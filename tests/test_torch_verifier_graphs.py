@@ -33,6 +33,7 @@ from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
 from test_reference_parity import FIXTURE
 from test_torch_fs_prove import FIELDS
+import torch_shared  # noqa: F401  (one torch thread)
 
 MOD = (1 << 61) - 1
 FORMS = {"staged": (True, True), "unstaged": (False, True),

@@ -27,6 +27,8 @@ from virgo_plus_tpu_torch.parallel.sharded_queries import \
 from virgo_plus_tpu_torch.pc import fft_gkr, virgo_pc
 from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
 
+import torch_shared  # noqa: F401  (one torch thread)
+
 
 def _np(t):
     return None if t is None else gf.to_numpy(t)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .circuits.compile import CompiledCircuit, CompiledLayer
+from .circuits.compile import CompiledCircuit, CompiledLayer, eval_arrays
 from .driver import _layer_proof_arrays
 from .field import gf
 from .gkr import protocol
@@ -60,7 +60,8 @@ def circuit_arrays(arrs: dict, cc, device="cpu") -> dict:
     Bit-reversal permutations (perm*) have no counterpart: the port's fold
     reads natural pairs.  The fused init scatters (initsP, p2P) have none
     either: the port's init stages run over plans that
-    ``protocol.init_plans`` makes from the (port) compiled circuit."""
+    ``protocol.init_plans`` makes from the (port) compiled circuit, and
+    its evaluation over the plan ``compile.eval_arrays`` makes."""
     idx = lambda a: torch.from_numpy(
         np.asarray(a).astype(np.int64).reshape(-1)).to(device)
     out = {}
@@ -77,6 +78,7 @@ def circuit_arrays(arrs: dict, cc, device="cpu") -> dict:
     for i in range(1, cc.depth):
         if cc.layers[i].has_assert:
             out[f"ia{i}"] = protocol._assert_mask(cc.layers[i], device)
+    out.update(eval_arrays(cc, device))
     out.update(protocol.init_plans(cc, protocol.build_plans(cc), device))
     return out
 

@@ -58,21 +58,36 @@
 // summer adds canonical terms lazily in u64, folding by the Mersenne rule
 // of gf.reduce_lazy after every LAZY terms (a canonical sum and 7 terms
 // stay below 2^64), then warp shuffles and shared memory finish the sum.
-// Three shapes of summer, picked by the wrapper from the mean segment
-// length: a thread per (row, segment) for short segments (the gate
-// scatter, the phase-2 combine; a warp takes each of its segments longer
-// than LONG_SEGMENT together, so that a skewed plan does not leave one
-// thread with a long segment), a warp for moderate ones, a block for long
-// rows (tree sums over thousands of gates).
+// A summer keeps LAZY loads in flight: it loads LAZY terms, then adds
+// them, rather than one dependent add a load.  Three shapes of summer,
+// picked by the wrapper from the mean segment length: a thread per (row,
+// segment) for short segments (the gate scatter, the phase-2 combine; a
+// warp takes each of its segments longer than LONG_SEGMENT together, so
+// that a skewed plan does not leave one thread with a long segment), a
+// warp for moderate ones, and for long rows (tree sums over thousands of
+// gates) a cluster of up to SEG_CLUSTER blocks an output: each block sums
+// a contiguous chunk of the segment and writes its partial into the
+// leader block's shared memory (distributed shared memory,
+// cluster.map_shared_rank); one cluster barrier, and the leader folds the
+// partials.  No work buffer, no ticket, no second launch.  The wrapper
+// (field/chains.py seg_cluster) gives an output as many blocks as fill the
+// card's SMs with the call's outputs, up to SEG_CLUSTER: 8 blocks each
+// for the GKR prover's vres (2 outputs of 8,192 terms), one (today's
+// block route) for B = 64's 128 rows.  Before,
+// a block an output left 130 of 132 SMs idle on vres, each thread with
+// one dependent chain of 32 adds.
 // What bounds it: the bytes read (8 per row and term, plus the index) and
-// written, at 3.35 TB/s.
+// written, at 3.35 TB/s; a call of few outputs, its latency: a launch, a
+// chain of loads and the cluster barrier.
 //
 // Why CUDA and not Triton: exact 64-bit products (__umul64hi) and the
 // loader and launch counting of kernels.py, shared with the other entries.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include "field.cuh"
 
+namespace cg = cooperative_groups;
 using vpt::F2;
 using vpt::u64;
 
@@ -90,6 +105,7 @@ constexpr int MAX_BLOCKS = 132 * 16;  // grid cap of the grid-stride loops
 constexpr int SEG_AXES = 4;           // row axes of gf_segsum's input
 constexpr int LAZY = 7;               // terms added between two folds
 constexpr int LONG_SEGMENT = 64;      // longer segments: a warp each (SEG_THREAD)
+constexpr int SEG_CLUSTER = 8;        // most blocks of a cluster an output (SEG_BLOCK)
 
 enum { TABLE_BETA = 0, TABLE_POWER = 1 };
 enum { SEG_THREAD = 0, SEG_WARP = 1, SEG_BLOCK = 2 };
@@ -238,31 +254,41 @@ struct Segment {
     long long lo, hi;
 };
 
+// (32-bit index arithmetic: the entry takes fewer than 2^31 outputs)
 __device__ __forceinline__ Segment segment(const SegArgs& A, long long o) {
-    const int g = (int)(o % A.g);
-    long long row = o / A.g;
+    const unsigned g = (unsigned)o % (unsigned)A.g;
+    unsigned row = (unsigned)o / (unsigned)A.g;
     i64 off = 0;
 #pragma unroll
     for (int d = SEG_AXES - 1; d >= 0; --d) {
-        off += (row % A.size[d]) * A.stride[d];
+        off += (i64)(row % A.size[d]) * A.stride[d];
         row /= A.size[d];
     }
     return {A.x + off, A.starts ? A.starts[g] : 0, A.starts ? A.ends[g] : A.n};
 }
 
+__device__ __forceinline__ u64 term(const SegArgs& A, const Segment& S, long long t) {
+    return S.x[(A.idx ? A.idx[t] : t) * A.term];
+}
+
 // the canonical sum of the terms lo + lane, lo + lane + step, ... of a
-// segment
+// segment: LAZY loads in flight (those past the segment predicated off),
+// then their sum and one fold (a canonical sum and LAZY terms stay below
+// 2^64)
 __device__ __forceinline__ u64 partial(const SegArgs& A, Segment S, int lane, int step) {
     u64 s = 0;
-    int c = 0;
-    for (long long t = S.lo + lane; t < S.hi; t += step) {
-        s += S.x[(A.idx ? A.idx[t] : t) * A.term];
-        if (++c == LAZY) {
-            s = fold(s);
-            c = 0;
+    for (long long t = S.lo + lane; t < S.hi; t += (long long)LAZY * step) {
+        u64 v[LAZY];
+#pragma unroll
+        for (int u = 0; u < LAZY; ++u) {
+            const long long k = t + (long long)u * step;
+            v[u] = k < S.hi ? term(A, S, k) : 0;
         }
+#pragma unroll
+        for (int u = 0; u < LAZY; ++u) s += v[u];
+        s = fold(s);
     }
-    return fold(s);
+    return s;
 }
 
 // the sum over the warp, in every lane
@@ -300,17 +326,39 @@ __global__ void __launch_bounds__(THREADS) gf_segsum(SegArgs A) {
             if (lane == 0) A.out[o] = s;
         }
     } else {
+        // a cluster of cs blocks an output (cs = 1: a block), block `rank`
+        // summing the rank-th chunk of its segment
         __shared__ u64 sh[WARPS];
+        __shared__ u64 parts[SEG_CLUSTER];
+        cg::cluster_group cluster = cg::this_cluster();
+        const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
         const int warp = threadIdx.x >> 5;
-        for (long long o = blockIdx.x; o < A.outputs; o += gridDim.x) {
-            u64 s = warp_sum(partial(A, segment(A, o), threadIdx.x, THREADS));
+        for (long long o = blockIdx.x / cs; o < A.outputs; o += gridDim.x / cs) {
+            Segment S = segment(A, o);
+            const long long chunk = (S.hi - S.lo + cs - 1) / cs;
+            S.lo = min(S.hi, S.lo + rank * chunk);
+            S.hi = min(S.hi, S.lo + chunk);
+            u64 s = warp_sum(partial(A, S, threadIdx.x, THREADS));
             if (lane == 0) sh[warp] = s;
             __syncthreads();
             if (warp == 0) {
                 s = warp_sum(lane < WARPS ? sh[lane] : 0);
+                if (lane == 0) {
+                    if (cs == 1) A.out[o] = s;
+                    else cluster.map_shared_rank(parts, 0)[rank] = s;
+                }
+            }
+            if (cs == 1) {
+                __syncthreads();
+                continue;
+            }
+            cluster.sync();   // every partial in the leader's parts
+            if (rank == 0 && warp == 0) {
+                s = warp_sum(lane < cs ? parts[lane] : 0);
                 if (lane == 0) A.out[o] = s;
             }
-            __syncthreads();
+            if (o + gridDim.x / cs < A.outputs)
+                cluster.sync();   // parts read before the next output's
         }
     }
 }
@@ -358,16 +406,18 @@ extern "C" int vpt_gf_table(int op, const u64* a, const u64* r, u64* out, int le
 // stride term) for every row (SEG_AXES row axes of sizes d0..d3, element
 // strides s0..s3; R = d0 d1 d2 d3).  idx: the terms' positions (null:
 // contiguous); starts, ends: the g segments' term ranges (null: g = 1,
-// the segment [0, n)).  mode: 0 a thread, 1 a warp, 2 a block per
-// output.  One launch, none for an empty output.
+// the segment [0, n)).  mode: 0 a thread, 1 a warp, 2 a cluster of
+// `cluster` blocks (1 to SEG_CLUSTER; 1 for the other modes) per output.
+// One launch, none for an empty output.
 extern "C" int vpt_gf_segsum(const u64* x, const i64* idx, const i64* starts,
                              const i64* ends, u64* out, int g, long long n,
                              int d0, int d1, int d2, int d3, long long s0,
                              long long s1, long long s2, long long s3,
-                             long long term, int mode, void* stream_ptr) {
+                             long long term, int mode, int cluster, void* stream_ptr) {
     const long long outputs = (long long)d0 * d1 * d2 * d3 * g;
     if (outputs <= 0) return 0;
-    if ((starts == nullptr) != (ends == nullptr) || (!starts && g != 1))
+    if ((starts == nullptr) != (ends == nullptr) || (!starts && g != 1) || cluster < 1
+        || cluster > (mode == SEG_BLOCK ? SEG_CLUSTER : 1) || outputs >= (1ll << 31))
         return (int)cudaErrorInvalidValue;
     const SegArgs A = {x, idx, starts, ends, out,
                        {(unsigned)d0, (unsigned)d1, (unsigned)d2, (unsigned)d3},
@@ -380,9 +430,22 @@ extern "C" int vpt_gf_segsum(const u64* x, const i64* idx, const i64* starts,
         case SEG_WARP:
             gf_segsum<SEG_WARP><<<capped((outputs + WARPS - 1) / WARPS), THREADS, 0, stream>>>(A);
             break;
-        case SEG_BLOCK:
-            gf_segsum<SEG_BLOCK><<<capped(outputs), THREADS, 0, stream>>>(A);
+        case SEG_BLOCK: {
+            cudaLaunchConfig_t cfg = {};
+            cudaLaunchAttribute at[1];
+            at[0].id = cudaLaunchAttributeClusterDimension;
+            at[0].val.clusterDim.x = (unsigned)cluster;
+            at[0].val.clusterDim.y = 1;
+            at[0].val.clusterDim.z = 1;
+            cfg.gridDim = dim3((unsigned)(capped(outputs * cluster) / cluster * cluster));
+            cfg.blockDim = dim3(THREADS);
+            cfg.stream = stream;
+            cfg.attrs = at;
+            cfg.numAttrs = 1;
+            const cudaError_t e = cudaLaunchKernelEx(&cfg, gf_segsum<SEG_BLOCK>, A);
+            if (e != cudaSuccess) return (int)e;
             break;
+        }
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

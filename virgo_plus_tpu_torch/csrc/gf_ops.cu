@@ -10,7 +10,7 @@
 // Bits.  Each kernel repeats the int64 steps of its plain twin in
 // virgo_plus_tpu_torch/field/gf.py (mul_plain, add_plain, sub_plain,
 // neg_plain, reduce_lazy_plain), through gf_int64.cuh, which the fused
-// kernels gf_eval_layer and fg_stage_tables share: so a kernel equals its
+// kernels gf_evaluate and fg_stage_tables share: so a kernel equals its
 // twin on every int64 input, canonical or not.
 //
 // Layout.  The output is (P, d0, d1, d2, d3) contiguous (fewer axes are

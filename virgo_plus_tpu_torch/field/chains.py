@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -42,10 +43,33 @@ TABLE_OPS = ("beta", "power")
 BETA, POWER = range(len(TABLE_OPS))
 
 SEG_AXES = 4   # row axes gf_segsum takes
-# gf_segsum's summers: a thread, a warp or a block per output, by the mean
-# segment length (up to THREAD_MEAN, up to WARP_MEAN, longer)
+# gf_segsum's summers: a thread, a warp or a cluster of blocks per output,
+# by the mean segment length (up to THREAD_MEAN, up to WARP_MEAN, longer)
 SEG_THREAD, SEG_WARP, SEG_BLOCK = range(3)
 THREAD_MEAN, WARP_MEAN = 16, 512
+# csrc/gf_chains.cu: a block's threads, the terms a thread loads at once,
+# the most blocks of an output's cluster; the card's SMs
+SEG_THREADS, LAZY, SEG_CLUSTER, SMS = 256, 7, 8, 132
+
+
+def seg_cluster(outputs: int) -> int:
+    """The blocks of each output's cluster in the SEG_BLOCK route: as many
+    as fill the SMs with `outputs` outputs, at least one, at most
+    SEG_CLUSTER (a (2, 8,192) sum took 7.38 us with one block an output
+    and 3.47 with eight on an H100)."""
+    return max(1, min(SEG_CLUSTER, SMS // max(outputs, 1)))
+
+
+def seg_route(x, idx, starts) -> tuple:
+    """(summer, blocks of each output's cluster) of a gf_segsum call: the
+    summer by the mean segment length, and ``seg_cluster``'s blocks for
+    SEG_BLOCK (one otherwise)."""
+    g = 1 if starts is None else starts.numel()
+    mean = (x.shape[-1] if idx is None else idx.numel()) / max(g, 1)
+    mode = (SEG_THREAD if mean <= THREAD_MEAN else
+            SEG_WARP if mean <= WARP_MEAN else SEG_BLOCK)
+    outputs = math.prod(x.shape[:-1]) * g
+    return mode, seg_cluster(outputs) if mode == SEG_BLOCK else 1
 
 
 def _on_cuda(device) -> bool:
@@ -197,7 +221,8 @@ def segsum_plain(x, idx, starts, ends):
 
 
 def segsum_cuda(x, idx, starts, ends):
-    """gf_segsum on the card, one launch: same signature and bits as
+    """gf_segsum on the card, one launch (long segments: a cluster of
+    ``seg_cluster`` blocks an output): same signature and bits as
     segsum_plain on canonical inputs."""
     plan = [t for t in (idx, starts, ends) if t is not None]
     if x.device.type != "cuda" or any(t.device != x.device for t in plan):
@@ -221,15 +246,12 @@ def segsum_cuda(x, idx, starts, ends):
     if out.numel():
         kernels.check_int("gf_segsum", segments=g, rows=max(rows, default=1))
         n = x.shape[-1]
-        terms = n if idx is None else idx.numel()
-        mean = terms / g
-        mode = (SEG_THREAD if mean <= THREAD_MEAN else
-                SEG_WARP if mean <= WARP_MEAN else SEG_BLOCK)
+        mode, blocks = seg_route(x, idx, starts)
         pad = SEG_AXES - len(rows)
         sizes = (1,) * pad + rows
         strides = (0,) * pad + tuple(x.stride()[:-1])
         ptr = lambda t: None if t is None else t.data_ptr()
         kernels.launch("gf_segsum", 1, x.data_ptr(), ptr(idx), ptr(starts),
                        ptr(ends), out.data_ptr(), g, n, *sizes, *strides,
-                       x.stride(-1), mode, kernels.stream_ptr())
+                       x.stride(-1), mode, blocks, kernels.stream_ptr())
     return out

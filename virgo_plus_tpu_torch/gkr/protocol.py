@@ -30,7 +30,7 @@ from .. import device as _device
 from .. import graphs
 from ..field import chains, gf
 from ..utils.glibc_rand import GlibcRandom
-from ..circuits.compile import (CompiledCircuit, coeffs, eval_arrays,
+from ..circuits.compile import (G0, CompiledCircuit, coeffs, eval_arrays,
                                 evaluate, index)
 from . import inits
 from .beta import beta_table
@@ -106,15 +106,18 @@ def _assert_mask(L, device):
 
 
 def circuit_arrays(cc: CompiledCircuit, plans, device) -> dict:
-    """The per-layer index/coefficient tensors (circuit evaluation, the FS
-    prover) and the init stages' and the phase-2 combine's plans, made
-    once per circuit on the device."""
-    arrs = {}
+    """The per-layer index tensors and coefficient planes (the FS prover;
+    the planes are views of the evaluation plan's), the evaluation plan
+    ("ev") and the init stages' and the phase-2 combine's plans, made once
+    per circuit on the device."""
+    arrs = eval_arrays(cc, device)
+    ev = arrs["ev"]
     for i in range(1, cc.depth):
         L = cc.layers[i]
+        g0 = int(ev.steps[i, G0])
         arrs[f"x{i}"] = index(L.x_idx, device)
         arrs[f"y{i}"] = index(L.y_idx, device)
-        arrs[f"co{i}"] = gf.tensor(L.coeff, device)
+        arrs[f"co{i}"] = ev.co[..., g0:g0 + L.size]
         if L.has_assert:
             arrs[f"ia{i}"] = _assert_mask(L, device)
         if plans[i].p2 is not None:

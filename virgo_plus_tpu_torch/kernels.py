@@ -13,9 +13,10 @@ A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
 its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
 ``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain,
-each fold, each GKR init stage, each circuit layer, each phase of
-the fft_gkr stage tables and each virtual oracle: one, none for an empty
-output; the fft_gkr circuit: ``fft_gkr.circuit_launches(lg)``), and its
+each fold, each GKR init stage, each phase of the fft_gkr stage tables
+and each virtual oracle: one, none for an empty output; the fft_gkr
+circuit: ``fft_gkr.circuit_launches(lg)``; a circuit evaluation: one per
+launch of ``compile.eval_launches``), and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -61,12 +62,12 @@ SOURCES = {
     # 3 strides, a by-value base's factors (host memory), the stream;
     # gf_segsum: x, idx, starts, ends, out, segments, the last axis'
     # length, SEG_AXES row sizes and strides, the last axis' stride, the
-    # summer, the stream
+    # summer, the blocks of its cluster, the stream
     "gf_chains": {
         "gf_table": ("vpt_gf_table", [_I] + [_P] * 3 + [_I, _I] + [_L] * 6
                      + [_P, _P]),
         "gf_segsum": ("vpt_gf_segsum", [_P] * 5 + [_I, _L] + [_I] * 4
-                      + [_L] * 5 + [_I, _P]),
+                      + [_L] * 5 + [_I, _I, _P]),
     },
     # the input rows (pointer, FFT_AXES lead sizes and strides, plane and
     # last-axis strides), then gf_fft: the twiddles, out, scratch, log2 of
@@ -91,11 +92,13 @@ SOURCES = {
                 + [_P] * 6 + [_L] + [_P] * 4 + [_I] * 4 + [_P, _L, _P, _L,
                                                              _P])
         for entry in ("gkr_p1_inits", "gkr_p2_inits")},
-    # values, its rows and last axis; x_idx, y_idx, the coefficients, the
-    # layer's gates, x's and the output's offsets in a row; the stream
+    # values; the inputs, their plane and row strides and length; the
+    # rows, a row's values; x_idx, y_idx, the coefficients, the gates; the
+    # step table (host memory) and the launch's steps; blocks a cluster,
+    # row groups, rows a group, gate blocks; the stream
     "circuit_eval": {
-        "gf_eval_layer": ("vpt_gf_eval_layer", [_P, _I, _L, _P, _P, _P, _I,
-                                                _L, _L, _P]),
+        "gf_evaluate": ("vpt_gf_evaluate", [_P, _P, _L, _L, _L, _I, _L]
+                        + [_P] * 3 + [_L, _P] + [_I] * 5 + [_P]),
     },
     # the phase; bg, the twiddles, V or bu, vu, out; the stages, lg, the
     # first stage's dep; the stream
@@ -185,17 +188,22 @@ def lib(entry: str):
     """The C function of one entry, building its source on first use."""
     if entry not in _FNS:
         src = ENTRIES[entry]
-        if src not in _LIBS:
-            out = _target(src)
-            if not out.exists():
-                build([src])
-            _LIBS[src] = ctypes.CDLL(str(out))
-        symbol, argtypes = SOURCES[src][entry]
-        fn = getattr(_LIBS[src], symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[entry] = fn
+        _FNS[entry] = helper(src, *SOURCES[src][entry])
     return _FNS[entry]
+
+
+def helper(src: str, symbol: str, argtypes):
+    """A C function of a source that launches nothing (a query), building
+    and loading the source on first use."""
+    if src not in _LIBS:
+        out = _target(src)
+        if not out.exists():
+            build([src])
+        _LIBS[src] = ctypes.CDLL(str(out))
+    fn = getattr(_LIBS[src], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launch(entry: str, n_launches: int, *args):
@@ -207,15 +215,16 @@ def launch(entry: str, n_launches: int, *args):
     LAUNCHES[entry] += n_launches
 
 
-def check_cuda(name: str, tensors, shapes):
-    """Wrapper-side checks: every tensor on one CUDA device, int64,
-    contiguous, of its expected shape."""
+def check_cuda(name: str, tensors, shapes, dtypes=None):
+    """Wrapper-side checks: every tensor on one CUDA device, int64 (or its
+    entry of `dtypes`), contiguous, of its expected shape."""
     dev = tensors[0].device
-    for t, shape in zip(tensors, shapes):
+    dtypes = dtypes or (torch.int64,) * len(tensors)
+    for t, shape, dtype in zip(tensors, shapes, dtypes):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.int64:
-            raise TypeError(f"{name}: expected int64 tensors, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype} tensors, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
         if tuple(t.shape) != tuple(shape):
