@@ -41,10 +41,13 @@ package.  Phases, one line each, any failure exits non-zero:
    points (two launches), 2^1 to 2^12 onto as many points (odd and even
    stage counts), strided and transposed rows, one coefficient, one
    point, an empty lead, and a root whose twiddles a capture asked for
-   first (it must raise, then run eagerly); folds of 65 slices at N = 2,
-   64 and 4096, a
-   B = 64 batch, strided, empty; launches as ``fft.launches(lg_coef)``,
-   one a fold; the largest shapes timed against their bounds; then the
+   first (it must raise, then run eagerly); FRI folds of 65 slices (every
+   level of a call in one launch): 7 levels of N = 4096 and of a B = 64
+   batch, one level at N = 2, 64 and 4096, 6 levels of 64, 10 levels
+   (two launches), a rank's block at (S, q) = (2, 1) and (4, 3), a
+   strided codeword and challenges, an empty batch; launches as
+   ``fft.launches(lg_coef)`` and ``virgo_pc.fold_launches(levels)``; the
+   largest shapes timed against their bounds; then the
    GKR init stages (X1: ``gkr_p1_inits``, ``gkr_p2_inits``) against their
    plain twins, one launch a stage, in the proves of three fixed
    circuits: randomize(4, 3), and randomize circuits with assert gates
@@ -61,7 +64,8 @@ package.  Phases, one line each, any failure exits non-zero:
    against their bound; and the fft_gkr stage tables (X1:
    ``fg_stage_tables``) against their twin at lg = 1, 7 and 12 in both
    phases, the fft_gkr circuit (X1: ``fg_build_circuit``) at lg = 0, 1, 7
-   and 12 (one launch) and 13 and 18 (``fft_gkr.circuit_launches(lg)``),
+   and 8 (in registers), 9, 10 and 11 (a block a point: one launch) and
+   12, 13 and 18 (``fft_gkr.circuit_launches(lg)``), on canonical inputs,
    and the public commit's virtual oracle (X1: ``pc_virtual_oracle``) at
    2^12 columns with no batch axis and at B = 4 and 64, and on a sharded
    rank's columns (rank 1 of 2, rank 3 of 4, its own tables);
@@ -260,7 +264,7 @@ INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
 # X1: a whole circuit evaluation, the fft_gkr tape's stage tables and
 # circuit, and the public commit's virtual oracle: one launch an
 # evaluation (compile.eval_launches for a very wide layer), a phase, a
-# tape (circuit_launches(lg) above lg = 12) and a commit
+# tape (circuit_launches(lg) above lg = ONE_LAUNCH_LOG) and a commit
 FUSED_ENTRIES = ("gf_evaluate", "fg_stage_tables", "fg_build_circuit",
                  "pc_virtual_oracle")
 # the entries every glibc prove must launch (sha3_256_x64 is the FS
@@ -323,8 +327,9 @@ GF_TABLE_INT32_OPS = 6       # an output word of a table: one product an
                              # entry, as gf_mul
 GF_FFT_INT32_OPS = 36        # a butterfly: a product (2 words) and a sum
                              # and a difference (4 words)
-GF_FOLD_INT32_OPS = 72       # an output element of a fold: two products,
-                             # three sums and the halving (a product)
+GF_FOLD_INT32_OPS = 66       # an output element of a fold level: two
+                             # products, three sums and the halving (a
+                             # shift, a mask and an add a word)
 GF_PRODUCT_INT32_OPS = 12    # a GF(p^2) product (two words, as gf_mul)
 GF_SUM_INT32_OPS = 12        # a GF(p^2) sum (two words, as gf_lin)
 # a GKR init term's products and sums a row: phase 1 four products, two
@@ -354,11 +359,13 @@ SHARDED = ((2, ("glibc", "fs")), (4, ("glibc",)))   # S, transcripts
 SHARDED_RUNS = 1             # timed proves per rank after the recorded one
 # phase 3's fixed shapes of the fused entries that the paths meet at one
 # size only, also profiled with the paths' shapes: the fft_gkr circuit at
-# lg = 0, 1, 7, 12 (one launch) and 13, 18 (lg + 3 launches), the virtual oracle
+# lg = 0, 1, 7, 8 (in registers), 9, 10, 11 (a block a point: one
+# launch) and 12, 13, 18 (lg + 3 launches), the virtual oracle
 # at 2^12 columns (no batch axis, B = 4, 64) and a sharded rank's columns
 # (rank 1 of 2, rank 3 of 4)
 ORACLE_RANKS = ((2, 1), (4, 3))
-FIXED_SHAPES = {"fg_build_circuit": [(lg,) for lg in (0, 1, 7, 12, 13, 18)],
+FIXED_SHAPES = {"fg_build_circuit": [(lg,) for lg in (0, 1, 7, 8, 9, 10, 11,
+                                                       12, 13, 18)],
                 "pc_virtual_oracle": [(1, 4096), (4, 4096), (64, 4096)]
                 + [(1, 4096 // S) for S, _ in ORACLE_RANKS]}
 # K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
@@ -603,8 +610,9 @@ def gf_words(entry, ins):
     """The output's words (int64) of an X1 call: gf_mul (x, y), gf_lin (op,
     x, y), gf_table (op, a, r, n, device), gf_segsum (x, idx, starts,
     ends), gf_fft (coefficients, log2 of the order, root[, scale]),
-    gf_fri_fold (codeword, w, r), the elementwise ops' from torch's own
-    broadcast rule."""
+    gf_fri_fold (codeword, challenges, log2 of the top order, shards: every
+    level's words), the elementwise ops' from torch's own broadcast
+    rule."""
     import torch
     if entry == "gf_mul":
         return 2 * math.prod(torch.broadcast_shapes(ins[0].shape[1:],
@@ -619,7 +627,7 @@ def gf_words(entry, ins):
     if entry == "gf_fft":
         return ins[0].numel() // ins[0].shape[-1] << ins[1]
     if entry == "gf_fri_fold":
-        return ins[0].numel() // 2
+        return ins[0].numel() - (ins[0].numel() >> len(ins[1]))
     x, y = ins[1], (ins[2] if len(ins) > 2 else None)   # (op, x) if unary
     return math.prod(x.shape if y is None
                      else torch.broadcast_shapes(x.shape, y.shape))
@@ -627,13 +635,16 @@ def gf_words(entry, ins):
 
 def gf_launches(entry, ins):
     """The launches the rule gives an X1 call: gf_fft's
-    ``fft.launches(lg_coef)``, one for the others; none for an empty
-    output."""
+    ``fft.launches(lg_coef)``, gf_fri_fold's ``virgo_pc.fold_launches(L)``,
+    one for the others; none for an empty output."""
     if not gf_words(entry, ins):
         return 0
     if entry == "gf_fft":
         from virgo_plus_tpu_torch.pc import fft
         return fft.launches(ins[0].shape[-1].bit_length() - 1)
+    if entry == "gf_fri_fold":
+        from virgo_plus_tpu_torch.pc import virgo_pc
+        return virgo_pc.fold_launches(len(ins[1]))
     return 1
 
 
@@ -676,7 +687,12 @@ def gf_cost(entry, ins):
             GF_FFT_INT32_OPS * words // 4 * lg_coef
             + (GF_MUL_INT32_OPS * words if scaled else 0))
     if entry == "gf_fri_fold":
-        return (8 * (ins[0].numel() + ins[1].numel() + 2 + words),
+        # the top codeword and the challenges read, every level written,
+        # each level's twiddles read once (n / 2^(k+1) entries of the
+        # cached table)
+        n, levels = ins[0].shape[-1], len(ins[1])
+        return (8 * (ins[0].numel() + 2 * levels + words
+                     + 2 * (n - (n >> levels))),
                 GF_FOLD_INT32_OPS * words // 2)
     read = [t for t in ins if hasattr(t, "numel")]   # y is None if unary
     ops = GF_MUL_INT32_OPS if entry == "gf_mul" else GF_LIN_INT32_OPS
@@ -935,12 +951,15 @@ class Recorder:
                     t.clone() for t in flatten(out)), launched))
                 return out
             plain = dict(self.kernels.PLAIN_CALLS)
-            want = self.twin[entry](*args)
+            want = flatten(self.twin[entry](*args))
             self.kernels.PLAIN_CALLS.update(plain)
-            if want.shape != out.shape:
-                fail(f"{entry} gave shape {tuple(out.shape)} against its "
-                     f"plain twin's {tuple(want.shape)}")
-            self.gf_diff[entry].append((out != want).sum())
+            got = flatten(out)
+            if [t.shape for t in want] != [t.shape for t in got]:
+                fail(f"{entry} gave shapes {[tuple(t.shape) for t in got]} "
+                     f"against its plain twin's "
+                     f"{[tuple(t.shape) for t in want]}")
+            self.gf_diff[entry].append(sum((a != b).sum()
+                                           for a, b in zip(got, want)))
             size = gf_size(entry, args)
             if gf_bucket(size) not in buckets:
                 buckets.add(gf_bucket(size))
@@ -995,7 +1014,7 @@ def kernel_tables():
             "gf_table": chains.table_plain,
             "gf_segsum": chains.segsum_plain,
             "gf_fft": fft.fft_plain,
-            "gf_fri_fold": virgo_pc.fold_step_plain,
+            "gf_fri_fold": virgo_pc.fold_levels_plain,
             "gkr_p1_inits": inits.p1_inits_plain,
             "gkr_p2_inits": inits.p2_inits_plain,
             "gf_evaluate": circuit.evaluate_plain,
@@ -1162,13 +1181,14 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
                                                             128)),
                                    dtype=np.uint64), dev)
         return (x, lg, gf.root_of_unity_int(lg))
-    if entry == "gf_fri_fold":     # a fold onto n / 2 points
-        half = max(shp[0] // 2, 1)
-        rows = 65 if half >= 65 * 64 else 1
-        n = 2 << max((half // rows).bit_length() - 1, 0)
-        return tuple(gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
-                               dev) for s in ((2, rows, n), (2, n // 2),
-                                              (2,)))
+    if entry == "gf_fri_fold":     # up to 7 levels of an n-point codeword
+        words = max(shp[0] // 2, 1)
+        rows = 65 if words >= 65 * 64 else 1
+        lg = max((words // rows).bit_length() - 1, 1)
+        return (gf.tensor(rng.integers(0, M, size=(2, rows, 1 << lg),
+                                       dtype=np.uint64), dev),
+                [gf.tensor(rng.integers(0, M, size=(2,), dtype=np.uint64),
+                           dev) for _ in range(min(lg, 7))], lg, (1, 0))
     if entry in GF_ENTRIES:        # (2, n / 2) words: a product, a sum, a
         # beta table, one segment
         x, y = (gf.tensor(rng.integers(0, M, size=(2, max(shp[0] // 2, 1)),
@@ -1602,26 +1622,41 @@ def main():
               "strided rows x[..., 128:] onto 2^12")
     transform("gf_fft", (canon(2, 64, 16, 128).transpose(1, 2), 12, rou(12)),
               "a transposed lead (16, 64) onto 2^12")
-    # (what, codeword shape, timed: a call the card takes longer over
-    # than its host issue); w and r random, canonical
-    fold_shapes = [("a fold of (2, 65, 4096)", (2, 65, 4096), False),
-                   ("a fold of (2, 65, 64)", (2, 65, 64), False),
-                   ("a fold of (2, 65, 2)", (2, 65, 2), False),
-                   ("a fold of (2, 64, 65, 4096)", (2, 64, 65, 4096), True),
-                   ("an empty batch", (2, 0, 65, 8), False)]
-    for what, shape, timed in fold_shapes:
-        transform("gf_fri_fold", (canon(*shape), canon(2, shape[-1] // 2),
-                                  canon(2)), what, timed)
-    transform("gf_fri_fold", (canon(2, 65, 4096)[..., ::2],
-                              canon(2, 2048)[:, ::2], canon(4)[::2]),
-              "a codeword, w and r read at stride 2")
+    # (what, codeword shape, log2 of the top order, levels, shards (S, q),
+    # timed: a call the card takes longer over than its host issue); the
+    # challenges random, canonical: the timed prove's 7 levels, the batched
+    # call's, the FS paths' one level, two launches, a rank's strided
+    # block, an empty batch
+    fold_shapes = [
+        ("7 levels of (2, 65, 4096)", (2, 65, 4096), 12, 7, (1, 0), False),
+        ("7 levels of (2, 64, 65, 4096)", (2, 64, 65, 4096), 12, 7, (1, 0),
+         True),
+        ("1 level of (2, 65, 4096)", (2, 65, 4096), 12, 1, (1, 0), False),
+        ("1 level of (2, 65, 64)", (2, 65, 64), 6, 1, (1, 0), False),
+        ("1 level of (2, 65, 2)", (2, 65, 2), 1, 1, (1, 0), False),
+        ("6 levels of (2, 65, 64)", (2, 65, 64), 6, 6, (1, 0), False),
+        ("10 levels of (2, 65, 4096) (two launches)", (2, 65, 4096), 12, 10,
+         (1, 0), False),
+        ("a rank's 7 levels at (S, q) = (2, 1)", (2, 65, 2048), 12, 7,
+         (2, 1), False),
+        ("a rank's 7 levels at (S, q) = (4, 3)", (2, 65, 1024), 12, 7,
+         (4, 3), False),
+        ("an empty batch", (2, 0, 65, 8), 3, 2, (1, 0), False)]
+    for what, shape, lg, levels, shards, timed in fold_shapes:
+        transform("gf_fri_fold", (canon(*shape), [canon(2) for _ in
+                                                  range(levels)], lg, shards),
+                  what, timed)
+    transform("gf_fri_fold", (canon(2, 65, 8192)[..., ::2],
+                              [canon(4)[::2] for _ in range(7)], 12, (1, 0)),
+              "7 levels of a codeword and challenges read at stride 2")
     say(f"phase 3 X1 transforms ok: gf_fft and gf_fri_fold == their plain "
         f"twins bit for bit in {n_tr} calls on canonical inputs: "
         f"{[f[0] for f in fft_shapes]}, strided and transposed rows, a "
         f"fresh root after a capture that asked for its twiddles raised; "
         f"folds "
         f"{[f[0] for f in fold_shapes]}, strided; launches as "
-        f"fft.launches(lg_coef), one a fold, none for an empty output")
+        f"fft.launches(lg_coef) and virgo_pc.fold_launches(levels), none "
+        f"for an empty output")
     say(f"phase 3 X1 transforms, time of the largest shapes ({card}; CUDA "
         f"events over {PROFILE_REPS['gf_fft']} calls each; gf_fft's "
         f"twiddles made before): " + time_largest(largest))

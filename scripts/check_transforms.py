@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A short check of gf_table and gf_fft on the card, with timed variants of
-the kernels' constants.
+"""A short check of gf_table, gf_fft and gf_fri_fold on the card, with
+timed variants of the kernels' constants.
 
 Run from the root of a checkout on a machine with a CUDA card:
 ``python3 scripts/check_transforms.py [NAME=VALUE,... ...]``.  It prints
@@ -9,14 +9,16 @@ the card's name and power limit, builds ``csrc/gf_chains.cu`` and
 size of ``gf_fft_tile`` and of its pass loop from ``cuobjdump -sass``,
 and a latency probe: the cycles of a dependent field product, shuffle and
 sum, and a one-warp launch's device time),
-holds both entries against their plain twins at the shapes below (the
-timed prove's, the batched call's, and the kernels' edges), then times
+holds the entries against their plain twins at the shapes below (the
+timed prove's, the batched call's, a sharded rank's, and the kernels'
+edges; folds of 1 to 10 levels), then times
 them (device time from torch.profiler over 20 calls after a warm-up, per
 launch it recorded) against chip_smoke.py's bound (``gf_cost``).  Each
 argument is one variant, ``NAME=VALUE,...``: the sources with the named
 ``constexpr int`` constants set (``TASK_LOG``, ``MIN_TASK_LOG``,
 ``TABLE_BLOCKS`` of gf_chains.cu; ``BLOCK_LOG``, ``FFT_BLOCKS``,
-``FFT_PAIRS_BELOW`` of gf_fft.cu); each is built beside the others into
+``FFT_PAIRS_BELOW``, ``FOLD_TILE_LOG``, ``FOLD_BLOCKS``, ``FOLD_SMS`` of
+gf_fft.cu); each is built beside the others into
 ``build/transform_variants/``, checked against the twins and timed the
 same way, in turns with the sources as they are.  Any difference
 raises."""
@@ -38,10 +40,11 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from virgo_plus_tpu_torch import kernels  # noqa: E402
 from virgo_plus_tpu_torch.field import chains, gf  # noqa: E402
-from virgo_plus_tpu_torch.pc import fft  # noqa: E402
+from virgo_plus_tpu_torch.pc import fft, virgo_pc  # noqa: E402
 
 SOURCES = ("gf_chains", "gf_fft")
-ENTRIES = {"gf_table": "gf_chains", "gf_fft": "gf_fft"}
+ENTRIES = {"gf_table": "gf_chains", "gf_fft": "gf_fft",
+           "gf_fri_fold": "gf_fft"}
 VARIANTS = ROOT / "build" / "transform_variants"
 REPS = 20
 
@@ -199,7 +202,22 @@ def sass_summary(lib):
     return out
 
 
-def device_us(fn, ins, launches, names=("gf_table", "gf_fft_tile")):
+def fold_sass(lib):
+    """Static SASS of gf_fri_fold: its instructions and most frequent
+    opcodes."""
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    body = sass[sass.index("gf_fri_fold"):]
+    nxt = body.find("Function :")
+    body = body if nxt < 0 else body[:nxt]
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
+    return {"instructions": len(ops),
+            "opcodes": collections.Counter(ops).most_common(10)}
+
+
+def device_us(fn, ins, launches,
+              names=("gf_table", "gf_fft_tile", "gf_fri_fold")):
     """Device time (us) of a call: the profiler's kernels of REPS calls
     after a warm-up, summed over the launches it recorded, per recorded
     launch, times the launches a call; None if it recorded under nine in
@@ -243,6 +261,7 @@ def main():
     for name in SOURCES:
         print("build", name, registers(logs[name]))
     print("gf_fft_tile SASS", sass_summary(kernels._target("gf_fft")))
+    print("gf_fri_fold SASS", fold_sass(kernels._target("gf_fft")))
     print("latency probe (cycles a dependent step)", latency_probe(),
           flush=True)
     variants = build_variants(sys.argv[1:])
@@ -255,8 +274,11 @@ def main():
     rou = gf.root_of_unity_int
     base = lambda: tuple(int(v) for v in rng.integers(0, M, 2,
                                                       dtype=np.uint64))
-    fns = {"gf_table": chains.table_cuda, "gf_fft": fft.fft_cuda}
-    twins = {"gf_table": chains.table_plain, "gf_fft": fft.fft_plain}
+    fns = {"gf_table": chains.table_cuda, "gf_fft": fft.fft_cuda,
+           "gf_fri_fold": virgo_pc.fold_step_cuda}
+    twins = {"gf_table": chains.table_plain, "gf_fft": fft.fft_plain,
+             "gf_fri_fold": virgo_pc.fold_levels_plain}
+    rs = lambda n, step=1: [canon(2 * step)[::step] for _ in range(n)]
 
     # (what, entry, inputs): checked; the timed ones as well below
     checked = []
@@ -286,6 +308,16 @@ def main():
                         (canon(2, rows, 1 << lg_coef), lg, rou(lg))))
     checked.append(("strided rows onto 2^12", "gf_fft", (
         canon(2, 64, 256)[..., 128:], 12, rou(12))))
+    # folds: (codeword shape, top order, levels, shards)
+    for shape, lg, levels, shards in (
+            ((2, 65, 2), 1, 1, (1, 0)), ((2, 65, 64), 6, 6, (1, 0)),
+            ((2, 3, 1024), 10, 10, (1, 0)), ((2, 65, 2048), 12, 7, (2, 1)),
+            ((2, 65, 1024), 12, 7, (4, 3)), ((2, 4, 65, 4096), 12, 7, (1, 0))):
+        checked.append((f"{levels} fold levels of {shape} at {shards}",
+                        "gf_fri_fold", (canon(*shape), rs(levels), lg,
+                                        shards)))
+    checked.append(("7 fold levels of a strided codeword", "gf_fri_fold", (
+        canon(2, 65, 8192)[..., ::2], rs(7, 2), 12, (1, 0))))
     # the timed shapes: the timed prove's buckets, the batched call's
     timed = {
         "beta 2^6 (128 words)": ("gf_table", (
@@ -311,15 +343,24 @@ def main():
         "128 onto 2^12, (64, 64) rows": ("gf_fft", (canon(2, 64, 64, 128),
                                                      12, rou(12))),
         "2^19 onto 2^19, 2 rows": ("gf_fft", (canon(2, 2, 1 << 19), 19,
-                                               rou(19)))}
+                                               rou(19))),
+        "7 fold levels of (2, 65, 4096)": ("gf_fri_fold", (
+            canon(2, 65, 4096), rs(7), 12, (1, 0))),
+        "1 fold level of (2, 65, 4096)": ("gf_fri_fold", (
+            canon(2, 65, 4096), rs(1), 12, (1, 0))),
+        "7 fold levels of (2, 16, 65, 4096)": ("gf_fri_fold", (
+            canon(2, 16, 65, 4096), rs(7), 12, (1, 0))),
+        "7 fold levels of (2, 64, 65, 4096)": ("gf_fri_fold", (
+            canon(2, 64, 65, 4096), rs(7), 12, (1, 0)))}
     checked += [(what, e, ins) for what, (e, ins) in timed.items()]
 
     def held(tag):
         for what, entry, ins in checked:
-            got = fns[entry](*ins)
-            want = twins[entry](*ins)
+            got = cs.flatten(fns[entry](*ins))
+            want = cs.flatten(twins[entry](*ins))
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
                 raise RuntimeError(f"{tag}: {entry} differs from its twin "
                                    f"at {what}")
         print(f"{tag}: {len(checked)} calls == twins", flush=True)

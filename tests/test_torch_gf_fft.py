@@ -2,10 +2,11 @@
 ``gf_fri_fold``) on the CPU against the JAX package, and the kernels'
 schedule emulated on the host.
 
-On a CUDA tensor ``fft`` / ``ifft`` are one twiddle table and
-``fft.launches(lg_coef)`` launches of ``csrc/gf_fft.cu``, and ``fold_step``
-a twiddle table and one ``gf_fri_fold`` launch; on a CPU tensor they run the
-plain twins (``fft_plain``, ``ifft_plain``, ``fold_step_plain``).  Here:
+On a CUDA tensor ``fft`` / ``ifft`` are ``fft.launches(lg_coef)``
+launches of ``csrc/gf_fft.cu`` off a cached twiddle table, and
+``fold_step`` one ``gf_fri_fold`` launch (``fold_levels``' one level, off
+the cached table of the inverse root); on a CPU tensor they run the plain
+twins (``fft_plain``, ``ifft_plain``, ``fold_levels_plain``).  Here:
 
 * ``fft`` and ``ifft`` == the JAX functions (vmapped over the rows) for
   2^lg_coef coefficients onto 2^log_order points up to 2^10, lead axes
@@ -424,7 +425,9 @@ def test_twins_use_only_the_plain_ops(monkeypatch):
     twins = [lambda: fft.fft_plain(x, 6, rou),
              lambda: fft.fft_plain(x, 4, gf.root_of_unity_int(4), (3, 5)),
              lambda: fft.ifft_plain(x, gf.root_of_unity_int(4)),
-             lambda: virgo_pc.fold_step_plain(cw, w, r)]
+             lambda: virgo_pc.fold_step_plain(cw, w, r),
+             lambda: torch.cat(virgo_pc.fold_levels_plain(cw, [r, r], 3),
+                               dim=-1)]
     want = [twin() for twin in twins]
     for name in ("table", "segsum", "table_cuda", "segsum_cuda"):
         monkeypatch.setattr(chains, name, _raise)
@@ -453,7 +456,7 @@ def test_cpu_dispatch_counts_plain_calls_and_cuda_wrappers_raise():
     with pytest.raises(ValueError, match="CUDA"):
         fft.fft_cuda(x, 5, gf.root_of_unity_int(5))
     with pytest.raises(ValueError, match="CUDA"):
-        virgo_pc.fold_step_cuda(cw, w, r)
+        virgo_pc.fold_step_cuda(cw, [r], 4)
     meta = torch.empty((2, 4), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="meta"):
         fft.fft(meta, 2, gf.root_of_unity_int(2))
@@ -462,12 +465,13 @@ def test_cpu_dispatch_counts_plain_calls_and_cuda_wrappers_raise():
 def test_cuda_tensors_reach_the_kernel_wrappers(monkeypatch):
     """The dispatch hands a CUDA tensor (here: any tensor, the device test
     patched) to fft_cuda with the IFFT's inverse root and 1/n, and to
-    fold_step_cuda with fold_step's twiddles."""
+    fold_step_cuda as one level at fold_step's order on one device (the
+    kernel takes its twiddles from fft.twiddles' cache)."""
     calls = []
     monkeypatch.setattr(gf, "_on_cuda", lambda t: True)
     monkeypatch.setattr(fft, "fft_cuda", lambda *a: calls.append(a) or a[0])
     monkeypatch.setattr(virgo_pc, "fold_step_cuda",
-                        lambda *a: calls.append(a) or a[0])
+                        lambda *a: calls.append(a) or [a[0]])
     monkeypatch.setattr(chains, "table", chains.table_plain)
     rng = np.random.default_rng(38)
     x = gf.tensor(_canon(rng, 2, 8))
@@ -479,7 +483,5 @@ def test_cuda_tensors_reach_the_kernel_wrappers(monkeypatch):
     assert calls[0][1:] == (5, rou)
     assert calls[1][1:] == (3, gf.pow_int(rou, 7),
                             gf.pow_int((8, 0), M - 2))
-    inv_mu = chains.table_plain(chains.POWER, gf.inv_int(
-        gf.root_of_unity_int(4)), None, 8, "cpu")
-    assert calls[2][0] is cw and torch.equal(calls[2][1], inv_mu)
-    assert calls[2][2] is r
+    assert calls[2][0] is cw and len(calls[2][1]) == 1
+    assert calls[2][1][0] is r and calls[2][2:] == (4, (1, 0))

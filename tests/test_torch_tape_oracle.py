@@ -4,7 +4,8 @@ on the CPU against the JAX package, and both kernels' schedules emulated on
 the host.
 
 On a CUDA tensor ``build_circuit`` is one ``fg_build_circuit`` launch up to
-lg = 12 (``circuit_launches(lg)`` above it) and the public commit's virtual
+lg = ONE_LAUNCH_LOG (a warp a point up to WARP_LOG; ``circuit_launches(lg)``
+above it) and the public commit's virtual
 oracle and h codeword one ``pc_virtual_oracle`` launch; on a CPU tensor the
 plain twins run (``build_circuit_plain``, ``virtual_oracle_plain``).  Here:
 
@@ -15,11 +16,14 @@ plain twins run (``build_circuit_plain``, ``virtual_oracle_plain``).  Here:
   axis and with a batch of 3 (each instance against JAX);
 * a sharded rank's local form (its columns of l, q and h, its own
   ``oracle_tables``) == the whole codeword's columns, S = 2 and 4;
-* ``emulate_build_circuit`` and ``emulate_virtual_oracle``, host copies of
-  the kernels' schedules on Python-int field elements (which block
-  computes and writes which words, the trees' pairs, the multi-launch
-  split, the grid-stride items), == the twins, every output word written
-  exactly once;
+* ``emulate_build_circuit`` (on gf's plain ops: on canonical inputs the
+  field values, as the kernel's field.cuh ops give) and
+  ``emulate_virtual_oracle`` (on Python-int field elements), host copies
+  of the kernels' schedules (the warp route's lane slots, exchanges,
+  in-lane butterflies and lane-local powers; which block computes and
+  writes which words, the trees' pairs, the multi-launch split, the
+  grid-stride items), == the twins, every output word written exactly
+  once: the circuit at lg 0-9 and either side of ONE_LAUNCH_LOG;
 * a CPU call counts ``kernels.PLAIN_CALLS`` and launches nothing; the CUDA
   wrappers refuse CPU tensors; ``circuit_launches`` and the Python
   constants match ``csrc/fft_gkr.cu``.
@@ -60,10 +64,13 @@ def _source_constants(name, *consts):
         for c in consts]
 
 
-# csrc/fft_gkr.cu: a block's threads, the largest lg of one launch, a
+# csrc/fft_gkr.cu: a block's threads, the largest lg of the register
+# route and its most warps a point (log2), the largest lg of one launch, a
 # chunk's words (log2) and the most partial sums a point (log2) above it
-BUILD_THREADS, ONE_LAUNCH_LOG, CHUNK_LOG, PARTS_LOG = _source_constants(
-    "fft_gkr", "BUILD_THREADS", "ONE_LAUNCH_LOG", "CHUNK_LOG", "PARTS_LOG")
+(BUILD_THREADS, WARP_LOG, POINT_WARPS_LOG, ONE_LAUNCH_LOG, CHUNK_LOG,
+ PARTS_LOG) = _source_constants("fft_gkr", "BUILD_THREADS", "WARP_LOG",
+                                "POINT_WARPS_LOG", "ONE_LAUNCH_LOG",
+                                "CHUNK_LOG", "PARTS_LOG")
 # csrc/virgo_pc.cu: a block's threads, the grid's most blocks
 VO_THREADS, VO_MAX_BLOCKS = _source_constants("virgo_pc", "THREADS",
                                               "MAX_BLOCKS")
@@ -181,16 +188,17 @@ def test_sharded_rank_oracle_matches_whole_columns(shards):
 # ---------------------------------------------------------------------------
 
 class _Out:
-    """The output buffer by element (both planes at once), counting the
-    writes of each element."""
+    """The output buffer by element, (2, size) words, counting the writes
+    of each element."""
 
     def __init__(self, size):
-        self.val = [None] * size
-        self.writes = [0] * size
+        self.val = torch.zeros((2, size), dtype=torch.int64)
+        self.writes = torch.zeros(size, dtype=torch.int64)
 
-    def put(self, i, x):
-        self.val[i] = x
-        self.writes[i] += 1
+    def put(self, idx, x):
+        idx = torch.as_tensor(idx, dtype=torch.int64).reshape(-1)
+        self.val[:, idx] = x.reshape(2, -1)
+        self.writes.index_put_((idx,), torch.ones_like(idx), accumulate=True)
 
 
 def _layout(lg):
@@ -201,146 +209,246 @@ def _layout(lg):
     return tensor_at, ifft_at, ifft_at(lg + 1 + 64)
 
 
-def emulate_build_circuit(lg, r, ep, xp, inv_n, one_launch_log=ONE_LAUNCH_LOG,
-                          chunk_log=CHUNK_LOG):
-    """fg_build_circuit's schedule on Python-int elements: the one-launch
-    route (a block a point, shared buffers, block 0 writing the layers) up
-    to one_launch_log, else the tensor, stage, expand and sum launches.
-    Returns (the output buffer, the launches)."""
-    n = 1 << lg
-    one = Fq2.raw(1, 0)
-    tensor_at, ifft_at, sums_at = _layout(lg)
-    scale_at, expn_at, pw_at = ifft_at(lg), ifft_at(lg + 1), sums_at + 64
-    out = _Out(pw_at + 64 * n)
-    ri = [_fq(r, i) for i in range(lg)]
-    tw = lambda dep, k: _fq(xp, n - (n >> dep) + k)
+def _rev(t, k):
+    """The low k bits of t (a tensor or an int) reversed."""
+    y = t * 0
+    for i in range(k):
+        y = y | (((t >> i) & 1) << (k - 1 - i))
+    return y
 
-    def butterfly(src, d, u):
+
+def _tree(xs):
+    """The log tree over the last axis, pairs (2i, 2i + 1) a level."""
+    while xs.shape[-1] > 1:
+        xs = gf.add_plain(xs[..., 0::2], xs[..., 1::2])
+    return xs[..., 0]
+
+
+def emulate_build_circuit(lg, r, ep, xp, inv_n, one_launch_log=ONE_LAUNCH_LOG,
+                          chunk_log=CHUNK_LOG, warp_log=WARP_LOG,
+                          point_warps_log=POINT_WARPS_LOG):
+    """fg_build_circuit's schedule on gf's plain ops (on canonical inputs
+    the canonical field values, as field.cuh's ops give), every point, lane
+    and thread side by side: the warp route (a warp a point: each lane's
+    slots, its tensor chain, the ifft stages as exchanges between lanes
+    and butterflies within one, the lane-local powers, the in-lane and
+    shuffle sums) up to warp_log, the block route (a block a point, shared
+    buffers, block 0 writing the layers) up to one_launch_log, else the
+    tensor, stage, expand and sum launches.  inv_n: a Python-int pair.
+    Returns (the output buffer, the launches)."""
+    mul, add, sub = gf.mul_plain, gf.add_plain, gf.sub_plain
+    n, P = 1 << lg, 64
+    tensor_at, ifft_at, sums_at = _layout(lg)
+    scale_at, expn_at, pw_at = ifft_at(lg), ifft_at(lg + 1), sums_at + P
+    out = _Out(pw_at + P * n)
+    rt, ept, tw = gf.tensor(r), gf.tensor(ep), gf.tensor(xp)
+    one = gf.ones((1,), "cpu")
+    inv = gf.full((1,), inv_n[0], inv_n[1], "cpu")
+    ri = lambda i: rt[:, i:i + 1]
+    b_idx = torch.arange(P)[:, None] * n
+
+    def butterfly(src, d):
+        """Every butterfly u < n/2 of ifft stage d on the layer src (2,
+        n): (e + w o, e - w o)."""
         dep = lg - 1 - d
+        u = torch.arange(n // 2)
         m, k = 1 << dep, u >> dep
         e_at = (k << (dep + 1)) + (u & (m - 1))
-        t = tw(dep, k) * src[e_at + m]
-        return src[e_at] + t, src[e_at] - t
+        t = mul(tw[:, n - (n >> dep) + k], src[:, e_at + m])
+        return torch.cat([add(src[:, e_at], t), sub(src[:, e_at], t)], 1)
 
-    def tree(xs):
-        """The log tree, pairs (2i, 2i + 1) a level (a barrier a level)."""
-        while len(xs) > 1:
-            xs = [xs[2 * i] + xs[2 * i + 1] for i in range(len(xs) // 2)]
-        return xs[0]
-
+    if lg <= warp_log:
+        wlog = 0 if lg <= 5 else min(lg - 5, point_warps_log)
+        vlog = max(lg - 5 - wlog, 0)
+        V, T, U = 1 << vlog, 32 << wlog, lg - vlog
+        h = torch.arange(T)                    # the block's threads
+        live = h < (1 << U)
+        out.put(tensor_at(0), one)             # block 0's thread 0
+        fa = [torch.where(((h >> (U - 1 - i)) & 1).bool(),
+                          sub(one, ri(i)), ri(i)) for i in range(U)]
+        pre = fa[:1]                           # the thread's prefixes
+        if U > 1:
+            pre.append(mul(fa[0], fa[1]))
+        if U > 2:
+            pre.append(mul(pre[1], fa[2]))
+        if U > 3:
+            pre.append(mul(pre[1], mul(fa[2], fa[3])))
+        if U > 4:
+            pre.append(mul(pre[3], fa[4]))
+        if U > 5:
+            pre.append(mul(pre[3], mul(fa[4], fa[5])))
+        for i in range(6, U):
+            pre.append(mul(pre[i - 1], fa[i]))
+        for i, x in enumerate(pre):
+            sh = U - 1 - i
+            m = live & ((h & ((1 << sh) - 1)) == 0)
+            out.put(tensor_at(i + 1) + (h[m] >> sh), x[:, m])
+        x = pre[-1] if U else one.expand(2, T)
+        xs = [x]
+        for s_ in range(vlog):                 # the slots by doubling
+            r1, r0 = sub(one, ri(U + s_)), ri(U + s_)
+            xs = [mul(xs[e >> 1], r1 if e & 1 else r0)
+                  for e in range(2 << s_)]
+            for e, v in enumerate(xs):
+                out.put(tensor_at(U + s_ + 1) + (h << (s_ + 1)) + e, v)
+        X = torch.stack(xs, -1)                # (2, threads, V)
+        slots = (h[:, None] << vlog) | torch.arange(V)[None, :]
+        for s_ in range(lg):                   # stage s_ pairs bit p
+            p = lg - 1 - s_
+            kb = n - (n >> p)
+            if p >= vlog:                      # a thread bit: an exchange
+                hb = p - vlog                  # (a shuffle or, a warp bit,
+                w = tw[:, kb + _rev(h >> (hb + 1), s_)][:, :, None]
+                hi = ((h >> hb) & 1).bool()[:, None]   # shared memory)
+                prod = mul(w, X)
+                got = torch.where(hi, prod, X)[:, h ^ (1 << hb)]
+                X = torch.where(hi, sub(got, prod), add(X, got))
+            else:                              # a register bit
+                X = X.clone()
+                for e in range(V):
+                    if e & (1 << p):
+                        continue
+                    k = _rev((h << (vlog - p - 1)) | (e >> (p + 1)), s_)
+                    t = mul(tw[:, kb + k], X[..., e | (1 << p)])
+                    X[..., e | (1 << p)] = sub(X[..., e], t)
+                    X[..., e] = add(X[..., e], t)
+            pos = (slots & ((1 << p) - 1)) | (_rev(slots >> p, s_ + 1) << p)
+            out.put(ifft_at(s_) + pos[live], X[:, live])
+        sq = [ept]
+        for i in range(1, lg):
+            sq.append(mul(sq[-1], sq[-1]))
+        # slot e's entry j = bitrev_U(h) + bitrev_VLOG(e) 2^U: its power
+        # in slot order, bit i of e a factor ep^(2^(U + VLOG - 1 - i))
+        jl = _rev(h, U)
+        pw = [one.expand(2, T)[:, None, :].expand(2, P, T)]
+        for i in range(U):
+            pw[0] = torch.where(((jl >> i) & 1).bool(),
+                                mul(pw[0], sq[i][:, :, None]), pw[0])
+        for i in range(vlog):
+            pw += [mul(f, sq[U + vlog - 1 - i][:, :, None]) for f in pw]
+        acc = torch.zeros((2, P, T), dtype=torch.int64)
+        for e in range(V):
+            j = jl + (_rev(e, vlog) << U)
+            sc = mul(X[..., e], inv)
+            v = mul(sc[:, None, :], pw[e])
+            out.put(scale_at + j[live], sc[:, live])
+            out.put(pw_at + b_idx + j[live], pw[e][:, :, live])
+            out.put(expn_at + b_idx + j[live], v[:, :, live])
+            acc = add(acc, torch.where(live, v, 0))
+        lane = h & 31                          # five shuffles, then the
+        for o in (16, 8, 4, 2, 1):             # warps' sums
+            acc = add(acc, acc[:, :, (h - lane) + (lane ^ o)])
+        tot = acc[:, :, 0]
+        for w_ in range(1, T // 32):
+            tot = add(tot, acc[:, :, 32 * w_])
+        out.put(sums_at + torch.arange(P), tot)
+        return out, 1
     if lg <= one_launch_log:
-        for b in range(64):
-            writer = b == 0
-            cur, pw = [one], [one] + [None] * (n - 1)
-            if writer:
-                out.put(tensor_at(0), one)
-            sq = _fq(ep, b)
-            for i in range(lg):
-                width, nxt = 1 << i, [None] * (2 << i)
-                for j in range(width):      # a thread each, BUILD_THREADS
-                    hi, lo = cur[j] * ri[i], cur[j] * (one - ri[i])
-                    nxt[2 * j], nxt[2 * j + 1] = hi, lo
-                    if writer:
-                        out.put(tensor_at(i + 1) + 2 * j, hi)
-                        out.put(tensor_at(i + 1) + 2 * j + 1, lo)
-                    pw[width + j] = pw[j] * sq
-                sq = sq * sq
-                cur = nxt
-            for d in range(lg):
-                nxt = [None] * n
-                for u in range(n // 2):
-                    nxt[u], nxt[n // 2 + u] = butterfly(cur, d, u)
-                    if writer:
-                        out.put(ifft_at(d) + u, nxt[u])
-                        out.put(ifft_at(d) + n // 2 + u, nxt[n // 2 + u])
-                cur = nxt
-            xs = []
-            for j in range(n):
-                s = cur[j] * inv_n
-                if writer:
-                    out.put(scale_at + j, s)
-                out.put(pw_at + b * n + j, pw[j])
-                xs.append(s * pw[j])
-                out.put(expn_at + b * n + j, xs[-1])
-            out.put(sums_at + b, tree(xs))
+        out.put(tensor_at(0), one)             # block 0
+        cur, pw, sq = one, one.expand(2, P)[:, :, None], ept
+        for i in range(lg):
+            cur = torch.stack([mul(cur, ri(i)), mul(cur, sub(one, ri(i)))],
+                              -1).reshape(2, -1)
+            out.put(tensor_at(i + 1) + torch.arange(2 << i), cur)
+            pw = torch.cat([pw, mul(pw, sq[:, :, None])], -1)
+            sq = mul(sq, sq)
+        for d in range(lg):
+            cur = butterfly(cur, d)
+            out.put(ifft_at(d) + torch.arange(n), cur)
+        sc = mul(cur, inv)
+        out.put(scale_at + torch.arange(n), sc)
+        out.put(pw_at + b_idx + torch.arange(n), pw)
+        v = mul(sc[:, None, :], pw)
+        out.put(expn_at + b_idx + torch.arange(n), v)
+        out.put(sums_at + torch.arange(P), _tree(v))
         return out, 1
     # tensor layers: element j of the last runs its chain
+    j = torch.arange(n)
+    out.put(tensor_at(0), one)
+    v = one.expand(2, n)
+    for i in range(lg):
+        low = lg - 1 - i
+        idx = j >> low
+        v = mul(v, torch.where((idx & 1).bool(), sub(one, ri(i)), ri(i)))
+        m = (j & ((1 << low) - 1)) == 0
+        out.put(tensor_at(i + 1) + idx[m], v[:, m])
     launches = 1
-    for j in range(n):
-        if j == 0:
-            out.put(tensor_at(0), one)
-        v = one
-        for i in range(lg):
-            low = lg - 1 - i
-            idx = j >> low
-            v = v * ((one - ri[i]) if idx & 1 else ri[i])
-            if j & ((1 << low) - 1) == 0:
-                out.put(tensor_at(i + 1) + idx, v)
-    # one launch an ifft stage, through the buffer
-    src = out.val[tensor_at(lg):tensor_at(lg) + n]
-    for d in range(lg):
+    src = out.val[:, tensor_at(lg):tensor_at(lg) + n]
+    for d in range(lg):                        # a launch a stage
         launches += 1
-        for u in range(n // 2):
-            s, df = butterfly(src, d, u)
-            out.put(ifft_at(d) + u, s)
-            out.put(ifft_at(d) + n // 2 + u, df)
-        src = out.val[ifft_at(d):ifft_at(d) + n]
+        src = butterfly(src, d)
+        out.put(ifft_at(d) + torch.arange(n), src)
     # expansion: block (c, b) a chunk of a point, to a partial sum
     launches += 1
-    ch = 1 << chunk_log
-    chunks = n >> chunk_log
-    parts = [[None] * chunks for _ in range(64)]
-    for b in range(64):
-        for c in range(chunks):
-            pw, sq = [one] + [None] * (ch - 1), _fq(ep, b)
-            for i in range(chunk_log):
-                for j in range(1 << i):
-                    pw[(1 << i) + j] = pw[j] * sq
-                sq = sq * sq
-            for i in range(chunk_log, lg):     # the chunk's high bits
-                if (c >> (i - chunk_log)) & 1:
-                    pw = [p * sq for p in pw]
-                sq = sq * sq
-            xs = []
-            for l in range(ch):
-                j = c * ch + l
-                out.put(pw_at + b * n + j, pw[l])
-                s = src[j] * inv_n
-                if b == 0:
-                    out.put(scale_at + j, s)
-                xs.append(s * pw[l])
-                out.put(expn_at + b * n + j, xs[-1])
-            parts[b][c] = tree(xs)
+    ch, chunks = 1 << chunk_log, n >> chunk_log
+    sq = ept[:, :, None, None]
+    pw = one.reshape(2, 1, 1, 1).expand(2, P, chunks, 1)
+    for i in range(chunk_log):
+        pw = torch.cat([pw, mul(pw, sq)], -1)
+        sq = mul(sq, sq)
+    c = torch.arange(chunks)[:, None]
+    for i in range(chunk_log, lg):             # the chunk's high bits
+        pw = torch.where(((c >> (i - chunk_log)) & 1).bool(), mul(pw, sq),
+                         pw)
+        sq = mul(sq, sq)
+    jj = (c * ch + torch.arange(ch)).reshape(-1)
+    pw = pw.reshape(2, P, n)
+    out.put(pw_at + b_idx + jj, pw)
+    sc = mul(src[:, jj], inv)
+    out.put(scale_at + jj, sc)                 # point 0's blocks
+    v = mul(sc[:, None, :], pw)
+    out.put(expn_at + b_idx + jj, v)
+    parts = _tree(v.reshape(2, P, chunks, ch))
     # the partial sums' tree, a block a point
     launches += 1
     assert chunks <= 1 << PARTS_LOG
-    for b in range(64):
-        out.put(sums_at + b, tree(parts[b]))
+    out.put(sums_at + torch.arange(P), _tree(parts))
     return out, launches
 
 
-@pytest.mark.parametrize("lg,one_launch_log,chunk_log", [
-    (0, ONE_LAUNCH_LOG, CHUNK_LOG), (3, ONE_LAUNCH_LOG, CHUNK_LOG),
-    (6, ONE_LAUNCH_LOG, CHUNK_LOG), (5, 3, 2), (6, 4, 3)])
-def test_build_circuit_schedule_emulation(lg, one_launch_log, chunk_log):
-    """The emulated kernel == the twin in every layer and the power table,
-    each word written once; its launches == the rule (``circuit_launches``
-    for the source's constants, small constants to reach the multi-launch
-    route at small lg)."""
+# (lg, one_launch_log, chunk_log, warp_log, point_warps_log): lg 0-9 (the
+# register route to WARP_LOG: a slot a thread up to 2^(5 +
+# POINT_WARPS_LOG) slots, then 2 a thread; the block route above), one
+# warp a point and 2^4 warps at lg 7 and 9, the block route either side
+# of ONE_LAUNCH_LOG and the multi-launch route above it; at small forced
+# constants the block route at lg 0, 3 and 6 and the multi-launch route
+# at lg 5 and 6
+P_W = POINT_WARPS_LOG
+BUILD_EMULATED = (
+    [(lg, ONE_LAUNCH_LOG, CHUNK_LOG, WARP_LOG, P_W) for lg in range(10)]
+    + [(lg, ONE_LAUNCH_LOG, CHUNK_LOG, 9, w) for lg in (7, 9)
+       for w in (0, 4)]
+    + [(lg, ONE_LAUNCH_LOG, CHUNK_LOG, WARP_LOG, P_W)
+       for lg in (ONE_LAUNCH_LOG - 1, ONE_LAUNCH_LOG, ONE_LAUNCH_LOG + 1)]
+    + [(0, ONE_LAUNCH_LOG, CHUNK_LOG, -1, P_W),
+       (3, ONE_LAUNCH_LOG, CHUNK_LOG, 2, P_W),
+       (6, ONE_LAUNCH_LOG, CHUNK_LOG, 5, P_W), (5, 3, 2, 2, P_W),
+       (6, 4, 3, 3, P_W)])
+
+
+@pytest.mark.parametrize("lg,one_launch_log,chunk_log,warp_log,warps",
+                         BUILD_EMULATED)
+def test_build_circuit_schedule_emulation(lg, one_launch_log, chunk_log,
+                                          warp_log, warps):
+    """The emulated kernel == the twin on canonical inputs in every layer
+    and the power table, each word written once; its launches == the rule
+    (``circuit_launches`` for the source's constants, small constants to
+    reach the block and multi-launch routes at small lg)."""
     r, ep = _build_inputs(lg)
     layers, pw = fft_gkr.build_circuit_plain(lg, gf.tensor(r),
                                              gf.tensor(ep))
     n = 1 << lg
-    inv_n = Fq2.raw(*gf.pow_int((n % M, 0), M - 2))
+    inv_n = gf.pow_int((n % M, 0), M - 2)
     xp = gf.to_numpy(fft_gkr.stage_powers(lg, "cpu"))
     out, launches = emulate_build_circuit(lg, r, ep, xp, inv_n,
-                                          one_launch_log, chunk_log)
+                                          one_launch_log, chunk_log, warp_log,
+                                          warps)
     assert launches == (1 if lg <= one_launch_log else lg + 3)
-    if one_launch_log == ONE_LAUNCH_LOG:
+    if (one_launch_log, warp_log) == (ONE_LAUNCH_LOG, WARP_LOG):
         assert launches == fft_gkr.circuit_launches(lg)
-    assert out.writes == [1] * len(out.writes)
-    want = [x for t in layers + [pw] for x in _els(t)]
-    assert out.val == want
+    assert torch.equal(out.writes, torch.ones_like(out.writes))
+    want = torch.cat([t.reshape(2, -1) for t in layers + [pw]], 1)
+    assert torch.equal(out.val, want)
 
 
 def emulate_virtual_oracle(lead, cols, l_eval, q_eval, h_eval, c0, srec,
@@ -408,8 +516,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_circuit_constants_match_the_source():
-    assert (fft_gkr.ONE_LAUNCH_LOG, fft_gkr.CHUNK_LOG) == (ONE_LAUNCH_LOG,
-                                                           CHUNK_LOG)
+    assert (fft_gkr.WARP_LOG, fft_gkr.ONE_LAUNCH_LOG, fft_gkr.CHUNK_LOG) == (
+        WARP_LOG, ONE_LAUNCH_LOG, CHUNK_LOG)
     assert fft_gkr.MAX_BUILD_LOG == CHUNK_LOG + PARTS_LOG
     assert [fft_gkr.circuit_launches(lg) for lg in range(22)] == [
         1 if lg <= ONE_LAUNCH_LOG else lg + 3 for lg in range(22)]

@@ -7,9 +7,11 @@
 // - gf_fft, one transform (virgo_plus_tpu/pc/fft.py:38 fft, :74 ifft):
 //   every butterfly stage of (2, R, coef_len) coefficient rows onto
 //   (2, R, 2^L) evaluations, in one launch up to 2^TILE_LOG coefficients;
-// - gf_fri_fold, one FRI fold level (virgo_plus_tpu/pc/virgo_pc.py:197
-//   fold_step): (2, R, N) -> (2, R, N/2),
-//   out[i] = ((a + b) + (a - b) w[i] r) / 2, a = cw[i], b = cw[i + N/2].
+// - gf_fri_fold, L FRI fold levels (virgo_plus_tpu/pc/virgo_pc.py:197
+//   fold_step, :221 fold_codewords): level k folds (2, R, n_k) -> (2, R,
+//   n_k/2), out[i] = ((a + b) + (a - b) w_k[i] r_k) / 2, a = cw[i], b =
+//   cw[i + n_k/2], w_k[i] the inverse root of order 2^(lg-k) to the power
+//   i S + q (a rank q of S holds the global positions t S + q).
 //
 // gf_fft's schedule is the reference's self-sorting (Stockham) one
 // (virgo_plus_tpu_torch/pc/fft.py fft_plain): the coefficients are
@@ -72,18 +74,46 @@
 // coefficient read and each evaluation written once, 16 bytes an element
 // at 3.35 TB/s).
 //
-// gf_fri_fold: a thread an output pair of words, the rows over grid axis
-// y; the codeword rows read in place like gf_fft's, w and r by strides.
-// What bounds it: 1.5 codeword words read a word written (48 bytes an
-// output element), three products' worth of integer work an element.
+// gf_fri_fold: every level of a call in one launch (more than
+// LAUNCH_LEVELS levels: ceil(L / LAUNCH_LEVELS) launches of near-equal
+// level counts, each reading the last level of the one before).  Level k
+// pairs i with i + n_k/2, so the columns {j + m n/2^L : m < 2^L} of an
+// n-entry row are closed under the L folds: a tile (C such column sets of
+// one row, C 2^L <= 2^FOLD_TILE_LOG entries; C consecutive columns, at
+// least four (a 32-byte sector) where the row has them, fewer a tile
+// while the grid would be short of FOLD_SMS tiles) is loaded into shared
+// memory once (cp.async, 8 bytes a word: any strides, any alignment),
+// folded there through every level, in place, one barrier a level, and
+// each level is stored once, coalesced along the columns, into one buffer
+// that holds every level contiguous (2, R, n/2^(k+1)) after the one
+// before.  A level's product w_k[i] r_k does not depend on the row: a
+// block makes those of its tile's columns once, into shared memory, while
+// its first tile loads, so an element's level costs one product on the
+// chain.  The grid is persistent (as many blocks as fit at once, two an
+// SM at 96 KB, at most FOLD_BLOCKS, a multiple of the tiles a row where
+// it can be, so a block keeps its columns and its products): a block with
+// more than one tile double-buffers, so a tile's load overlaps the levels
+// of the one before it.  Level k's twiddles are stage k of the top table
+// (pc/fft.py twiddles of the inverse root of order 2^lg: stage k = its
+// powers of the root of order 2^(lg-k), since that root is the top one
+// squared k times), entry i S + q; the challenges are read in place
+// through per-level pointers and plane strides passed by value, so a CUDA
+// graph captures the launch and nothing is stacked.  /2 is a halving ((x
+// + p) / 2 for odd x), the same canonical word as the product by 1/2;
+// the products are mul2_split's, the same canonical words as mul2's.
+// What bounds it: the bytes, the top codeword read once and every level
+// written once (16 bytes an element each; the twiddles come from an
+// L2-resident table); two products, three sums and a halving an output
+// element are about 0.6 of that time at 3.35 TB/s on the integer units.
 //
 // Bits.  Every output word is the canonical representative, so on the
 // canonical inputs every caller passes, kernel and twin give the same
 // bits as the JAX package, whatever the order of the stages' work.
 //
 // Why CUDA and not Triton: exact 64-bit products (__umul64hi), register
-// groups exchanged through shared memory, and the loader and launch
-// counting of kernels.py, shared with the other entries.
+// groups exchanged through shared memory, asynchronous copies into a
+// persistent block's double buffer with a barrier a level, and the loader
+// and launch counting of kernels.py, shared with the other entries.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include "field.cuh"
@@ -95,7 +125,12 @@ namespace {
 
 typedef long long i64;
 
-constexpr int THREADS = 256;       // gf_fri_fold's block
+constexpr int FOLD_THREADS = 256;  // gf_fri_fold's block
+constexpr int FOLD_TILE_LOG = 11;  // entries a fold tile (log2): 32 KB, and 32 of products
+constexpr int LAUNCH_LEVELS = 8;   // most levels a launch: a tile keeps >= 4 columns
+constexpr int MIN_COLS_LOG = 2;    // columns a tile (log2) where the row has them
+constexpr int FOLD_SMS = 132;      // fewer tiles: fewer columns a tile
+constexpr int FOLD_BLOCKS = 132 * 4;    // the persistent grid's most blocks
 constexpr int TILE_LOG = 11;       // most stages a launch: 2^11 entries, 32 KB
 constexpr int BLOCK_LOG = 10;      // entries a block (log2), columns allowing
 constexpr int FFT_BLOCKS = 264;    // fewer blocks: fewer columns a block
@@ -103,8 +138,6 @@ constexpr int FFT_THREADS = 1 << (TILE_LOG - 2);   // a thread four slots
 constexpr int FFT_PAIRS_BELOW = 16384;   // fewer threads at four slots: two a thread
 constexpr int FFT_AXES = 3;        // lead axes of the input rows
 constexpr int MAX_LOG = 40;        // largest log2 of a transform's order
-constexpr int MAX_ROW_BLOCKS = 65535;   // grid axis y of gf_fri_fold
-constexpr int MAX_BLOCKS = 132 * 16;    // grid cap of gf_fri_fold's axis x
 constexpr u64 INV2 = (vpt::P + 1) / 2;  // 1/2 in GF(p)
 
 // the input rows: FFT_AXES lead axes (sizes, element strides), the plane
@@ -353,32 +386,135 @@ __global__ void __launch_bounds__(FFT_THREADS) gf_fft_tile(FftArgs A) {
 struct FoldArgs {
     const u64* cw;
     Rows rows;
-    const u64* w;        // twiddles, element strides (w_plane, w_term)
-    const u64* r;        // the challenge, plane stride r_plane
-    u64* out;            // (2, R, 2^half_log) contiguous
-    i64 w_plane, w_term, r_plane;
+    const ulonglong2* tw;      // the top table's stages, (re, im) pairs
+    const u64* r[LAUNCH_LEVELS];    // this launch's challenges
+    i64 r_plane[LAUNCH_LEVELS];     // and their plane strides
+    u64* out;                  // this launch's first level, the others after it
     long long R;
-    int half_log;
+    unsigned tiles;            // R 2^tile_log, tile_log = n_log - L - c_log
+    int n_log;                 // log2 of an input row's entries
+    int L;                     // this launch's levels
+    int c_log;                 // log2 of a tile's columns
+    int lg;                    // log2 of the top table's order
+    int first;                 // the top level of this launch's first
+    long long S, q;            // shards, and this rank's index among them
 };
 
-__global__ void __launch_bounds__(THREADS) gf_fri_fold(FoldArgs A) {
-    const long long half = 1ll << A.half_log;
-    const long long plane = A.R * half;
-    const F2 r = {A.r[0], A.r[A.r_plane]};
-    const i64 hb = half * A.rows.term;
-    for (long long row = blockIdx.y; row < A.R; row += gridDim.y) {
-        const u64* cw = A.cw + row_offset(A.rows, (unsigned)row);
-        for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < half;
-             i += (long long)gridDim.x * THREADS) {
-            const u64* p = cw + i * A.rows.term;
-            const F2 a = {p[0], p[A.rows.plane]};
-            const F2 b = {p[hb], p[hb + A.rows.plane]};
-            const F2 w = {A.w[i * A.w_term], A.w[i * A.w_term + A.w_plane]};
-            const F2 d = vpt::mul2(vpt::mul2(vpt::sub2(a, b), w), r);
-            const F2 v = vpt::add2(vpt::add2(a, b), d);
-            A.out[row * half + i] = vpt::mulp(v.re, INV2);
-            A.out[plane + row * half + i] = vpt::mulp(v.im, INV2);
+__device__ __forceinline__ void cp_async8(u64* dst, const u64* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// x / 2 mod p of a canonical x: (x + p) / 2 for odd x, below p
+__device__ __forceinline__ u64 halve(u64 x) { return (x >> 1) + ((x & 1) ? INV2 : 0); }
+
+// the first column of tile t
+__device__ __forceinline__ i64 tile_j0(const FoldArgs& A, unsigned t) {
+    const int tile_log = A.n_log - A.L - A.c_log;
+    return (i64)(t & ((1u << tile_log) - 1)) << A.c_log;
+}
+
+// tile t's entries into buf: the re plane, then the im plane (2^(c_log +
+// L) words each; entry c + m C is column j0 + c, position m: row entry
+// j0 + c + m cols)
+__device__ __forceinline__ void fold_load(const FoldArgs& A, unsigned t, u64* buf) {
+    const unsigned row = t >> (A.n_log - A.L - A.c_log);
+    const i64 j0 = tile_j0(A, t);
+    const i64 cols = (i64)1 << (A.n_log - A.L);
+    const unsigned E = 1u << (A.c_log + A.L), cmask = (1u << A.c_log) - 1;
+    const u64* base = A.cw + row_offset(A.rows, row);
+    for (unsigned e = threadIdx.x; e < E; e += FOLD_THREADS) {
+        const i64 x = (j0 + (e & cmask) + (i64)(e >> A.c_log) * cols) * A.rows.term;
+        cp_async8(buf + e, base + x);
+        cp_async8(buf + E + e, base + A.rows.plane + x);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the products w_k[i] r_k of every level of the column sets from j0:
+// level k's item it at E - E/2^k + it of wr
+__device__ __forceinline__ void fold_twiddles(const FoldArgs& A, i64 j0, const F2* rs, F2* wr) {
+    const i64 cols = (i64)1 << (A.n_log - A.L);
+    const unsigned E = 1u << (A.c_log + A.L), cmask = (1u << A.c_log) - 1;
+    for (int k = 0; k < A.L; ++k) {
+        const ulonglong2* stage =
+            A.tw + ((1ull << A.lg) - ((1ull << A.lg) >> (A.first + k)));
+        const unsigned items = E >> (k + 1), at = E - (E >> k);
+        for (unsigned it = threadIdx.x; it < items; it += FOLD_THREADS) {
+            const i64 i = j0 + (it & cmask) + (i64)(it >> A.c_log) * cols;
+            const ulonglong2 w = stage[i * A.S + A.q];
+            wr[at + it] = vpt::mul2_split({w.x, w.y}, rs[k]);
         }
+    }
+}
+
+// every level of tile t in buf, in place: level k's item (c, m), m <
+// 2^(L-1-k), folds entries c + m C and c + (m + 2^(L-1-k)) C into c + m C
+// and stores it at row position j0 + c + m cols of level k
+__device__ __forceinline__ void fold_tile(const FoldArgs& A, unsigned t, u64* buf,
+                                          const F2* wr) {
+    const unsigned row = t >> (A.n_log - A.L - A.c_log);
+    const i64 j0 = tile_j0(A, t);
+    const i64 cols = (i64)1 << (A.n_log - A.L);
+    const unsigned E = 1u << (A.c_log + A.L), cmask = (1u << A.c_log) - 1;
+    const i64 n = (i64)1 << A.n_log;
+    for (int k = 0; k < A.L; ++k) {
+        const unsigned items = E >> (k + 1), at = E - (E >> k);
+        const i64 n_out = n >> (k + 1);
+        u64* o = A.out + 2 * A.R * (n - (n >> k)) + (i64)row * n_out;
+        const i64 plane = A.R * n_out;
+#pragma unroll 2
+        for (unsigned it = threadIdx.x; it < items; it += FOLD_THREADS) {
+            const unsigned s1 = it + items;
+            const F2 a = {buf[it], buf[E + it]};
+            const F2 b = {buf[s1], buf[E + s1]};
+            const F2 d = vpt::mul2_split(vpt::sub2(a, b), wr[at + it]);
+            const F2 v = vpt::add2(vpt::add2(a, b), d);
+            const u64 re = halve(v.re), im = halve(v.im);
+            const i64 i = j0 + (it & cmask) + (i64)(it >> A.c_log) * cols;
+            o[i] = re;
+            o[plane + i] = im;
+            if (k + 1 < A.L) {
+                buf[it] = re;
+                buf[E + it] = im;
+            }
+        }
+        if (k + 1 < A.L) __syncthreads();
+    }
+}
+
+// a persistent block: tiles blockIdx.x, + gridDim.x, ...; with more than
+// one, tile i + 1 loads into the other buffer while tile i folds.  Its
+// twiddle products are made while its first tile loads, and again only
+// where a tile starts at other columns (the grid is a multiple of the
+// tiles a row where it can be, so a block keeps its columns)
+__global__ void __launch_bounds__(FOLD_THREADS) gf_fri_fold(const __grid_constant__ FoldArgs A) {
+    extern __shared__ u64 fold_sm[];
+    __shared__ F2 rs[LAUNCH_LEVELS];
+    const unsigned E = 1u << (A.c_log + A.L);
+    F2* wr = reinterpret_cast<F2*>(fold_sm);            // E - C products
+    u64* bufs = fold_sm + 2 * E;                        // the tiles' entries
+    unsigned t = blockIdx.x;
+    fold_load(A, t, bufs);
+    if ((int)threadIdx.x < A.L) rs[threadIdx.x] = {A.r[threadIdx.x][0],
+                                                   A.r[threadIdx.x][A.r_plane[threadIdx.x]]};
+    __syncthreads();
+    i64 j0 = -1;
+    int cur = 0;
+    for (; t < A.tiles; t += gridDim.x) {
+        if (t + gridDim.x < A.tiles) fold_load(A, t + gridDim.x, bufs + (cur ^ 1) * 2 * E);
+        if (tile_j0(A, t) != j0) {
+            j0 = tile_j0(A, t);
+            fold_twiddles(A, j0, rs, wr);
+        }
+        if (t + gridDim.x < A.tiles)
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        else
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+        fold_tile(A, t, bufs + cur * 2 * E, wr);
+        __syncthreads();
+        cur ^= 1;
     }
 }
 
@@ -445,25 +581,83 @@ extern "C" int vpt_gf_fft(const u64* in, int d0, int d1, int d2, long long s0,
     return 0;
 }
 
-// out (2, R, 2^half_log) = one FRI fold of the codeword rows cw (lead
-// sizes d0 d1 d2 = R, element strides, plane and last-axis strides; 2^(half_log
-// + 1) entries a row) with the twiddles w (element strides w_plane, w_term)
-// and the challenge r (plane stride r_plane).  One launch, none for an
-// empty output.
+// out = L FRI folds of the codeword rows cw (lead sizes d0 d1 d2 = R,
+// element strides, plane and last-axis strides; 2^n_log entries a row),
+// level k into out + 2 R (2^n_log - 2^(n_log - k)) as (2, R, 2^(n_log-k-1)):
+// with the challenges r[k] (device pointers, plane strides r_plane[k],
+// host arrays) and the twiddles tw (pc/fft.py twiddles of the inverse
+// root of order 2^lg = S 2^n_log: 2^lg - 1 (re, im) pairs) at the
+// positions of rank q of S.  ceil(L / LAUNCH_LEVELS) launches, none for
+// R = 0.
 extern "C" int vpt_gf_fri_fold(const u64* cw, int d0, int d1, int d2, long long s0,
                                long long s1, long long s2, long long plane,
-                               long long term, const u64* w, long long w_plane,
-                               long long w_term, const u64* r, long long r_plane,
-                               u64* out, int half_log, void* stream_ptr) {
+                               long long term, const u64* tw, int lg, long long S,
+                               long long q, const u64* const* r, const long long* r_plane,
+                               int levels, u64* out, int n_log, void* stream_ptr) {
     const long long R = (long long)d0 * d1 * d2;
     if (R <= 0) return 0;
-    if (half_log < 0 || half_log > MAX_LOG) return (int)cudaErrorInvalidValue;
-    const FoldArgs A = {cw, rows_of(d0, d1, d2, s0, s1, s2, plane, term), w, r, out,
-                        w_plane, w_term, r_plane, R, half_log};
-    const long long x = ((1ll << half_log) + THREADS - 1) / THREADS;
-    const dim3 grid((unsigned)(x < MAX_BLOCKS ? x : MAX_BLOCKS),
-                    (unsigned)(R < MAX_ROW_BLOCKS ? R : MAX_ROW_BLOCKS));
+    if (levels < 1 || levels > n_log || n_log > lg || lg > MAX_LOG
+        || S != (1ll << (lg - n_log)) || q < 0 || q >= S || R >= (1ll << 31)
+        || (R << n_log) >= (1ll << 40))
+        return (int)cudaErrorInvalidValue;
+    static bool big_smem[64] = {};     // the shared-memory attributes, once a device
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
     cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-    gf_fri_fold<<<grid, THREADS, 0, stream>>>(A);
-    return (int)cudaGetLastError();
+    const int n = (levels + LAUNCH_LEVELS - 1) / LAUNCH_LEVELS;
+    FoldArgs A = {cw, rows_of(d0, d1, d2, s0, s1, s2, plane, term),
+                  reinterpret_cast<const ulonglong2*>(tw), {}, {}, out, R, 0, n_log,
+                  0, 0, lg, 0, S, q};
+    for (int i = 0; i < n; ++i) {
+        A.L = levels / n + (i < levels % n);
+        for (int k = 0; k < A.L; ++k) {
+            A.r[k] = r[A.first + k];
+            A.r_plane[k] = r_plane[A.first + k];
+        }
+        const int free_log = A.n_log - A.L;        // column sets a row (log2)
+        A.c_log = free_log < FOLD_TILE_LOG - A.L ? free_log : FOLD_TILE_LOG - A.L;
+        while (A.c_log > MIN_COLS_LOG && (R << (free_log - A.c_log)) < FOLD_SMS) --A.c_log;
+        const long long tiles = R << (free_log - A.c_log);
+        if (tiles >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+        A.tiles = (unsigned)tiles;
+        // the twiddle products (16 bytes an entry), then a buffer of the
+        // entries' two planes, two for a block of several tiles; as many
+        // blocks as fit on the card at once, at most FOLD_BLOCKS, and a
+        // multiple of the tiles a row where that leaves some
+        const size_t smem = sizeof(u64) * (2u << (A.c_log + A.L));
+        if (!(dev < 64 && big_smem[dev])) {
+            err = cudaFuncSetAttribute(gf_fri_fold, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(6 * sizeof(u64) << FOLD_TILE_LOG));
+            if (err != cudaSuccess) return (int)err;
+            err = cudaFuncSetAttribute(gf_fri_fold, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+            if (err != cudaSuccess) return (int)err;
+            if (dev < 64) big_smem[dev] = true;
+        }
+        int per_sm = 0, sms = 0;
+        if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf_fri_fold,
+                                                                 FOLD_THREADS, 3 * smem))
+                != cudaSuccess
+            || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+                != cudaSuccess)
+            return (int)err;
+        const long long fit = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+        long long cap = fit < FOLD_BLOCKS ? fit : FOLD_BLOCKS;
+        const long long per_row = 1ll << (free_log - A.c_log);
+        if (cap >= per_row) cap -= cap % per_row;
+        const unsigned grid = tiles < cap ? (unsigned)tiles : (unsigned)cap;
+        const size_t dyn = (tiles > grid ? 3 : 2) * smem;
+        gf_fri_fold<<<grid, FOLD_THREADS, dyn, stream>>>(A);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        // the next launch reads this one's last level, rows contiguous
+        const long long nn = 1ll << A.n_log;
+        const long long last = nn >> A.L;
+        A.cw = A.out + 2 * R * (nn - 2 * last);
+        A.rows = rows_of(1, 1, (int)R, 0, 0, last, R * last, 1);
+        A.out += 2 * R * (nn - last);
+        A.first += A.L;
+        A.n_log -= A.L;
+    }
+    return 0;
 }

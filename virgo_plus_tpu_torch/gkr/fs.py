@@ -410,8 +410,9 @@ def _fs_pc_commit(l_codeword, final_point, D, bl0: int):
 
 
 def _fs_fold(cur, D, lgc: int):
-    """One FRI level: squeeze r, fold, hash the level (one chain and one
-    forest launch), absorb its root.  Returns (oracle, r, codeword, D')."""
+    """One FRI level: squeeze r, fold (one level: one ``gf_fri_fold``
+    launch off the cached twiddle table of the level's root), hash the
+    level (one chain and one forest launch), absorb its root.  Returns (oracle, r, codeword, D')."""
     r, D = squeeze(D)
     cur = virgo_pc.fold_step(cur, r, lgc)
     o = virgo_pc.make_oracle(cur)

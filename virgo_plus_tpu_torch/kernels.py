@@ -12,8 +12,9 @@ partial library.
 A source may expose several C entries; counts are kept per entry.  Every
 kernel wrapper adds to ``LAUNCHES[entry]`` the number of device launches
 its C entry makes (K1: ``sumcheck.fold_launches(bl)``, gf_fft:
-``fft.launches(lg_coef)``, each K2 entry, each field op, each field chain,
-each fold, each GKR init stage, each phase of the fft_gkr stage tables
+``fft.launches(lg_coef)``, gf_fri_fold: ``virgo_pc.fold_launches(L)``
+for L levels, each K2 entry, each field op, each field chain, each GKR
+init stage, each phase of the fft_gkr stage tables
 and each virtual oracle: one, none for an empty output; the fft_gkr
 circuit: ``fft_gkr.circuit_launches(lg)``; a circuit evaluation: one per
 launch of ``compile.eval_launches``), and its
@@ -72,14 +73,15 @@ SOURCES = {
     # the input rows (pointer, FFT_AXES lead sizes and strides, plane and
     # last-axis strides), then gf_fft: the twiddles, out, scratch, log2 of
     # the coefficients and of the order, the sign of the fourth root, the
-    # scale flag and its by-value element, the stream; gf_fri_fold: w and
-    # its 2 strides, r and its plane stride, out, log2 of the output row,
-    # the stream
+    # scale flag and its by-value element, the stream; gf_fri_fold: the
+    # twiddles, log2 of their order, the shards and the rank's index, the
+    # challenges' pointers and plane strides (host arrays), the levels,
+    # out, log2 of an input row, the stream
     "gf_fft": {
         "gf_fft": ("vpt_gf_fft", [_P] + [_I] * 3 + [_L] * 5 + [_P] * 3
                    + [_I] * 4 + [_U, _U, _P]),
         "gf_fri_fold": ("vpt_gf_fri_fold", [_P] + [_I] * 3 + [_L] * 5
-                        + [_P, _L, _L, _P, _L, _P, _I, _P]),
+                        + [_P, _I, _L, _L, _P, _P, _I, _P, _I, _P]),
     },
     # values, its rows and last axis; c0, its columns, its first claim's;
     # the beta tables (count, host arrays of pointers and plane strides);

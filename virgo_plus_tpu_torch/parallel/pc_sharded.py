@@ -7,7 +7,8 @@ position p lives on rank p mod S, at local position p // S.  Then:
   FFT of order L = N/S of coset-twiddled coefficients.  The coefficients
   are 32x smaller than the codeword, so every rank computes all of them.
 * **FRI folds**: the pair (i, i + N/2) has one residue mod S, so every fold
-  is local, down to the last level.
+  is local, down to the last level: every level in one ``fold_levels``
+  call at the rank's (S, q), one ``gf_fri_fold`` launch.
 * **Leaf chains**: leaf j hashes the pairs (j, j + N/2) of all 65 slices,
   also local: one ``sha3_chain_x64`` launch per rank and oracle build.
 * **Merkle tree**: the leaf digests are gathered over sp and rank q keeps
@@ -45,13 +46,6 @@ def _coset_fft(coefs, lg_n: int, mesh: Mesh):
     tw = powers(gf.pow_int(rou, q), coefs.shape[-1], coefs.device)
     return fft(gf.mul(coefs, tw[:, None, :]), lg_n - (S.bit_length() - 1),
                gf.pow_int(rou, S))
-
-
-def _local_powers(base_int, n_local: int, mesh: Mesh, device):
-    """base^p at this rank's local positions p = t·S + q, t < n_local."""
-    step = powers(gf.pow_int(base_int, mesh.sp), n_local, device)
-    r, i = gf.pow_int(base_int, mesh.sp_rank)
-    return gf.mul(step, gf.full((1,), r, i, device))
 
 
 def _with_mask_slice(x):
@@ -165,10 +159,10 @@ def sharded_fold_step(cw_local, r, lg_n: int, mesh: Mesh):
     """One FRI fold (fri.cpp:315-334) of this rank's block of a 2^lg_n
     codeword, no communication: global pair (t·S + q, t·S + q + N/2) is
     the local pair (t, t + L/2), and the output's local position t is
-    global position t·S + q of the halved codeword."""
-    inv_mu = _local_powers(gf.inv_int(gf.root_of_unity_int(lg_n)),
-                           cw_local.shape[-1] // 2, mesh, cw_local.device)
-    return virgo_pc.fold_pairs(cw_local, inv_mu, r)
+    global position t·S + q of the halved codeword.  ``fold_levels``' one
+    level at this rank's (S, q)."""
+    return virgo_pc.fold_levels(cw_local, [r], lg_n,
+                                (mesh.sp, mesh.sp_rank))[0]
 
 
 def gather_strided(cw_local, mesh: Mesh):
@@ -201,10 +195,8 @@ def sharded_pc_prove(mesh: Mesh, bl: int):
     def run(values, q_values, randomness):
         l_oracle = commit(values)
         h_oracle, all_sum, vo = public(l_oracle.cw, q_values)
-        cws, cur = [], vo
-        for k, r in enumerate(randomness):
-            cur = sharded_fold_step(cur, r, lg - k, mesh)
-            cws.append(cur)
+        cws = virgo_pc.fold_levels(vo, list(randomness), lg,
+                                   (mesh.sp, mesh.sp_rank))
         return dict(l=l_oracle, h=h_oracle, all_sum=all_sum,
                     levels=sharded_oracle_trees(cws, mesh))
 

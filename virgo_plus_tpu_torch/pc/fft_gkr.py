@@ -5,9 +5,10 @@ lib/virgo/src/fft_circuit_GKR.cpp): a second GKR system that proves the VPD
 verifier's q-polynomial FFT evaluation.  Circuit: beta-extension tensor
 layers -> IFFT stages -> 1/n scale -> 64 evaluation points -> summation
 (fft_circuit_GKR.cpp:22-101), built with the evaluation points' power
-table by one ``fg_build_circuit`` launch up to lg = 12
-(``csrc/fft_gkr.cu``; ``build_circuit``, plain twin
-``build_circuit_plain``).  Every sumcheck is a fold, so on the card each
+table by one ``fg_build_circuit`` launch up to lg = ONE_LAUNCH_LOG, its
+layers in registers up to WARP_LOG (``csrc/fft_gkr.cu``;
+``build_circuit``, plain twin ``build_circuit_plain``, equal on canonical
+inputs).  Every sumcheck is a fold, so on the card each
 goes through K1: the prover's tape (``prove_messages``) folds all lg ifft
 stages of a phase in one K1 call, and makes their tables in one
 ``fg_stage_tables`` launch (``stage_tables``, plain twin
@@ -116,17 +117,20 @@ def _rot_mul(lg: int):
 
 
 POINTS = 64             # evaluation points
-# csrc/fft_gkr.cu: the largest lg fg_build_circuit builds in one launch,
-# the words of a point an expansion block takes above it, the largest lg
-ONE_LAUNCH_LOG = 12
+# csrc/fft_gkr.cu: the largest lg fg_build_circuit builds in registers
+# and in one launch, the words of a point an expansion block takes above
+# it, the largest lg
+WARP_LOG = 8
+ONE_LAUNCH_LOG = 11
 CHUNK_LOG = 10
 MAX_BUILD_LOG = 21
 
 
 def circuit_launches(lg: int) -> int:
     """fg_build_circuit's launches for a 2^lg-point circuit: one up to
-    ONE_LAUNCH_LOG; above it the tensor layers, one an ifft stage, the
-    expansion and the sums."""
+    ONE_LAUNCH_LOG (in registers up to WARP_LOG, else in shared memory);
+    above it the tensor layers, one an ifft stage, the expansion and the
+    sums."""
     return 1 if lg <= ONE_LAUNCH_LOG else lg + 3
 
 
@@ -191,9 +195,15 @@ def build_circuit_plain(lg: int, r, eval_points):
 
 
 def build_circuit_cuda(lg: int, r, eval_points):
-    """fg_build_circuit on the card: same arguments, results and bits as
-    build_circuit_plain.  The layers and the power table are views of one
-    buffer; r and eval_points are read in place (any strides)."""
+    """fg_build_circuit on the card: same arguments and results as
+    build_circuit_plain, and the same bits on canonical r and eval_points
+    (field.cuh's canonical products and sums, in the kernel's order).  Its
+    callers pass canonical words: ``prove_messages`` and ``run`` the
+    schedule's glibc-stream draws (``draw_schedule``) or the FS sponge's
+    squeezes (``gkr/fs.py``), all below p; the twiddles are
+    ``stage_powers``' host powers.  The layers and the power table are
+    views of one buffer; r and eval_points are read in place (any
+    strides)."""
     if not 0 <= lg <= MAX_BUILD_LOG:
         raise ValueError(f"fg_build_circuit: lg = {lg}, 0 to {MAX_BUILD_LOG} "
                          f"taken")

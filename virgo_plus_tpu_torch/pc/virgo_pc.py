@@ -9,6 +9,10 @@ one launch of its forest kernel.  Fold step
 (fri.cpp:315-334):
     next[i] = 1/2 * ((v[i] + v[i+N/2]) + r * rou^{-i} * (v[i] - v[i+N/2])).
 Slice 64 is the reference's single zero mask slice, hashed into every chain.
+Every level of a fold call is one ``gf_fri_fold`` launch (``fold_levels``,
+plain twin ``fold_levels_plain``) off the twiddle table ``fft.twiddles``
+keeps for the inverse root of the top order (its stage k is level k's
+table), so a fold makes no ``gf_table`` launch.
 The public commit's virtual oracle and h codeword are one
 ``pc_virtual_oracle`` launch (``csrc/virgo_pc.cu``; ``virtual_oracle``,
 plain twin ``virtual_oracle_plain``) over tables kept per (root, order,
@@ -17,6 +21,7 @@ columns, device) (``oracle_tables``).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from typing import List
@@ -24,9 +29,9 @@ from typing import List
 import torch
 
 from .. import kernels
-from ..field import gf
+from ..field import chains, gf
 from ..gkr.beta import beta_table
-from .fft import FFT_AXES, fft, ifft, powers
+from .fft import FFT_AXES, fft, ifft, powers, twiddles
 from . import merkle
 from .keccak import sha3_chain_x64
 
@@ -271,26 +276,58 @@ def commit_public(l_eval, q_values, bl: int):
     return make_oracle(h_full), q_eval, q_coefs, all_sum, vo
 
 
+LAUNCH_LEVELS = 8   # csrc/gf_fft.cu: the most fold levels one launch runs
+
+
+def fold_launches(levels: int) -> int:
+    """gf_fri_fold's launches for a call of `levels` levels."""
+    return -(-levels // LAUNCH_LEVELS)
+
+
+def fold_levels(codeword, rs, lg_n: int, shards=(1, 0)):
+    """len(rs) FRI folds (fri.cpp:315-334): level k folds level k - 1's
+    codeword (level 0 the input, (2, ..., 65, N)) with the challenge rs[k]
+    (2,) at the root of order 2^(lg_n - k).  Returns the levels, level k
+    (2, ..., 65, N / 2^(k+1)).  shards = (S, q): the codeword is rank q's
+    strided block of a 2^lg_n-entry codeword (its position t is global
+    position t·S + q, ``parallel/pc_sharded``), (1, 0) on one device.  A
+    CUDA tensor goes to gf_fri_fold (``fold_step_cuda``: every level in
+    ``fold_launches(L)`` launches, one up to LAUNCH_LEVELS), a CPU tensor
+    to ``fold_levels_plain``."""
+    fn = fold_step_cuda if gf._on_cuda(codeword) else fold_levels_plain
+    return fn(codeword, rs, lg_n, shards)
+
+
 def fold_step(codeword, r, lg_n: int):
     """One FRI fold (fri.cpp:315-334): codeword (2, ..., 65, N) -> (2, ...,
     65, N/2).  r: (2,) challenge, shared by a batch; rou of order N fixed
-    by lg_n.  Two launches on the card: the twiddles' table and gf_fri_fold."""
-    inv_mu = powers(gf.inv_int(gf.root_of_unity_int(lg_n)), (1 << lg_n) // 2,
-                    codeword.device)
-    return fold_pairs(codeword, inv_mu, r)
+    by lg_n.  ``fold_levels``' one-level case."""
+    return fold_levels(codeword, [r], lg_n)[0]
 
 
-def fold_pairs(codeword, w, r):
-    """out[..., i] = ((a + b) + (a - b)·w[i]·r) / 2 with a = codeword[...,
-    i], b = codeword[..., i + N/2]: w (2, N/2), r (2,).  A CUDA tensor goes
-    to gf_fri_fold (``csrc/gf_fft.cu``), a CPU tensor to fold_step_plain."""
-    fn = fold_step_cuda if gf._on_cuda(codeword) else fold_step_plain
-    return fn(codeword, w, r)
+def fold_levels_plain(codeword, rs, lg_n: int, shards=(1, 0)):
+    """Plain twin of gf_fri_fold: the JAX package's fold loop, each level's
+    twiddles a plain power table (at a rank's positions t·S + q: the
+    table of rou^S times rou^q, as the JAX package's sharded fold)."""
+    kernels.PLAIN_CALLS["gf_fri_fold"] += 1
+    S, q = shards
+    dev = codeword.device
+    cur, out = codeword, []
+    for k, r in enumerate(rs):
+        inv = gf.inv_int(gf.root_of_unity_int(lg_n - k))
+        w = chains.table_plain(chains.POWER, gf.pow_int(inv, S), None,
+                               cur.shape[-1] // 2, dev)
+        if q:
+            w = gf.mul_plain(w, gf.full((1,), *gf.pow_int(inv, q), dev))
+        cur = fold_step_plain(cur, w, r)
+        out.append(cur)
+    return out
 
 
 def fold_step_plain(codeword, w, r):
-    """Plain twin of gf_fri_fold, on gf's plain ops."""
-    kernels.PLAIN_CALLS["gf_fri_fold"] += 1
+    """One level of the plain twin, on gf's plain ops: out[..., i] = ((a +
+    b) + (a - b)·w[i]·r) / 2 with a = codeword[..., i], b = codeword[...,
+    i + N/2]; w (2, N/2), r (2,)."""
     half = codeword.shape[-1] // 2
     a = codeword[..., :half]
     b = codeword[..., half:]
@@ -302,34 +339,54 @@ def fold_step_plain(codeword, w, r):
                         gf.full((1, 1), inv2[0], inv2[1], codeword.device))
 
 
-def fold_step_cuda(codeword, w, r):
-    """gf_fri_fold on the card, one launch: same signature and bits as
-    fold_step_plain on canonical inputs."""
-    if codeword.device.type != "cuda" or w.device != codeword.device or \
-            r.device != codeword.device:
-        raise ValueError("gf_fri_fold: codeword, w and r must be on one CUDA "
-                         "device")
-    if any(t.dtype != torch.int64 for t in (codeword, w, r)):
+def fold_step_cuda(codeword, rs, lg_n: int, shards=(1, 0)):
+    """gf_fri_fold on the card: same arguments, results and bits as
+    fold_levels_plain on canonical inputs.  The codeword rows and the
+    challenges are read in place (any strides); the levels are views of
+    one buffer, each contiguous; the twiddles are ``fft.twiddles``' table
+    of the inverse root of order 2^lg_n, made once per device (never
+    inside a capture)."""
+    S, q = shards
+    L = len(rs)
+    dev = codeword.device
+    if dev.type != "cuda" or any(r.device != dev for r in rs):
+        raise ValueError("gf_fri_fold: codeword and challenges must be on "
+                         "one CUDA device")
+    if codeword.dtype != torch.int64 or any(r.dtype != torch.int64
+                                            for r in rs):
         raise TypeError("gf_fri_fold: expected int64 tensors")
     n = codeword.shape[-1] if codeword.dim() >= 2 else 0
-    half_log = max(n // 2, 1).bit_length() - 1
-    if codeword.shape[0] != 2 or n < 2 or n != 2 << half_log:
-        raise ValueError(f"gf_fri_fold: codeword {tuple(codeword.shape)}, "
-                         f"(2, ..., N) with N a power of two >= 2 taken")
-    if tuple(w.shape) != (2, n // 2) or tuple(r.shape) != (2,):
-        raise ValueError(f"gf_fri_fold: w {tuple(w.shape)}, r "
-                         f"{tuple(r.shape)} against N = {n}")
+    n_log = max(n, 1).bit_length() - 1
+    if codeword.shape[0] != 2 or n != 1 << n_log or not 1 <= L <= n_log:
+        raise ValueError(f"gf_fri_fold: codeword {tuple(codeword.shape)} "
+                         f"and {L} levels, (2, ..., N) with N a power of two "
+                         f">= 2^L taken")
+    if n * S != 1 << lg_n or not 0 <= q < S or any(
+            tuple(r.shape) != (2,) for r in rs):
+        raise ValueError(f"gf_fri_fold: N = {n} at shards {shards} against "
+                         f"2^{lg_n}, challenges "
+                         f"{[tuple(r.shape) for r in rs]}")
     sizes, strides = kernels.row_layout("gf_fri_fold", codeword, FFT_AXES)
-    out = torch.empty(tuple(codeword.shape[:-1]) + (n // 2,),
-                      dtype=torch.int64, device=codeword.device)
-    if out.numel():
-        kernels.check_int("gf_fri_fold", rows=out.numel() // n)
-        kernels.launch("gf_fri_fold", 1, codeword.data_ptr(), *sizes,
-                       *strides, codeword.stride(0), codeword.stride(-1),
-                       w.data_ptr(), w.stride(0), w.stride(1), r.data_ptr(),
-                       r.stride(0), out.data_ptr(), half_log,
-                       kernels.stream_ptr())
-    return out
+    lead = tuple(codeword.shape[1:-1])
+    rows = math.prod(lead)
+    buf = torch.empty(2 * rows * (n - (n >> L)), dtype=torch.int64,
+                      device=dev)
+    if rows:
+        kernels.check_int("gf_fri_fold", rows=rows)
+        tw, _ = twiddles(gf.inv_int(gf.root_of_unity_int(lg_n)), lg_n, dev)
+        ptrs = (ctypes.c_void_p * L)(*[r.data_ptr() for r in rs])
+        planes = (ctypes.c_longlong * L)(*[r.stride(0) for r in rs])
+        kernels.launch("gf_fri_fold", fold_launches(L), codeword.data_ptr(),
+                       *sizes, *strides, codeword.stride(0),
+                       codeword.stride(-1), tw.data_ptr(), lg_n, S, q,
+                       ctypes.addressof(ptrs), ctypes.addressof(planes), L,
+                       buf.data_ptr(), n_log, kernels.stream_ptr())
+    levels = []
+    for k in range(L):
+        off, half = 2 * rows * (n - (n >> k)), n >> (k + 1)
+        levels.append(buf[off:off + 2 * rows * half].view((2,) + lead
+                                                          + (half,)))
+    return levels
 
 
 @dataclass
@@ -342,14 +399,8 @@ class LDTCommitment:
 def fold_codewords(vo, bl: int, randomness: List):
     """All LDT fold-level codewords (no hashing): vo folded until each
     slice is 2^RATE (vpd_verifier.cpp:44-74)."""
-    lg = bl + RATE - LOG_SLICE
-    cur = vo
-    cws = []
-    for r in randomness:
-        cur = fold_step(cur, r, lg)
-        lg -= 1
-        cws.append(cur)
-    assert cur.shape[-1] == 1 << RATE
+    cws = fold_levels(vo, list(randomness), bl + RATE - LOG_SLICE)
+    assert cws[-1].shape[-1] == 1 << RATE
     return cws
 
 
