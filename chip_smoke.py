@@ -68,7 +68,16 @@ package.  Phases, one line each, any failure exits non-zero:
    12, 13 and 18 (``fft_gkr.circuit_launches(lg)``), on canonical inputs,
    and the public commit's virtual oracle (X1: ``pc_virtual_oracle``) at
    2^12 columns with no batch axis and at B = 4 and 64, and on a sharded
-   rank's columns (rank 1 of 2, rank 3 of 4, its own tables);
+   rank's columns (rank 1 of 2, rank 3 of 4, its own tables); then the
+   FS scans (``fs_sumcheck`` and ``fs_sponge`` of ``csrc/fs_rounds.cu``)
+   against their plain twins: a sumcheck of one table at bl = 0, 1, 7 and
+   13 (with the claim's absorb; Liu's a = 0 at 13) and a joint phase 2 of
+   bit lengths {13, 9, 3, 0} with up to 12 tables a length (past a
+   cluster's shared memory), the sponge at (k, n) = (0, 1), (3, 0),
+   (26, 14) and (0, 257); each call also captured in a CUDA graph and
+   replayed on other inputs; a latency probe (one squeeze, a Keccak-f on
+   two lane pairs side by side, from 1 and 1,025 squeezes) and each fixed
+   shape's serial floor (its permutations times that latency);
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -96,8 +105,9 @@ package.  Phases, one line each, any failure exits non-zero:
    call recorded and held against its plain twin, then the main path, one
    more ``prove_fs`` (equal to the first) and its ``verify_fs``, with the
    counts reset just before and read just after; the FS prove must launch
-   every entry but the GKR init stages (its walk keeps per-layer inits;
-   the sponge's SHA3 at N = 1) with no plain twin call;
+   every entry but the GKR init stages (its walk keeps per-layer inits)
+   and ``sha3_256_x64`` (its sponge runs in ``fs_sponge`` and
+   ``fs_sumcheck``), with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
    rejected; eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
    their spans, and (at the end) a profile of one eager ``prove_fs``;
@@ -176,15 +186,17 @@ field; from there on ``driver.load_circuit`` uses it.  Then each kernel
 entry's device time per call at every shape the glibc, FS, batched and
 sharded paths gave it, from the profiler (a profile that drops launches
 is repeated, up to 10 times, and the run fails if none holds every
-launch), and at phase 3's fixed shapes of ``fg_build_circuit`` and
-``pc_virtual_oracle``, beside its bound and its plain
-twin (a sharded shape on random inputs of that shape: rank 0's calls are
-held in its own process), and last
-the whole-call profiles (three eager calls, then one replay of the timed
-prove's graphs, one batched replay at B = 16 and one ``driver.prove`` and
-one ``driver.prove_fs`` through their graphs, each failing unless the
-profiler's kernels of every port entry equal the counted launches): a
-large trace makes every later short profile miss launches.  The X1
+launch), and at phase 3's fixed shapes of ``fg_build_circuit``,
+``pc_virtual_oracle``, ``fs_sumcheck`` and ``fs_sponge``, beside its
+bound (a sharded shape on random inputs of that shape: rank 0's calls
+are held in its own process); then the whole-call profiles (three eager
+calls, then one replay of the timed prove's graphs, one batched replay
+at B = 16 and one ``driver.prove`` and one ``driver.prove_fs`` through
+their graphs, each failing unless the profiler's kernels of every port
+entry equal the counted launches): a large trace makes every later short
+profile miss launches; and last each entry's plain twin at its top
+shape, by CUDA events (a twin's flood of small kernels made later short
+profiles miss launches too).  The X1
 calls (field ops, chains and transforms) are grouped by their output's
 words (a segment sum's by the words it reads), rounded up to a power of
 two, in the listings; a bucket is profiled on the first call recorded in
@@ -250,7 +262,11 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 "gf_evaluate": ("gf_evaluate",),
                 "fg_stage_tables": ("fg_stage_tables",),
                 "fg_build_circuit": ("fg_build_",),
-                "pc_virtual_oracle": ("pc_virtual_oracle",)}
+                "pc_virtual_oracle": ("pc_virtual_oracle",),
+                # (csrc/fs_rounds.cu's namespace carries "fs_rounds", which
+                # neither name matches)
+                "fs_sponge": ("fs_sponge_kernel",),
+                "fs_sumcheck": ("fs_sumcheck_kernel",)}
 # X1: the elementwise field ops, the field chains and the transforms,
 # called thousands of times a prove (a batched transform reads up to 2^25
 # words): each call's twin runs as it returns (Recorder), and its calls
@@ -267,14 +283,21 @@ INIT_ENTRIES = ("gkr_p1_inits", "gkr_p2_inits")
 # tape (circuit_launches(lg) above lg = ONE_LAUNCH_LOG) and a commit
 FUSED_ENTRIES = ("gf_evaluate", "fg_stage_tables", "fg_build_circuit",
                  "pc_virtual_oracle")
-# the entries every glibc prove must launch (sha3_256_x64 is the FS
-# sponge's: every FS prove launches it and these but the GKR init stages)
+# the FS prover's scans: its sponge streams and its sumchecks
+SPONGE_ENTRIES = ("fs_sponge", "fs_sumcheck")
+# the entries every glibc prove must launch (an FS prove launches these
+# but the GKR init stages, and SPONGE_ENTRIES)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
                 *GF_ENTRIES, *INIT_ENTRIES, *FUSED_ENTRIES)
 # a batched call has no fft_gkr tape
 BATCH_ENTRIES = tuple(e for e in PATH_ENTRIES
                       if e not in ("fg_stage_tables", "fg_build_circuit"))
-FS_ENTRIES = tuple(e for e in KERNEL_NAMES if e not in INIT_ENTRIES)
+FS_ENTRIES = tuple(e for e in KERNEL_NAMES
+                   if e not in INIT_ENTRIES + ("sha3_256_x64",))
+# a glibc rank of the sharded prover: every entry but the inits and the
+# FS scans
+GLIBC_RANK_ENTRIES = tuple(e for e in KERNEL_NAMES
+                           if e not in INIT_ENTRIES + SPONGE_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
 _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
@@ -289,6 +312,9 @@ _X1I = "virgo_plus_tpu_torch/csrc/gkr_inits.cu"
 _X1E = "virgo_plus_tpu_torch/csrc/circuit_eval.cu"
 _X1T = "virgo_plus_tpu_torch/csrc/fft_gkr.cu"
 _X1V = "virgo_plus_tpu_torch/csrc/virgo_pc.cu"
+# the FS prover's lax.scans, with K2's hash inside: no Pallas kernel of
+# their own
+_FS = "virgo_plus_tpu_torch/csrc/fs_rounds.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
@@ -310,14 +336,20 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "fg_build_circuit": (
                            _X1T, "virgo_plus_tpu/pc/fft_gkr.py:107"),
                        "pc_virtual_oracle": (
-                           _X1V, "virgo_plus_tpu/pc/virgo_pc.py:142")}
+                           _X1V, "virgo_plus_tpu/pc/virgo_pc.py:142"),
+                       "fs_sponge": (_FS, "virgo_plus_tpu/gkr/fs.py:58"
+                                     " (absorb_elems), :94 (squeeze_vec)"),
+                       "fs_sumcheck": (
+                           _FS, "virgo_plus_tpu/gkr/fs.py:112 "
+                           "(fs_scan_sumcheck), :274 (the joint phase 2)")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
                 "gf_lin": 20, "gf_table": 20, "gf_segsum": 20, "gf_fft": 20,
                 "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20,
                 "gf_evaluate": 20, "fg_stage_tables": 20,
-                "fg_build_circuit": 20, "pc_virtual_oracle": 20}
+                "fg_build_circuit": 20, "pc_virtual_oracle": 20,
+                "fs_sponge": 20, "fs_sumcheck": 10}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -342,6 +374,10 @@ EVAL_SUMS = 3
 STAGE_OPS = {1: (2, 2), 2: (4, 2)}
 # products and sums of an element of the virtual oracle (pc_virtual_oracle)
 ORACLE_OPS = (4, 2)
+# products and sums of a pair of an FS sumcheck round (fs_sumcheck): four
+# for the terms and three for the bind; three differences, three sums of
+# the terms, three accumulations and three binds
+FS_PAIR_OPS = (7, 12)
 POINTS = 64                  # the fft_gkr circuit's evaluation points
 BROADCAST_REPS = 2000        # rounds of phase 3's output-shape timing
 # the timed prove's forest: the l and h trees and the 7 FRI level trees
@@ -367,7 +403,17 @@ ORACLE_RANKS = ((2, 1), (4, 3))
 FIXED_SHAPES = {"fg_build_circuit": [(lg,) for lg in (0, 1, 7, 8, 9, 10, 11,
                                                        12, 13, 18)],
                 "pc_virtual_oracle": [(1, 4096), (4, 4096), (64, 4096)]
-                + [(1, 4096 // S) for S, _ in ORACLE_RANKS]}
+                + [(1, 4096 // S) for S, _ in ORACLE_RANKS],
+                # (rounds, bit lengths, a given, trailing absorb): one table
+                # at bl = 0, 1, 7 and 13 and Liu's (a = 0) at 13; a joint
+                # phase 2 of up to 12 tables a bit length
+                "fs_sumcheck": [(bl, (bl,), True, True) for bl in
+                                (0, 1, 7, 13)] + [(13, (13,), False, True),
+                                                  (13, (13,) * 12 + (9,) * 3
+                                                   + (3,) * 2 + (0,), True,
+                                                   False)],
+                # (elements absorbed, challenges squeezed)
+                "fs_sponge": [(0, 1), (3, 0), (26, 14), (0, 257)]}
 # K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
 # five table groups at S = 2 and 4, and tails of 1-3 bits
 K1_SHARDED = ([(bl - s, k) for s in (1, 2) for bl, k in
@@ -496,13 +542,14 @@ def is_device_row(e):
     return "CUDA" in str(getattr(e, "device_type", "")) and device_us(e) > 0
 
 
-def profiled_ms(torch, fn, reps, names, launches, tries=10):
+def profiled_ms(torch, fn, reps, names, launches, tries=10, seen=None):
     """Device time (ms) per call of the kernels whose names contain one of
     `names`, from torch.profiler (device activity only) over `reps` calls
     of fn after one warm-up call, each making `launches` device launches.
     A profile that missed any of those launches (the profiler drops one now
-    and then, most often on a loaded host) is repeated; None after `tries`
-    of them, and the caller fails."""
+    and then, most often on a loaded host) is repeated half a second later;
+    None after `tries` of them, and the caller fails.  `seen`, a list, gets each try's count
+    of those kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -516,8 +563,11 @@ def profiled_ms(torch, fn, reps, names, launches, tries=10):
             if is_device_row(e) and any(n in e.key for n in names):
                 us += device_us(e)
                 count += e.count
+        if seen is not None:
+            seen.append(count)
         if count == reps * launches:
             return us / 1e3 / reps
+        time.sleep(0.5)   # let the profiler's backlog drain
     return None
 
 
@@ -824,7 +874,15 @@ def shape_of(entry, ins):
     init call; (rows, widest layer's gates, layers after the inputs) of a
     circuit evaluation; (phase, stages, lg) of a
     stage tables call; (lg,) of an fft_gkr circuit; (instances, columns) of
-    a virtual oracle (a field op's is its gf_bucket)."""
+    a virtual oracle; (elements, challenges) of an FS sponge call; (rounds,
+    bit lengths, a given, trailing absorb) of an FS sumcheck (a field op's
+    is its gf_bucket)."""
+    if entry == "fs_sponge":
+        return (0 if ins[1] is None else ins[1].shape[1], ins[2])
+    if entry == "fs_sumcheck":
+        tables, mdb, _D, absorb = ins
+        return (mdb, tuple(t[3] for t in tables), tables[0][1] is not None,
+                bool(absorb))
     if entry == "fg_build_circuit":
         return (ins[0],)
     if entry == "pc_virtual_oracle":
@@ -889,6 +947,23 @@ def cost(entry, shp, ins):
                 K1_PRODUCTS_PER_PAIR * k * (n - 1) * IMAD_PER_PRODUCT)
     if entry == "sha3_256_x64":
         return 96 * shp[0], KECCAK_INT32_OPS * shp[0]
+    if entry == "fs_sponge":     # D and the elements in, the challenges and
+        # D' out; a permutation a pair absorbed, two a squeeze
+        k, n = shp
+        return (8 * (8 + 2 * k + 2 * n),
+                KECCAK_INT32_OPS * ((k + 1) // 2 + 2 * n))
+    if entry == "fs_sumcheck":   # each table's v, m (and a) and D in; the
+        # polys, challenges, bounds and D' out; FS_PAIR_OPS a pair of
+        # every round, three permutations a round (and the claim's)
+        mdb, bls, has_a, absorb = shp
+        elems = sum(1 << b for b in bls)
+        pairs = sum((1 << b) - 1 for b in bls)
+        products, sums = FS_PAIR_OPS
+        return (8 * (2 * (3 if has_a else 2) * elems + 4 + 8 * mdb
+                     + 6 * len(bls) + 4),
+                pairs * (GF_PRODUCT_INT32_OPS * products
+                         + GF_SUM_INT32_OPS * sums)
+                + KECCAK_INT32_OPS * (3 * mdb + int(absorb)))
     if entry == "sha3_chain_x64":
         steps, n = shp
         return 32 * steps * n + 32 * n, KECCAK_INT32_OPS * steps * n
@@ -901,8 +976,10 @@ def kept(a):
     """A copy of one wrapper argument: a tensor copied with its sizes and
     strides (a strided or expanded view stays such a view, over a copy of
     the storage it reads), a list copied, an op code or None as it is."""
+    if isinstance(a, (list, tuple)):
+        return type(a)(kept(x) for x in a)
     if not hasattr(a, "clone"):
-        return list(a) if isinstance(a, (list, tuple)) else a
+        return a
     if a.numel() == 0 or a.is_contiguous():
         return a.clone()
     span = 1 + sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
@@ -986,7 +1063,7 @@ def kernel_tables():
     from virgo_plus_tpu_torch import kernels
     from virgo_plus_tpu_torch.circuits import compile as circuit
     from virgo_plus_tpu_torch.field import chains, gf
-    from virgo_plus_tpu_torch.gkr import inits, sumcheck
+    from virgo_plus_tpu_torch.gkr import fs, inits, sumcheck
     from virgo_plus_tpu_torch.pc import fft, fft_gkr, keccak, merkle, virgo_pc
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
@@ -1004,7 +1081,9 @@ def kernel_tables():
                 "gf_evaluate": (circuit, "evaluate_cuda"),
                 "fg_stage_tables": (fft_gkr, "stage_tables_cuda"),
                 "fg_build_circuit": (fft_gkr, "build_circuit_cuda"),
-                "pc_virtual_oracle": (virgo_pc, "virtual_oracle_cuda")}
+                "pc_virtual_oracle": (virgo_pc, "virtual_oracle_cuda"),
+                "fs_sponge": (fs, "fs_sponge_cuda"),
+                "fs_sumcheck": (fs, "fs_sumcheck_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -1020,7 +1099,9 @@ def kernel_tables():
             "gf_evaluate": circuit.evaluate_plain,
             "fg_stage_tables": fft_gkr.stage_tables_plain,
             "fg_build_circuit": fft_gkr.build_circuit_plain,
-            "pc_virtual_oracle": virgo_pc.virtual_oracle_plain}
+            "pc_virtual_oracle": virgo_pc.virtual_oracle_plain,
+            "fs_sponge": fs.fs_sponge_plain,
+            "fs_sumcheck": fs.fs_sumcheck_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
@@ -1039,6 +1120,10 @@ def kernel_tables():
             return fft_gkr.circuit_launches(ins[0])
         if entry == "pc_virtual_oracle":
             return 1 if ins[0].numel() else 0
+        if entry == "fs_sponge":
+            return 1 if shape_of(entry, ins) != (0, 0) else 0
+        if entry == "fs_sumcheck":
+            return 1
         n = ins[0].shape[-1]
         return 1 if n else 0
 
@@ -1203,9 +1288,30 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
         return (x, y) if entry == "gf_mul" else (gf.ADD, x, y)
     if entry == "sha3_256_x64":
         return (words(8, shp[0]),)
+    if entry == "fs_sponge":
+        k, n = shp
+        return (words(4), canon(2, k) if k else None, n)
+    if entry == "fs_sumcheck":
+        mdb, bls, has_a, absorb = shp
+        return (fs_tables(canon, bls, has_a), mdb, words(4), absorb)
     if entry == "sha3_chain_x64":
         return (words(shp[0], 4, shp[1]),)
     return (words(4, sum(shp)), list(shp))
+
+
+def fs_tables(canon, bls, has_a):
+    """FS sumcheck tables of bit lengths `bls` as the joint phase 2 gives
+    them: slices of one v array and of one (a | m) array, canonical (a
+    None when not `has_a`)."""
+    tot = sum(1 << b for b in bls)
+    v, s = canon(2, tot), canon(2, 2 * tot)
+    tables, o = [], 0
+    for b in bls:
+        sl = slice(o, o + (1 << b))
+        tables.append((v[:, sl], s[:, sl] if has_a else None,
+                       s[:, tot + o:tot + o + (1 << b)], b))
+        o += 1 << b
+    return tables
 
 
 def sharded_rank(mesh, circuit, transcripts, runs):
@@ -1856,6 +1962,55 @@ def main():
         f"the columns of (rank, S) "
         f"{[(r, S) for S, r in ORACLE_RANKS]}, one launch a call")
 
+    # ---- phase 3, FS scans: fs_sumcheck and fs_sponge at fixed shapes ----
+    def fs_captured(entry, shp):
+        """One call at shape `shp` held against its twin, then captured in
+        a CUDA graph and replayed on other inputs of that shape (copied
+        into the captured ones): equal to the twin on those."""
+        ins = random_inputs(torch, np, gf, entry, shp, dev, rng)
+        held(entry, ins, f"shape {shp}")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = flatten(cuda_fn[entry](*ins))
+        other = random_inputs(torch, np, gf, entry, shp, dev, rng)
+        for x, y in zip(tree_tensors(ins), tree_tensors(other)):
+            if x is not None:
+                x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        e = max_abs_err(torch, out, flatten(twin[entry](*other)))
+        err[entry] = max(err[entry], e)
+        if e != 0.0:
+            fail(f"{entry}'s captured call at shape {shp} differs from its "
+                 f"plain twin when replayed on other inputs")
+        del graph
+
+    for entry in SPONGE_ENTRIES:
+        for shp in FIXED_SHAPES[entry]:
+            fs_captured(entry, shp)
+    # one squeeze's latency (a Keccak-f on two lane pairs side by side and
+    # the state's hand-over): 1,025 squeezes against 257 in one launch
+    d0 = gf.tensor(rng.integers(0, 2 ** 64, size=4, dtype=np.uint64), dev)
+    t_sq = [event_ms(torch, lambda n=n: cuda_fn["fs_sponge"](d0, None, n), 20)
+            for n in (257, 1025)]
+    squeeze_us = (t_sq[1] - t_sq[0]) / 768 * 1e3
+    floors = {f"fs_sumcheck {shp}":
+              (3 * shp[0] + int(shp[3])) * squeeze_us
+              for shp in FIXED_SHAPES["fs_sumcheck"]}
+    floors.update({f"fs_sponge (k, n) = {shp}": ((shp[0] + 1) // 2 + shp[1])
+                   * squeeze_us for shp in FIXED_SHAPES["fs_sponge"]})
+    say(f"phase 3 FS scans ok: fs_sumcheck == its plain twin bit for bit at "
+        f"(rounds, bit lengths, a given, absorb) "
+        f"{FIXED_SHAPES['fs_sumcheck']}, fs_sponge at (k, n) "
+        f"{FIXED_SHAPES['fs_sponge']}, each eager and replayed from a CUDA "
+        f"graph on other inputs; one launch a call")
+    say(f"phase 3 FS scans, latency probe ({card}; CUDA events over 20 "
+        f"calls): fs_sponge (0, 257) {t_sq[0] * 1e3:.2f} us, (0, 1025) "
+        f"{t_sq[1] * 1e3:.2f} us: one squeeze {squeeze_us:.4f} us "
+        f"({squeeze_us * max_clk_hz / 1e6:.0f} cycles at the max SM clock); "
+        f"serial floors (permutations x that latency, us): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in floors.items()))
+
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
     t0 = time.perf_counter()
@@ -2355,7 +2510,8 @@ def main():
                        for l in launches9]
         if any(any(r["plain"].values()) for r in per_rank) or any(
                 l != k_launches9[0] for l in k_launches9) or any(
-                l[e] == 0 for l in launches9 for e in FS_ENTRIES):
+                l[e] == 0 for l in launches9
+                for e in (FS_ENTRIES if tr == "fs" else GLIBC_RANK_ENTRIES)):
             fail(f"{label}: launches per rank {launches9}, plain twin calls "
                  f"{[r['plain'] for r in per_rank]}: K1, K2 and the chains "
                  f"not the same on every rank, or an entry not launched on a "
@@ -2788,21 +2944,23 @@ def main():
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
     for entry, names in KERNEL_NAMES.items():
-        per = {}
+        per, shape_ins = {}, {}
         found = (set(driver_shapes[entry]) | set(timed_shapes[entry])
                  | set(fs_shapes[entry]) | set(batched_shapes[entry])
                  | set(sharded_shapes[entry])
                  | set(FIXED_SHAPES.get(entry, ())))
         for shp in sorted(found):
-            ins = example.get((entry, shp)) or random_inputs(
+            ins = shape_ins[shp] = example.get((entry, shp)) or random_inputs(
                 torch, np, gf, entry, shp, dev, rng)
             nl = expected_launches(entry, ins)
+            seen = []
             ms = profiled_ms(torch, lambda: cuda_fn[entry](*ins),
-                             PROFILE_REPS[entry], names, nl)
+                             PROFILE_REPS[entry], names, nl, seen=seen)
             if ms is None:
                 fail(f"the profiler missed launches of {entry} at "
-                     f"{list(shp)} in every try: its device time is not "
-                     f"measured")
+                     f"{list(shp)} in every try (kernels seen by try "
+                     f"{seen}, {PROFILE_REPS[entry] * nl} launched): its "
+                     f"device time is not measured")
             nbytes, ops = cost(entry, shp, ins)
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_ops = ops / int32_rate * 1e3
@@ -2814,18 +2972,17 @@ def main():
                             launches=nl, bound=max(t_bytes, t_ops),
                             by="bytes" if t_bytes >= t_ops else "operations")
         # the shape that takes the most kernel time in one timed prove (in
-        # one FS prove for the sponge's SHA3)
+        # one FS prove for the FS scans; a shape only a sharded rank calls
+        # on random inputs of that shape)
         top = max(per, key=lambda s: (per[s]["timed"] * per[s]["ms"],
                                       per[s]["driver"] * per[s]["ms"],
                                       per[s]["fs"] * per[s]["ms"]))
-        plain_ms = event_ms(torch, lambda: twin[entry](*example[(entry, top)]),
-                            3)
         # a field op's bucket holds calls of up to twice the size and of
         # other broadcast patterns: its paths' device times are the whole
         # profiles' (phases 6 and 7), not a bucket's time times its calls
         exact = entry not in GF_ENTRIES
         rows[entry] = dict(
-            per=per, top=top, plain_ms=plain_ms,
+            per=per, top=top, top_ins=shape_ins[top], plain_ms=None,
             **{f"{k}_ms": sum(r[k] * r["ms"] for r in per.values())
                if exact else None for k in ("timed", "driver", "fs")},
             timed_bound=bound_ms(timed_costs[entry], int32_rate),
@@ -2834,31 +2991,6 @@ def main():
                 n * per[shp]["ms"] for shp, n in
                 sharded[(tr, S)][0]["shapes"][entry].items())
                 for tr, S in sharded} if exact else None)
-        shared = entry in INIT_ENTRIES or entry in FUSED_ENTRIES
-        paths = (f"; rank 0 of a sharded prove (ms): "
-                 f"{rows[entry]['sharded_ms']}; one timed prove "
-                 f"{rows[entry]['timed_ms']:.4f} ms, one "
-                 f"driver prove + verify {rows[entry]['driver_ms']:.4f} ms, "
-                 f"one FS prove + verify_fs {rows[entry]['fs_ms']:.4f} ms"
-                 if exact else "; device time by path: the whole profiles")
-        say(f"kernel {entry} (profiled device time"
-            f"{'' if exact else ' of the first call of each size bucket'}; "
-            f"calls in the first "
-            f"driver prove + verify / timed prove / first FS prove + "
-            f"verify_fs / batched calls at B = 4 and 64 / rank 0 of the "
-            f"sharded runs, ms per call, launches per call, bound ms"
-            f"{', the bound over the time' if shared else ''}"
-            f"): "
-            + "; ".join(
-                f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
-                f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
-                f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
-                + (f", share {r['bound'] / r['ms']:.3f}" if shared else "")
-                for s, r in per.items())
-            + paths + f"; bound of every recorded call summed: one timed "
-            f"prove {rows[entry]['timed_bound']:.5f} ms, one FS prove + "
-            f"verify_fs {rows[entry]['fs_bound']:.5f} ms; top shape "
-            f"{list(top)}: plain twin {plain_ms:.3f} ms")
     example.clear()
 
     # ---- whole-call profiles, after every per-shape profile: a large
@@ -2953,6 +3085,7 @@ def main():
     fs_rows = [(device_us(e), e.count, e.key)
                for e in prof.key_averages() if is_device_row(e)]
     fs_busy = sum(r[0] for r in fs_rows) / 1e3
+    fs_kernels = sum(r[1] for r in fs_rows)
     fs_idle = None
     fs_profiled = {e: [0.0, 0] for e in KERNEL_NAMES}
     if fs_busy > 0:
@@ -3026,6 +3159,48 @@ def main():
             f"{replay_prof[label]['idle_share']:.4f} of the median wall "
             f"{med:.1f} ms; the port's kernels {ours} == the counted "
             f"launches")
+    # the plain twins at each entry's top shape, timed by CUDA events after
+    # every profile: a twin's flood of small kernels (the sponge's, 10^5
+    # and more a call) left later short profiles missing launches
+
+    def kernel_line(entry):
+        """The entry's profiled shapes, bounds, paths and plain twin."""
+        per, top, plain_ms = (rows[entry][k] for k in ("per", "top",
+                                                        "plain_ms"))
+        exact = entry not in GF_ENTRIES
+        shared = entry in INIT_ENTRIES or entry in FUSED_ENTRIES
+        paths = (f"; rank 0 of a sharded prove (ms): "
+                 f"{rows[entry]['sharded_ms']}; one timed prove "
+                 f"{rows[entry]['timed_ms']:.4f} ms, one "
+                 f"driver prove + verify {rows[entry]['driver_ms']:.4f} ms, "
+                 f"one FS prove + verify_fs {rows[entry]['fs_ms']:.4f} ms"
+                 if exact else "; device time by path: the whole profiles")
+        say(f"kernel {entry} (profiled device time"
+            f"{'' if exact else ' of the first call of each size bucket'}; "
+            f"calls in the first "
+            f"driver prove + verify / timed prove / first FS prove + "
+            f"verify_fs / batched calls at B = 4 and 64 / rank 0 of the "
+            f"sharded runs, ms per call, launches per call, bound ms"
+            f"{', the bound over the time' if shared else ''}"
+            f"): "
+            + "; ".join(
+                f"{shape_label(entry, list(s))}: {r['driver']}/{r['timed']}/"
+                f"{r['fs']}/{r['batched']}/{r['sharded']}, {r['ms']:.5f}, "
+                f"{r['launches']:g}, {r['bound']:.7f} {r['by']}"
+                + (f", share {r['bound'] / r['ms']:.3f}" if shared else "")
+                for s, r in per.items())
+            + paths + f"; bound of every recorded call summed: one timed "
+            f"prove {rows[entry]['timed_bound']:.5f} ms, one FS prove + "
+            f"verify_fs {rows[entry]['fs_bound']:.5f} ms; top shape "
+            f"{list(top)}: plain twin {plain_ms:.3f} ms")
+
+    for entry in KERNEL_NAMES:
+        ins = rows[entry].pop("top_ins")
+        rows[entry]["plain_ms"] = event_ms(torch, lambda: twin[entry](*ins),
+                                           3)
+        kernel_line(entry)
+    example.clear()
+
     main_prof = replay_prof["driver.prove through the graphs"]["port_kernels"]
     if main_prof != prove_launches:
         fail(f"phase 5's main-path prove launched {prove_launches} by the "
@@ -3076,6 +3251,7 @@ def main():
               "idle_share_of_median": idle,
               "fs_prove_launches": fs_launches, "fs_prove_ms": t_fs_prove,
               "fs_verify_ms": t_fs_verify, "fs_device_busy_ms": fs_busy or None,
+              "fs_kernels": fs_kernels,
               "fs_idle_share": fs_idle,
               "batched": {str(b): {k: per_b[b][k] for k in
                                    ("wall_ms", "proofs_per_s", "peak_bytes",

@@ -6,12 +6,14 @@ chip_smoke.py logs ``pair_{parent,change}{1,2}.log`` and, optionally, the
 change's ``gf_fft.sass`` (``cuobjdump -sass`` of its gf_fft library).
 For each log it prints one JSON line of the end-to-end numbers that
 chip_smoke.py's report line carries: walls (median, min, max, in ms),
-device busy ms and kernels of the profiled calls, proofs per second of
-the batched replays, sharded walls per rank and the run's length, and the
-GKR init stages' profiled device ms and bound ms by rows.  For the SASS it prints the static instruction count of ``gf_fft_tile``'s
-pass loop (the smallest loop holding four shared-memory loads and stores
-and two global loads: the four-slot kernel's pass, both radix
-branches), of the loops nested in it, and the loop's most frequent
+device busy ms and kernels of the profiled calls (an eager ``prove_fs``'s
+kernels where the log has them), the port's launches of a ``prove_fs``,
+proofs per second of the batched replays, sharded walls per rank and the
+run's length, and the GKR init stages' profiled device ms and bound ms by
+rows.  For the SASS it prints the static instruction count of
+``gf_fft_tile``'s pass loop (the smallest loop holding four shared-memory
+loads and stores and two global loads: the four-slot kernel's pass, both
+radix branches), of the loops nested in it, and the loop's most frequent
 opcodes.
 """
 
@@ -34,6 +36,7 @@ def summary(log: Path) -> dict:
     stamped = [ln for ln in lines if re.match(r"\[\s*[0-9.]+ s\]", ln)]
     prof = rep["replay_profiles"]
     timed, b16 = prof["timed prove replay"], prof["batched replay at B = 16"]
+    fs_graphs = prof["driver.prove_fs through the graphs"]
     return dict(
         timed_prove_eager=spread(rep["timed_prove_ms"]),
         timed_prove_eager_busy=round(rep["device_busy_ms"], 3),
@@ -45,7 +48,12 @@ def summary(log: Path) -> dict:
         verify_graphs=spread(rep["verify_graphs_ms"]),
         verify_eager=spread(rep["verify_ms"]),
         prove_fs_eager=spread(rep["fs_prove_ms"]),
+        prove_fs_eager_busy=rep["fs_device_busy_ms"],
+        prove_fs_eager_kernels=rep.get("fs_kernels"),
+        prove_fs_launches=sum(rep["fs_prove_launches"].values()),
         prove_fs_graphs=spread(rep["fs_prove_graphs_ms"]),
+        prove_fs_graphs_busy=round(fs_graphs["busy_ms"], 3),
+        prove_fs_graphs_kernels=fs_graphs["kernels"],
         batched_replay_proofs_per_s={
             b: round(r["proofs_per_s"], 1)
             for b, r in rep["batched_replay"].items()},

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from virgo_plus_tpu.circuits.compile import compile_circuit, input_buffer
+from virgo_plus_tpu.circuits.compile import compile_circuit
 from virgo_plus_tpu.gkr import fs as jfs
 from virgo_plus_tpu.gkr import protocol as jprotocol
 from virgo_plus_tpu_torch import convert
@@ -20,12 +20,11 @@ from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.field import gf
 from virgo_plus_tpu_torch.gkr import fs, protocol
 
-import torch_shared  # noqa: F401  (one torch thread)
+import torch_shared  # one torch thread; the session's JAX reference
 
 MOD = (1 << 61) - 1
-FIELDS = ("p1_polys", "claim_u", "p2_polys", "claims_v", "liu_polys",
-          "liu_claim")
-CHALLENGES = ("r_u", "assert_r", "r_v", "sig", "r_liu")
+FIELDS = torch_shared.FS_LAYER_FIELDS
+CHALLENGES = torch_shared.FS_CHALLENGE_FIELDS
 
 
 def _same(port, jax_value):
@@ -53,15 +52,20 @@ def _jax_proof(proof):
 
 
 @pytest.fixture(scope="module")
-def both():
+def both(tmp_path_factory):
     c = randomize(4, 3, seed=3)
     subset_init(c)
     jcc = compile_circuit(c)
-    jplans = jprotocol.build_plans(jcc)
-    values = jprotocol.make_evaluator(jcc)(input_buffer(jcc))
-    root_l = np.arange(4, dtype=np.uint64) + 7
-    jproof, jch, jD = jfs.make_fs_prover(jcc, jplans)(values,
-                                                       jnp.asarray(root_l))
+    # the JAX make_fs_prover's results, made once a session
+    ref = torch_shared.jax_fs_reference(tmp_path_factory)
+    J = lambda k: jnp.asarray(ref[k]) if k in ref else None
+    jproof = jprotocol.Proof(vres=J("vres"), layers=[None] + [
+        jprotocol.LayerProof(**{k: J(f"L{i}.{k}") for k in FIELDS})
+        for i in range(1, jcc.depth)])
+    jch = jprotocol.Challenges(r_out=J("r_out"), layers=[None] + [
+        jprotocol.LayerChallenges(**{k: J(f"C{i}.{k}") for k in CHALLENGES})
+        for i in range(1, jcc.depth)])
+    values, root_l, jD = ref["values"], ref["root_l"], J("D")
     cc = convert.compiled_circuit(jcc)
     plans = protocol.build_plans(cc)
     arrs = protocol.circuit_arrays(cc, plans, "cpu")

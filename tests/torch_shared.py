@@ -50,3 +50,46 @@ def shared(tmp_path_factory, key, make):
             os.replace(tmp, path)
         with np.load(path) as d:
             return {k: d[k] for k in d.files}
+
+
+# the fields of a JAX FS LayerProof and LayerChallenges
+FS_LAYER_FIELDS = ("p1_polys", "claim_u", "p2_polys", "claims_v",
+                   "liu_polys", "liu_claim")
+FS_CHALLENGE_FIELDS = ("r_u", "assert_r", "r_v", "sig", "r_liu")
+
+
+def jax_fs_reference(tmp_path_factory):
+    """The JAX package's ``make_fs_prover`` on ``randomize(4, 3, seed=3)``
+    with the commitment root (7, 8, 9, 10), once a session: the circuit's
+    values, the root, vres, r_out, the final state D and every proof and
+    challenge array of layer i as "L{i}.<field>" and "C{i}.<field>" (a
+    None field left out).  tests/test_torch_fs_prove.py and
+    test_torch_fs_fused.py hold the port against it."""
+    def make():
+        import jax.numpy as jnp
+        from virgo_plus_tpu.circuits.compile import (compile_circuit,
+                                                     input_buffer)
+        from virgo_plus_tpu.gkr import fs as jfs
+        from virgo_plus_tpu.gkr import protocol as jprotocol
+        from virgo_plus_tpu_torch.circuits.layered import (randomize,
+                                                           subset_init)
+        c = randomize(4, 3, seed=3)
+        subset_init(c)
+        jcc = compile_circuit(c)
+        values = jprotocol.make_evaluator(jcc)(input_buffer(jcc))
+        root_l = np.arange(4, dtype=np.uint64) + 7
+        proof, ch, D = jfs.make_fs_prover(jcc, jprotocol.build_plans(jcc))(
+            values, jnp.asarray(root_l))
+        out = dict(values=np.asarray(values), root_l=root_l,
+                   vres=np.asarray(proof.vres), r_out=np.asarray(ch.r_out),
+                   D=np.asarray(D))
+        for i in range(1, jcc.depth):
+            for tag, obj, fields in (("L", proof.layers[i], FS_LAYER_FIELDS),
+                                     ("C", ch.layers[i],
+                                      FS_CHALLENGE_FIELDS)):
+                for k in fields:
+                    if getattr(obj, k) is not None:
+                        out[f"{tag}{i}.{k}"] = np.asarray(getattr(obj, k))
+        return out
+    return shared(tmp_path_factory, "jax-fs-prover-randomize-4-3-3-root-7",
+                  make)

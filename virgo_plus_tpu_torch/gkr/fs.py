@@ -3,10 +3,15 @@
 Counterpart of ``virgo_plus_tpu/gkr/fs.py``.  The reference ships only the
 interactive protocol driven by srand(3396) randomness; this mode draws every
 challenge from a SHA3 sponge instead, so a proof can be handed to a third
-party.  The prover keeps the sponge on the device: every absorb and squeeze
-is one ``pc/keccak.sha3_256_x64`` call on one 64-byte block (K2 on a CUDA
-tensor, its plain twin on a CPU tensor), and nothing in the GKR walk or the
-PC half goes back to the host until query drawing.
+party.  The prover keeps the sponge on the device, in two hand-written
+kernels of ``csrc/fs_rounds.cu`` (the JAX package's scans): ``fs_sponge``
+absorbs a stream of elements and squeezes a stream of challenges in one
+launch, and ``fs_sumcheck`` runs every round of one FS sumcheck (its round
+polynomials, absorbs, squeezes and binds; one table, or every table of the
+joint phase 2) in one launch.  CPU tensors take their plain twins
+(``fs_sponge_plain``, ``fs_sumcheck_plain``), which hash with K2's plain
+twin.  Nothing in the GKR walk or the PC half goes back to the host until
+query drawing.
 
 Sponge spec (the JAX package's; the reference defines none):
   state D: 32 bytes as (4,) u64 words (int64 bit patterns here),
@@ -22,6 +27,7 @@ squeezed (batch FS would be unsound for sumcheck).
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 from typing import List, Optional
 
@@ -29,16 +35,22 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import graphs
-from ..field import gf
+from .. import graphs, kernels
+from ..field import chains, gf
 from ..pc import fft_gkr, virgo_pc
-from ..pc.keccak import sha3_256_x64
+from ..pc.keccak import on_cuda, sha3_256_x64_plain
 from . import protocol
 from .beta import beta_table
 from .sumcheck import apply_scatter_arrays, concat_scatter_plans, mle_fold, \
     tree_sum
 
 DOMAIN_TAG = b"virgo_plus_tpu.fs.v1\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00"
+
+# csrc/fs_rounds.cu: fs_sumcheck's block (THREADS), its most blocks a
+# cluster (MAX_CLUSTER) and tables a call (MAX_TABLES)
+SUMCHECK_THREADS = 256
+SUMCHECK_CLUSTER = 16
+SUMCHECK_TABLES = 128
 
 
 # ---------------------------------------------------------------------------
@@ -54,110 +66,183 @@ def init_state(device):
 
 
 def _sha3_one(words8):
-    """words8: (8,) words -> (4,) digest words (one SHA3-256 block)."""
-    return sha3_256_x64(words8[:, None])[:, 0]
-
-
-def absorb_pair(D, e0, e1):
-    return _sha3_one(torch.cat([e0, e1, D]))
-
-
-def absorb_elems(D, elems):
-    """elems: (2, k) — absorbed pairwise in order, zero-padded."""
-    k = elems.shape[1]
-    if k % 2:
-        elems = torch.cat([elems, torch.zeros_like(elems[:, :1])], dim=1)
-    blocks = elems.t().reshape(-1, 4)      # pair p: e_2p.re/im, e_2p+1.re/im
-    for p in range(blocks.shape[0]):
-        D = _sha3_one(torch.cat([blocks[p], D]))
-    return D
+    """words8: (8,) words -> (4,) digest words (one SHA3-256 block, K2's
+    plain twin)."""
+    return sha3_256_x64_plain(words8[:, None])[:, 0]
 
 
 def _pad_block(D, tag: int):
-    """D || tag || 0 as 8 words, from a copy and a fill (item assignment of
-    a Python int would be a host copy, which a capture refuses)."""
+    """D || tag || 0 as 8 words, from a copy and a fill."""
     blk = torch.zeros(8, dtype=torch.int64, device=D.device)
     blk[:4] = D
     blk[4].fill_(tag)
     return blk
 
 
-def squeeze(D):
+def _absorb_plain(D, elems):
+    """elems: (2, k) or None — absorbed pairwise in order, zero-padded."""
+    k = 0 if elems is None else elems.shape[1]
+    if k % 2:
+        elems = torch.cat([elems, torch.zeros_like(elems[:, :1])], dim=1)
+    if k:
+        blocks = elems.t().reshape(-1, 4)   # pair p: e_2p.re/im, e_2p+1.re/im
+        for p in range(blocks.shape[0]):
+            D = _sha3_one(torch.cat([blocks[p], D]))
+    return D
+
+
+def _squeeze_plain(D):
     """-> ((2,) challenge element, new state).  The digest words are u64:
     reduce_lazy's Mersenne fold with a logical shift is the unsigned
     ``h mod p`` (int64 ``%`` would be signed)."""
     h = _sha3_one(_pad_block(D, 1))
     d2 = _sha3_one(_pad_block(D, 2))
-    return gf.reduce_lazy(h[:2]), d2
+    return gf.reduce_lazy_plain(h[:2]), d2
+
+
+def _empty(dev):
+    return torch.zeros((2, 0), dtype=torch.int64, device=dev)
+
+
+def fs_sponge_plain(D, elems, n: int):
+    """Plain twin of fs_sponge: absorb elems (2, k) (or None) pairwise,
+    zero-padded, then squeeze n challenges -> ((2, n), D')."""
+    kernels.PLAIN_CALLS["fs_sponge"] += 1
+    D = _absorb_plain(D, elems)
+    out = []
+    for _ in range(n):
+        el, D = _squeeze_plain(D)
+        out.append(el)
+    return (torch.stack(out, dim=1) if out else _empty(D.device)), D
+
+
+def fs_sponge_cuda(D, elems, n: int):
+    """fs_sponge on the card, one launch (none when k = n = 0): same
+    signature and bits as fs_sponge_plain.  elems may have any strides."""
+    k = 0 if elems is None else elems.shape[1]
+    kernels.check_cuda("fs_sponge", (D,), [(4,)])
+    if k:
+        if elems.device != D.device or elems.dtype != torch.int64 \
+                or elems.dim() != 2 or elems.shape[0] != 2:
+            raise ValueError(f"fs_sponge: elements {tuple(elems.shape)} "
+                             f"{elems.dtype} on {elems.device}, expected "
+                             f"(2, k) int64 on {D.device}")
+    kernels.check_int("fs_sponge", elements=k, challenges=n)
+    if k == 0 and n == 0:
+        return _empty(D.device), D
+    out = torch.empty(2 * n + 4, dtype=torch.int64, device=D.device)
+    kernels.launch("fs_sponge", 1, D.data_ptr(),
+                   elems.data_ptr() if k else None,
+                   elems.stride(0) if k else 0, elems.stride(1) if k else 0,
+                   k, n, out.data_ptr(), kernels.stream_ptr())
+    return out[:2 * n].view(2, n), out[2 * n:]
+
+
+def fs_sponge(D, elems, n: int):
+    """Absorb elems (2, k) (or None) pairwise, zero-padded, then squeeze n
+    challenges: ((2, n) challenges, D').  A CUDA state runs fs_sponge (one
+    launch), a CPU state its plain twin."""
+    if on_cuda(D, "FS sponge kernel"):
+        return fs_sponge_cuda(D.contiguous(), elems, n)
+    return fs_sponge_plain(D, elems, n)
+
+
+def absorb_pair(D, e0, e1):
+    return fs_sponge(D, torch.stack([e0, e1], dim=1), 0)[1]
+
+
+def absorb_digest(D, words4):
+    """Absorb a (4,) digest as the elements (w0, w1), (w2, w3) (a view)."""
+    return fs_sponge(D, words4.view(2, 2).t(), 0)[1]
+
+
+def absorb_elems(D, elems):
+    """elems: (2, k) — absorbed pairwise in order, zero-padded."""
+    return fs_sponge(D, elems, 0)[1]
+
+
+def squeeze(D):
+    """-> ((2,) challenge element, new state)."""
+    ch, D = fs_sponge(D, None, 1)
+    return ch[:, 0], D
 
 
 def squeeze_vec(D, n: int):
     """n chained squeezes -> ((2, n) challenges, new state)."""
-    out = []
-    for _ in range(n):
-        el, D = squeeze(D)
-        out.append(el)
-    if not out:
-        return torch.zeros((2, 0), dtype=torch.int64, device=D.device), D
-    return torch.stack(out, dim=1), D
+    return fs_sponge(D, None, n)
+
+
+def absorb_squeeze(D, elems, n: int):
+    """absorb_elems then squeeze_vec, in one fs_sponge call."""
+    return fs_sponge(D, elems, n)
 
 
 # ---------------------------------------------------------------------------
 # Sumcheck rounds with sponge challenges
 # ---------------------------------------------------------------------------
 
-def _round(T):
+# the rounds' field ops: the dispatching ones (a kernel a call on the card:
+# the sharded provers' rank-split rounds) and the plain ones (the twins)
+_OPS = (gf.mul, gf.add, gf.sub, gf.neg, tree_sum)
+_PLAIN_OPS = (gf.mul_plain, gf.add_plain, gf.sub_plain, gf.neg_plain,
+              chains.tree_sum_plain)
+
+
+def _round(T, ops=_OPS):
     """One sumcheck round over stacked tables T (2, 3, ..., 2h), axis 1 =
     (v, a, m): the round polynomial of m·v + a summed over every table and
     pair -> ((2, 3) poly, low halves (2, 3, ..., h), differences)."""
+    mul, add, sub, _neg, tsum = ops
     T0, T1 = T[..., 0::2], T[..., 1::2]
-    d = gf.sub(T1, T0)
+    d = sub(T1, T0)
     v0, a0, m0 = T0[:, 0], T0[:, 1], T0[:, 2]
     dv, da, dm = d[:, 0], d[:, 1], d[:, 2]
-    prods = gf.mul(torch.stack([dm, dm, m0, m0], 1),
-                   torch.stack([dv, v0, dv, v0], 1))
+    prods = mul(torch.stack([dm, dm, m0, m0], 1),
+                torch.stack([dv, v0, dv, v0], 1))
     pa = prods[:, 0]
-    pb = gf.add(gf.add(prods[:, 1], prods[:, 2]), da)
-    pc = gf.add(prods[:, 3], a0)
-    poly = tree_sum(torch.stack([pa, pb, pc], 1).reshape(2, 3, -1))
+    pb = add(add(prods[:, 1], prods[:, 2]), da)
+    pc = add(prods[:, 3], a0)
+    poly = tsum(torch.stack([pa, pb, pc], 1).reshape(2, 3, -1))
     return poly, T0, d
 
 
-def _bind(T0, d, r):
+def _bind(T0, d, r, ops=_OPS):
     """Fix the round's variable at r: T0 + r·(T1 - T0)."""
-    return gf.add(T0, gf.mul(d, r.reshape((2,) + (1,) * (d.dim() - 1))))
+    mul, add = ops[:2]
+    return add(T0, mul(d, r.reshape((2,) + (1,) * (d.dim() - 1))))
 
 
-def fs_scan_sumcheck(v, a, m, bl: int, D):
-    """Sumcheck of m·v + a with a per-round absorb + squeeze.  v, a, m:
-    (2, 2^bl).  Returns (polys (bl, 2, 3), rs (2, bl), bound scalars
-    (v, a, m) each (2,), D').  Each round halves the tables; the JAX
-    version masks a full-size table instead, with the same sums."""
+def fs_scan_sumcheck_plain(v, a, m, bl: int, D):
+    """Plain twin of fs_sumcheck for one table of bl rounds: the sumcheck
+    of m·v + a with a per-round absorb + squeeze.  v, a, m: (2, 2^bl).
+    Returns (polys (bl, 2, 3), rs (2, bl), bound scalars (2, 3) (v, a, m),
+    D').  Each round halves the tables; the JAX version masks a full-size
+    table instead, with the same sums."""
     assert v.shape[1] == 1 << bl, (v.shape, bl)
     T = torch.stack([v, a, m], dim=1)
     polys, rs = [], []
     for _ in range(bl):
-        poly, T0, d = _round(T)
+        poly, T0, d = _round(T, _PLAIN_OPS)
         # absorb the round polynomial (two pairs), then squeeze its r
-        r, D = squeeze(absorb_elems(D, poly))
-        T = _bind(T0, d, r)
+        r, D = _squeeze_plain(_absorb_plain(D, poly))
+        T = _bind(T0, d, r, _PLAIN_OPS)
         polys.append(poly)
         rs.append(r)
     dev = v.device
     polys = (torch.stack(polys) if polys
              else torch.zeros((0, 2, 3), dtype=torch.int64, device=dev))
-    rs = (torch.stack(rs, dim=1) if rs
-          else torch.zeros((2, 0), dtype=torch.int64, device=dev))
-    return polys, rs, (T[:, 0, 0], T[:, 1, 0], T[:, 2, 0]), D
+    rs = torch.stack(rs, dim=1) if rs else _empty(dev)
+    return polys, rs, T[:, :, 0], D
 
 
-def _phase2(groups, mdb: int, D):
-    """The joint phase-2 sumcheck of one layer: every dad table shares each
-    round's challenge.  groups: {bl: (li list, T (2, 3, K, 2^bl))}, the
-    layer's tables stacked per bit length.  A table exhausted at round
-    j == bl adds v·m + a to the a_term chain, which contributes
-    (0, -a_term, a_term) to every later poly.  Returns (polys (mdb, 2, 3),
-    r_v (2, mdb), {li: bound v (2,)}, D')."""
+def _phase2_plain(groups, mdb: int, D):
+    """Plain twin of fs_sumcheck for the joint phase-2 sumcheck of one
+    layer: every dad table shares each round's challenge.  groups: {bl:
+    (keys, T (2, 3, K, 2^bl))}, the layer's tables stacked per bit length.
+    A table exhausted at round j == bl adds v·m + a to the a_term chain,
+    which contributes (0, -a_term, a_term) to every later poly.  Returns
+    (polys (mdb, 2, 3), r_v (2, mdb), {key: bound (v, a, m) (2, 3)}, D')."""
+    mul, add, sub, neg, tsum = _PLAIN_OPS
     dev = D.device
     zero = gf.zeros((), dev)
     one = gf.ones((), dev)
@@ -165,32 +250,168 @@ def _phase2(groups, mdb: int, D):
     polys, rs, bounds = [], [], {}
     for j in range(mdb):
         if j > 0:
-            a_term = gf.mul(a_term, gf.sub(one, rs[-1]))
+            a_term = mul(a_term, sub(one, rs[-1]))
         pj = gf.zeros((3,), dev)
         live = {}
-        for bl, (lis, T) in groups.items():
+        for bl, (keys, T) in groups.items():
             if j < bl:
-                poly, T0, d = _round(T)
-                pj = gf.add(pj, poly)
+                poly, T0, d = _round(T, _PLAIN_OPS)
+                pj = add(pj, poly)
                 live[bl] = (T0, d)
             elif j == bl:
                 v, a, m = T[:, 0, :, 0], T[:, 1, :, 0], T[:, 2, :, 0]
-                a_term = gf.add(a_term, tree_sum(gf.add(gf.mul(v, m), a)))
-                bounds.update((li, v[:, k]) for k, li in enumerate(lis))
-        pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], 1))
-        r, D = squeeze(absorb_elems(D, pj))
+                a_term = add(a_term, tsum(add(mul(v, m), a)))
+                bounds.update((key, T[:, :, k, 0]) for k, key in
+                              enumerate(keys))
+        pj = add(pj, torch.stack([zero, neg(a_term), a_term], 1))
+        r, D = _squeeze_plain(_absorb_plain(D, pj))
         for bl, (T0, d) in live.items():
-            groups[bl] = (groups[bl][0], _bind(T0, d, r))
+            groups[bl] = (groups[bl][0], _bind(T0, d, r, _PLAIN_OPS))
         polys.append(pj)
         rs.append(r)
-    for bl, (lis, T) in groups.items():
+    for bl, (keys, T) in groups.items():
         if bl == mdb:
-            bounds.update((li, T[:, 0, k, 0]) for k, li in enumerate(lis))
+            bounds.update((key, T[:, :, k, 0]) for k, key in enumerate(keys))
     polys = (torch.stack(polys) if polys
              else torch.zeros((0, 2, 3), dtype=torch.int64, device=dev))
-    r_v = (torch.stack(rs, dim=1) if rs
-           else torch.zeros((2, 0), dtype=torch.int64, device=dev))
+    r_v = torch.stack(rs, dim=1) if rs else _empty(dev)
     return polys, r_v, bounds, D
+
+
+def fs_sumcheck_plain(tables, mdb: int, D, absorb: bool = False):
+    """Plain twin of fs_sumcheck: one table of mdb rounds is
+    fs_scan_sumcheck_plain, any other set the joint phase 2
+    (_phase2_plain); absorb: then absorb table 0's bound v."""
+    kernels.PLAIN_CALLS["fs_sumcheck"] += 1
+    tabs = [(v, torch.zeros_like(m) if a is None else a, m, bl)
+            for v, a, m, bl in tables]
+    if len(tabs) == 1 and tabs[0][3] == mdb:
+        polys, rs, bound, D = fs_scan_sumcheck_plain(*tabs[0][:3], mdb, D)
+        bounds = bound[None]
+    else:
+        groups = {}
+        for k, (v, a, m, bl) in enumerate(tabs):
+            keys, ts = groups.setdefault(bl, ([], []))
+            keys.append(k)
+            ts.append(torch.stack([v, a, m], dim=1))
+        polys, rs, got, D = _phase2_plain(
+            {bl: (keys, torch.stack(ts, 2)) for bl, (keys, ts)
+             in groups.items()}, mdb, D)
+        bounds = torch.stack([got[k] for k in range(len(tabs))])
+    if absorb:
+        D = _absorb_plain(D, bounds[0, :, :1])
+    return polys, rs, bounds, D
+
+
+def sumcheck_cluster(tables) -> int:
+    """fs_sumcheck's blocks a cluster: the first round's pairs over the
+    block's threads, as a power of two from 1 to SUMCHECK_CLUSTER."""
+    pairs = sum((1 << bl) // 2 for *_, bl in tables)
+    c = 1
+    while c < SUMCHECK_CLUSTER and 2 * c * SUMCHECK_THREADS <= pairs:
+        c *= 2
+    return c
+
+
+def sumcheck_scratch(tables, cluster: int) -> int:
+    """fs_sumcheck's scratch words: 6 * 2^bl for each table of bl >=
+    log2(cluster) + 2 (its ping-pong buffers)."""
+    c = cluster.bit_length() - 1
+    return sum(6 << bl for *_, bl in tables if bl >= c + 2)
+
+
+def _bases(tables):
+    """The tables' v, a, m as three base tensors, each table at one offset
+    from all three, and the plane strides: the tables' own storage where
+    they allow it (every phase-2 table a slice of the same vdad, addV and
+    multV), else packed copies."""
+    v0, a0, m0, _ = tables[0]
+    arrs = [(v, a, m) for v, a, m, _ in tables]
+
+    def off(x, base):
+        return (x.data_ptr() - base.data_ptr()) // 8
+
+    def fits():
+        for k in range(3):
+            base = tables[0][k]
+            if base is None:
+                continue
+            for t in arrs:
+                x = t[k]
+                if (x.stride(0) != base.stride(0) or
+                        (x.shape[1] > 1 and x.stride(1) != 1) or
+                        off(x, base) != off(t[0], v0)):
+                    return False
+        return True
+
+    if fits():
+        return (v0, a0, m0), [off(t[0], v0) for t in arrs]
+    packed = tuple(None if tables[0][k] is None else
+                   torch.cat([t[k] for t in arrs], dim=1) for k in range(3))
+    offs, o = [], 0
+    for *_, bl in tables:
+        offs.append(o)
+        o += 1 << bl
+    return packed, offs
+
+
+def fs_sumcheck_cuda(tables, mdb: int, D, absorb: bool = False):
+    """fs_sumcheck on the card, one launch: same signature and bits as
+    fs_sumcheck_plain."""
+    n = len(tables)
+    kernels.check_cuda("fs_sumcheck", (D,), [(4,)])
+    if not 1 <= n <= SUMCHECK_TABLES:
+        raise ValueError(f"fs_sumcheck: {n} tables, 1 to {SUMCHECK_TABLES} "
+                         f"taken")
+    if not 0 <= mdb <= 62:
+        raise ValueError(f"fs_sumcheck: {mdb} rounds")
+    has_a = tables[0][1] is not None
+    for v, a, m, bl in tables:
+        if (a is not None) != has_a or not 0 <= bl <= mdb:
+            raise ValueError("fs_sumcheck: every table or none takes a, and "
+                             "every bl is at most the rounds")
+        for x in (v, a, m) if has_a else (v, m):
+            if x.device != D.device or x.dtype != torch.int64 \
+                    or tuple(x.shape) != (2, 1 << bl):
+                raise ValueError(f"fs_sumcheck: a table {tuple(x.shape)} "
+                                 f"{x.dtype} on {x.device}, expected "
+                                 f"(2, {1 << bl}) int64 on {D.device}")
+    (v, a, m), offs = _bases(tables)
+    cluster = sumcheck_cluster(tables)
+    words = sumcheck_scratch(tables, cluster)
+    scratch = torch.empty(words, dtype=torch.int64, device=D.device)
+    out = torch.empty(8 * mdb + 6 * n + 4, dtype=torch.int64, device=D.device)
+    kernels.launch(
+        "fs_sumcheck", 1, v.data_ptr(), a.data_ptr() if has_a else None,
+        m.data_ptr(), v.stride(0), a.stride(0) if has_a else 0, m.stride(0),
+        (ctypes.c_longlong * n)(*offs),
+        (ctypes.c_int * n)(*(bl for *_, bl in tables)), n, mdb, D.data_ptr(),
+        int(absorb), out.data_ptr(), scratch.data_ptr() if words else None,
+        cluster, kernels.stream_ptr())
+    return (out[:6 * mdb].view(mdb, 2, 3), out[6 * mdb:8 * mdb].view(2, mdb),
+            out[8 * mdb:8 * mdb + 6 * n].view(n, 2, 3), out[8 * mdb + 6 * n:])
+
+
+def fs_sumcheck(tables, mdb: int, D, absorb: bool = False):
+    """Every round of one FS sumcheck of m·v + a over `tables` [(v, a or
+    None (zeros), m, bl)], each (2, 2^bl), sharing each round's challenge
+    for mdb rounds (a table of bl < mdb is exhausted at round bl: its v·m
+    + a joins the a_term chain of the joint phase 2).  absorb: then absorb
+    table 0's bound v (the claim).  Returns (polys (mdb, 2, 3), rs (2,
+    mdb), bound scalars (n, 2, 3) as (v, a, m) a table, D').  A CUDA state
+    runs fs_sumcheck (one launch), a CPU state its plain twin."""
+    if on_cuda(D, "FS sumcheck kernel"):
+        return fs_sumcheck_cuda(tables, mdb, D.contiguous(), absorb)
+    return fs_sumcheck_plain(tables, mdb, D, absorb)
+
+
+def fs_scan_sumcheck(v, a, m, bl: int, D):
+    """Sumcheck of m·v + a with a per-round absorb + squeeze.  v, a, m:
+    (2, 2^bl).  Returns (polys (bl, 2, 3), rs (2, bl), bound scalars
+    (v, a, m) each (2,), D'): fs_sumcheck of one table."""
+    assert v.shape[1] == 1 << bl, (v.shape, bl)
+    polys, rs, bounds, D = fs_sumcheck([(v, a, m, bl)], bl, D)
+    return polys, rs, (bounds[0, :, 0], bounds[0, :, 1], bounds[0, :, 2]), D
 
 
 # ---------------------------------------------------------------------------
@@ -239,9 +460,11 @@ def _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs, fsa):
     mult_c = gf.mul(bg, gf.add(A, gf.mul(C, y)))
     s = apply_scatter_arrays(torch.cat([add_c, mult_c], 1), fsa[f"p1P{i}"])
     tmp_v = protocol._values_block(cc, values, i - 1)
-    p1_polys, r_u, (claim_u, _, _), D = fs_scan_sumcheck(
-        tmp_v, s[:, :pre_padded], s[:, pre_padded:], bl_prev, D)
-    D = absorb_elems(D, claim_u[:, None])
+    # phase 1, then absorb claim_u: one fs_sumcheck
+    p1_polys, r_u, bounds, D = fs_sumcheck(
+        [(tmp_v, s[:, :pre_padded], s[:, pre_padded:], bl_prev)], bl_prev, D,
+        absorb=True)
+    claim_u = bounds[0, :, 0]
 
     p2_polys = claims_v = r_v = None
     if L.max_dad_bit_length >= 0:
@@ -256,23 +479,27 @@ def _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs, fsa):
         vdad = torch.where(arrs[f"dgm{i}"][None, :],
                            values[:, arrs[f"dg{i}"]], 0)
         addV, multV = s[:, :tot], s[:, tot:]
-        jobs = {}
+        # the joint phase 2 over every dad table (slices of vdad, addV and
+        # multV), one fs_sumcheck
+        tables, slot = [], {}
         for li in range(i):
             if L.dad_sizes[li] == 0:
                 continue
             bl_l = L.dad_bls[li]
             sl = slice(L.dad_offsets[li], L.dad_offsets[li] + (1 << bl_l))
-            jobs.setdefault(bl_l, []).append(
-                (li, torch.stack([vdad[:, sl], addV[:, sl], multV[:, sl]], 1)))
-        groups = {bl: ([li for li, _ in js], torch.stack([t for _, t in js], 2))
-                  for bl, js in jobs.items()}
-        p2_polys, r_v, bounds, D = _phase2(groups, L.max_dad_bit_length, D)
-        zero = gf.zeros((), dev)
-        claims_v = torch.stack([bounds.get(li, zero) for li in range(i)])
-        D = absorb_elems(D, claims_v.t())
+            slot[li] = len(tables)
+            tables.append((vdad[:, sl], addV[:, sl], multV[:, sl], bl_l))
+        p2_polys, r_v, bounds, D = fs_sumcheck(tables, L.max_dad_bit_length,
+                                               D)
+        zero = None if len(slot) == i else gf.zeros((), dev)
+        claims_v = torch.stack([bounds[slot[li], :, 0] if li in slot
+                                else zero for li in range(i)])
+        # absorb claims_v, then squeeze Liu's sig
+        sig, D = absorb_squeeze(D, claims_v.t(), cc.depth)
+    else:
+        sig, D = squeeze_vec(D, cc.depth)
 
     # Liu: merge the claims about layer i-1 made by layers i .. depth-1
-    sig, D = squeeze_vec(D, cc.depth)
     bsig = beta_table(r_u, bl_prev, sig[:, 0])
     pre_size = cc.layers[i - 1].size
     multL = torch.zeros((2, pre_padded), dtype=torch.int64, device=dev)
@@ -286,9 +513,9 @@ def _fs_layer(cc, plans, i, values, r_cur, D, rvs, arrs, fsa):
                                     sig[:, j - i + 1])[:, :ds])
         multL = gf.add(multL, apply_scatter_arrays(torch.cat(parts, 1),
                                                    fsa[f"liuP{i}"]))
-    liu_polys, r_liu, (liu_claim, _, _), D = fs_scan_sumcheck(
-        tmp_v, torch.zeros_like(multL), multL, bl_prev, D)
-    D = absorb_elems(D, liu_claim[:, None])
+    liu_polys, r_liu, bounds, D = fs_sumcheck(
+        [(tmp_v, None, multL, bl_prev)], bl_prev, D, absorb=True)
+    liu_claim = bounds[0, :, 0]
 
     lp = protocol.LayerProof(
         p1_polys=p1_polys, claim_u=claim_u, p2_polys=p2_polys,
@@ -302,8 +529,8 @@ def _fs_init(cc, values, root_l, D0):
     """The walk's start: absorb the input commitment root_l, squeeze the
     output claim point (it depends only on root_l), then compute vres and
     absorb it.  Returns (vres, r_out, D)."""
-    D = absorb_elems(D0, torch.stack([root_l[:2], root_l[2:]], dim=1))
-    r_out, D = squeeze_vec(D, cc.layers[cc.depth - 1].bit_length)
+    r_out, D = absorb_squeeze(D0, root_l.view(2, 2).t(),
+                              cc.layers[cc.depth - 1].bit_length)
     vres = mle_fold(protocol._values_block(cc, values, cc.depth - 1), r_out)
     return vres, r_out, absorb_elems(D, vres[:, None])
 
@@ -375,22 +602,30 @@ def make_fs_prover(cc, plans, arrs, device=None, staged=True, graphed=True):
 # PC half: public commit, fft_gkr messages and every FRI fold level
 # ---------------------------------------------------------------------------
 
-def _fs_fft_schedule(D, lg: int):
-    """Squeeze the fft_gkr draw schedule, in the order of
-    fft_gkr.draw_schedule (the verifier's HostSponge feeds fft_gkr.run the
-    same stream)."""
-    d = {}
-    for key, n in (("r", lg), ("eval_points", 64), ("r0", lg + 10),
-                   ("r1", lg + 10), ("add_ru", lg + 6), ("add_rv", lg + 6),
-                   ("mult_ru", lg), ("mult_rv", lg)):
-        d[key], D = squeeze_vec(D, n)
+def _schedule_lengths(lg: int):
+    """The fft_gkr draw schedule's keys and lengths, in the order of
+    fft_gkr.draw_schedule; then each stage's ru, rv (lg each), al, be."""
+    return (("r", lg), ("eval_points", 64), ("r0", lg + 10), ("r1", lg + 10),
+            ("add_ru", lg + 6), ("add_rv", lg + 6), ("mult_ru", lg),
+            ("mult_rv", lg))
+
+
+def _fs_fft_schedule(D, lg: int, elems=None):
+    """Absorb elems (if any), then squeeze the fft_gkr draw schedule in one
+    fs_sponge call (the verifier's HostSponge feeds fft_gkr.run the same
+    stream), split into its keys as views."""
+    heads = _schedule_lengths(lg)
+    total = sum(n for _, n in heads) + lg * (2 * lg + 2)
+    ch, D = absorb_squeeze(D, elems, total)
+    d, o = {}, 0
+    for key, n in heads:
+        d[key] = ch[:, o:o + n]
+        o += n
     stages = []
     for _ in range(lg):
-        ru, D = squeeze_vec(D, lg)
-        rv, D = squeeze_vec(D, lg)
-        al, D = squeeze(D)
-        be, D = squeeze(D)
-        stages.append((ru, rv, al, be))
+        stages.append((ch[:, o:o + lg], ch[:, o + lg:o + 2 * lg],
+                       ch[:, o + 2 * lg], ch[:, o + 2 * lg + 1]))
+        o += 2 * lg + 2
     d["stages"] = tuple(stages)
     return d, D
 
@@ -403,21 +638,21 @@ def _fs_pc_commit(l_codeword, final_point, D, bl0: int):
     h_oracle, _q_eval, _q_coefs, all_sum, vo = virgo_pc.commit_public(
         l_codeword, q_values, bl0)
     rt = h_oracle.tree[:, 1]
-    D = absorb_pair(D, rt[:2], rt[2:])
-    D = absorb_elems(D, all_sum)
-    sched, D = _fs_fft_schedule(D, bl0 - virgo_pc.LOG_SLICE)
+    sched, D = _fs_fft_schedule(
+        D, bl0 - virgo_pc.LOG_SLICE,
+        torch.cat([rt.view(2, 2).t(), all_sum], dim=1))
     return h_oracle, all_sum, q_coefs, sched, vo, D
 
 
 def _fs_fold(cur, D, lgc: int):
     """One FRI level: squeeze r, fold (one level: one ``gf_fri_fold``
     launch off the cached twiddle table of the level's root), hash the
-    level (one chain and one forest launch), absorb its root.  Returns (oracle, r, codeword, D')."""
+    level (one chain and one forest launch), absorb its root (one
+    fs_sponge launch each).  Returns (oracle, r, codeword, D')."""
     r, D = squeeze(D)
     cur = virgo_pc.fold_step(cur, r, lgc)
     o = virgo_pc.make_oracle(cur)
-    ort = o.tree[:, 1]
-    return o, r, cur, absorb_pair(D, ort[:2], ort[2:])
+    return o, r, cur, absorb_digest(D, o.tree[:, 1])
 
 
 def _fs_pc_walk(l_codeword, final_point, D, bl0: int, commit, messages,

@@ -17,7 +17,9 @@ for L levels, each K2 entry, each field op, each field chain, each GKR
 init stage, each phase of the fft_gkr stage tables
 and each virtual oracle: one, none for an empty output; the fft_gkr
 circuit: ``fft_gkr.circuit_launches(lg)``; a circuit evaluation: one per
-launch of ``compile.eval_launches``), and its
+launch of ``compile.eval_launches``; an FS sponge stream and an FS
+sumcheck: one, none for a sponge call with nothing to absorb or squeeze),
+and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
 """
@@ -118,6 +120,16 @@ SOURCES = {
     "virgo_pc": {
         "pc_virtual_oracle": ("vpt_pc_virtual_oracle", [_P, _L] * 4
                               + [_P, _P, _U, _P, _P, _L, _I, _P]),
+    },
+    # fs_sponge: D, the elements, their plane and element strides, their
+    # count, the challenges, out, the stream; fs_sumcheck: v, a, m, their
+    # plane strides, the tables' offsets and bit lengths (host arrays), the
+    # tables, the rounds, D, the trailing absorb, out, the scratch, the
+    # cluster's blocks, the stream
+    "fs_rounds": {
+        "fs_sponge": ("vpt_fs_sponge", [_P, _P, _L, _L, _I, _I, _P, _P]),
+        "fs_sumcheck": ("vpt_fs_sumcheck", [_P] * 3 + [_L] * 3
+                        + [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P]),
     },
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}

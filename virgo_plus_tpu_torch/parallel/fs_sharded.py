@@ -3,13 +3,14 @@
 Counterpart of ``virgo_plus_tpu/parallel/fs_sharded.py``.  FS challenges
 depend on the messages: each round's challenge is squeezed after its round
 poly is absorbed, so the walk is sequential.  Every rank holds the same
-sponge (``gkr/fs.py``: each absorb and squeeze one ``sha3_256_x64`` call at
-N = 1, K2 on the card) and the tables are sharded as in
+sponge (``gkr/fs.py``: an absorb-then-squeeze stream one ``fs_sponge``
+launch on the card) and the tables are sharded as in
 ``gkr_sharded`` (same plan blocks, gate weights and beta slices).  A round
 of a sharded table computes the rank's partial poly, sums it over sp,
 absorbs and squeezes on every rank, and binds the local tables; once the
 local bits are spent, the S bound scalars are gathered into the 2^log S
-tail, which every rank folds whole.
+tail, which every rank folds whole (one ``fs_sumcheck``).  The rounds with
+a collective inside keep their field ops a kernel each.
 
 The PC half threads the sponge through the sharded pipeline
 (``pc_sharded``): public commit, absorb root_h and all_sum, squeeze the
@@ -49,7 +50,8 @@ def _fs_fold_sharded(v, a, m, bl: int, log_s: int, mesh: Mesh, D):
     for _ in range(bl - log_s):
         poly, T0, d = fs._round(T)
         poly = mesh.field_sum(poly)
-        r, D = fs.squeeze(fs.absorb_elems(D, poly))
+        rs1, D = fs.absorb_squeeze(D, poly, 1)
+        r = rs1[:, 0]
         T = fs._bind(T0, d, r)
         polys.append(poly)
         rs.append(r)
@@ -61,10 +63,11 @@ def _fs_fold_sharded(v, a, m, bl: int, log_s: int, mesh: Mesh, D):
 
 
 def _fs_phase2_joint(groups, mdb: int, D, mesh: Mesh):
-    """fs._phase2 with sharded tables: groups {bl: (li list, sharded,
-    T (2, 3, K, n))}.  The partial polys of the sharded groups are summed
-    over sp once a round; a sharded group whose local tables are down to
-    one entry is gathered into its (2, 3, K, S) tail and goes on whole.
+    """fs._phase2_plain's rounds with sharded tables: groups {bl: (li
+    list, sharded, T (2, 3, K, n))}.  The partial polys of the sharded
+    groups are summed over sp once a round; a sharded group whose local
+    tables are down to one entry is gathered into its (2, 3, K, S) tail
+    and goes on whole.
     Returns (polys (mdb, 2, 3), r_v (2, mdb), {li: bound v (2,)}, D')."""
     dev = D.device
     zero = gf.zeros((), dev)
@@ -92,7 +95,8 @@ def _fs_phase2_joint(groups, mdb: int, D, mesh: Mesh):
         if pj_sh is not None:
             pj = gf.add(pj, mesh.field_sum(pj_sh))
         pj = gf.add(pj, torch.stack([zero, gf.neg(a_term), a_term], 1))
-        r, D = fs.squeeze(fs.absorb_elems(D, pj))
+        rs1, D = fs.absorb_squeeze(D, pj, 1)
+        r = rs1[:, 0]
         for bl, (T0, d) in live.items():
             lis, sh, _ = groups[bl]
             T = fs._bind(T0, d, r)
