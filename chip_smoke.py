@@ -77,7 +77,14 @@ package.  Phases, one line each, any failure exits non-zero:
    (26, 14) and (0, 257); each call also captured in a CUDA graph and
    replayed on other inputs; a latency probe (one squeeze, a Keccak-f on
    two lane pairs side by side, from 1 and 1,025 squeezes) and each fixed
-   shape's serial floor (its permutations times that latency);
+   shape's serial floor (its permutations times that latency); then the
+   GKR verifier's programs (``gkr_verify_fast``, with and without an
+   output block, and ``gkr_verify_slow`` of ``csrc/gkr_verify.cu``)
+   against their plain twins on card proofs of randomize(4, 3, seed=7), a
+   circuit with assert gates and a layer without dads, and randomize(3,
+   11, seed=2) (a cluster of 4 blocks a job), honest and with one word
+   changed in each proof field and the output block: each verdict the
+   twin's, the honest proofs accepted, every tamper rejected;
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -90,7 +97,12 @@ package.  Phases, one line each, any failure exits non-zero:
    accepts, and the end's profile of a driver.prove must see exactly the
    prove's counted launches.  The first verify, which builds the
    verifier's graphs, is recorded with the first prove.  A tampered proof
-   is rejected.  The timed prove (fused.prove_e2e
+   is rejected, through the graphs and eagerly; an eager ``driver.verify``
+   (every call of the eager and tampered verifies held against its twin).
+   Every GKR walk (a verifier call, counted alone) must launch one
+   ``gkr_verify_fast``, one ``gkr_verify_slow`` and no other port entry
+   (no ``gf_mul``, ``gf_lin``, ``gf_table`` or ``gf_segsum``).  The timed
+   prove (fused.prove_e2e
    + the fft_gkr tape) is recorded and held the same way, and must launch
    K1, K2's chain and forest kernels (these once each) and the field ops,
    with no plain twin call; its tape equals the CPU's, and its launches
@@ -109,7 +121,9 @@ package.  Phases, one line each, any failure exits non-zero:
    and ``sha3_256_x64`` (its sponge runs in ``fs_sponge`` and
    ``fs_sumcheck``), with no plain twin call;
    proofs with one p1_polys coefficient or one all_sum entry changed are
-   rejected; eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
+   rejected, through the graphs and eagerly (an eager ``verify_fs`` and
+   the tampered ones held against the twins; each walk counted as in phase
+   5); eager wall times of 2 ``prove_fs`` and 2 ``verify_fs`` runs,
    their spans, and (at the end) a profile of one eager ``prove_fs``;
 8. batched proving (``parallel.sharded.make_batched_full_prover``, i.e.
    ``fused.prove_e2e`` on a (2, B, N) witness batch) at full width: a B = 1
@@ -163,10 +177,12 @@ package.  Phases, one line each, any failure exits non-zero:
    checked as in phase 10) and, on another witness, to the eager call on
    it, leaving the earlier result as it was; the same for
    ``protocol.make_verifier`` staged and unstaged, with and without an
-   output block, on phase 5's proof; each graphed verifier rejects a proof
-   with one p1_polys coefficient changed and a wrong output block by a
-   replay (no new holder), and the graphed ``verify_fs`` a tampered FS
-   proof; walls of each FS program's replays and of 5 ``driver.prove_fs``,
+   output block, on phase 5's proof (every call of the eager verifier and
+   of the graphs' warm-ups held against its twin, each form's walk counted
+   as in phase 5); each graphed verifier rejects a proof with one p1_polys
+   coefficient changed and a wrong output block by a replay (no new
+   holder), and so does the eager one; the graphed ``verify_fs`` rejects a
+   tampered FS proof; walls of each FS program's replays and of 5 ``driver.prove_fs``,
    ``driver.verify`` (with ``last_split``) and ``driver.verify_fs`` through
    the graphed ``compile_prover``, beside phases 5 and 7's eager walls; the
    memory ``graphs.release`` gives back.
@@ -191,9 +207,10 @@ launch), and at phase 3's fixed shapes of ``fg_build_circuit``,
 bound (a sharded shape on random inputs of that shape: rank 0's calls
 are held in its own process); then the whole-call profiles (three eager
 calls, then one replay of the timed prove's graphs, one batched replay
-at B = 16 and one ``driver.prove`` and one ``driver.prove_fs`` through
-their graphs, each failing unless the profiler's kernels of every port
-entry equal the counted launches): a large trace makes every later short
+at B = 16, one ``driver.prove``, one ``driver.prove_fs`` and one
+``driver.verify`` through their graphs, one eager ``driver.verify`` and
+one eager ``verify_fs``, each failing unless the profiler's kernels of
+every port entry equal the counted launches): a large trace makes every later short
 profile miss launches; and last each entry's plain twin at its top
 shape, by CUDA events (a twin's flood of small kernels made later short
 profiles miss launches too).  The X1
@@ -203,7 +220,8 @@ two, in the listings; a bucket is profiled on the first call recorded in
 it (its strides kept), and X1's device time on a path is the whole
 profile's.
 Each path's bound sums every recorded call's.  A line
-lists every entry's launches on every path.  The last lines are the card
+lists every entry's launches on every path, and one each GKR walk's.  The
+last lines are the card
 line, one JSON object
 with every kernel entry's numbers (``launches``: the glibc, FS and B = 4
 batched runs and rank 0 of the three sharded runs together), and
@@ -266,7 +284,12 @@ KERNEL_NAMES = {"sumcheck_fold": ("sumcheck_fold",),
                 # (csrc/fs_rounds.cu's namespace carries "fs_rounds", which
                 # neither name matches)
                 "fs_sponge": ("fs_sponge_kernel",),
-                "fs_sumcheck": ("fs_sumcheck_kernel",)}
+                "fs_sumcheck": ("fs_sumcheck_kernel",),
+                # (csrc/gkr_verify.cu's kernels carry "gkr_verify_cu" of
+                # the file's anonymous namespace, which neither name
+                # matches)
+                "gkr_verify_fast": ("gkr_verify_fast",),
+                "gkr_verify_slow": ("gkr_verify_slow",)}
 # X1: the elementwise field ops, the field chains and the transforms,
 # called thousands of times a prove (a batched transform reads up to 2^25
 # words): each call's twin runs as it returns (Recorder), and its calls
@@ -285,6 +308,10 @@ FUSED_ENTRIES = ("gf_evaluate", "fg_stage_tables", "fg_build_circuit",
                  "pc_virtual_oracle")
 # the FS prover's scans: its sponge streams and its sumchecks
 SPONGE_ENTRIES = ("fs_sponge", "fs_sumcheck")
+# the GKR verifier's two programs: one launch each a verify's walk, the
+# only field entries it launches (no prove launches them)
+VERIFY_ENTRIES = ("gkr_verify_fast", "gkr_verify_slow")
+WALK_NONE = ("gf_mul", "gf_lin", "gf_table", "gf_segsum")
 # the entries every glibc prove must launch (an FS prove launches these
 # but the GKR init stages, and SPONGE_ENTRIES)
 PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
@@ -293,11 +320,13 @@ PATH_ENTRIES = ("sumcheck_fold", "sha3_chain_x64", "merkle_forest",
 BATCH_ENTRIES = tuple(e for e in PATH_ENTRIES
                       if e not in ("fg_stage_tables", "fg_build_circuit"))
 FS_ENTRIES = tuple(e for e in KERNEL_NAMES
-                   if e not in INIT_ENTRIES + ("sha3_256_x64",))
-# a glibc rank of the sharded prover: every entry but the inits and the
-# FS scans
+                   if e not in INIT_ENTRIES + VERIFY_ENTRIES
+                   + ("sha3_256_x64",))
+# a glibc rank of the sharded prover: every entry but the inits, the FS
+# scans and the verifier's
 GLIBC_RANK_ENTRIES = tuple(e for e in KERNEL_NAMES
-                           if e not in INIT_ENTRIES + SPONGE_ENTRIES)
+                           if e not in INIT_ENTRIES + SPONGE_ENTRIES
+                           + VERIFY_ENTRIES)
 _K1 = ("virgo_plus_tpu_torch/csrc/sumcheck_fold.cu",
        "virgo_plus_tpu/pallas_kernels/sumcheck_fold.py:118")
 _K2 = ("virgo_plus_tpu_torch/csrc/keccak.cu",
@@ -315,6 +344,8 @@ _X1V = "virgo_plus_tpu_torch/csrc/virgo_pc.cu"
 # the FS prover's lax.scans, with K2's hash inside: no Pallas kernel of
 # their own
 _FS = "virgo_plus_tpu_torch/csrc/fs_rounds.cu"
+# the JAX verifier jits, XLA's fusion of their field ops: no Pallas kernel
+_VF = "virgo_plus_tpu_torch/csrc/gkr_verify.cu"
 SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                        "sha3_chain_x64": _K2, "merkle_forest": _K2,
                        "gf_mul": (_X1, "virgo_plus_tpu/field/gf.py:151"),
@@ -341,7 +372,13 @@ SOURCE_AND_REPLACES = {"sumcheck_fold": _K1, "sha3_256_x64": _K2,
                                      " (absorb_elems), :94 (squeeze_vec)"),
                        "fs_sumcheck": (
                            _FS, "virgo_plus_tpu/gkr/fs.py:112 "
-                           "(fs_scan_sumcheck), :274 (the joint phase 2)")}
+                           "(fs_scan_sumcheck), :274 (the joint phase 2)"),
+                       "gkr_verify_fast": (
+                           _VF, "virgo_plus_tpu/gkr/protocol.py:894 "
+                           "(_verify_fast_all)"),
+                       "gkr_verify_slow": (
+                           _VF, "virgo_plus_tpu/gkr/protocol.py:917 "
+                           "(_verify_slow_all)")}
 # profiled calls per shape
 PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "sha3_chain_x64": 5, "merkle_forest": 20, "gf_mul": 20,
@@ -349,7 +386,8 @@ PROFILE_REPS = {"sumcheck_fold": 20, "sha3_256_x64": 20,
                 "gf_fri_fold": 20, "gkr_p1_inits": 20, "gkr_p2_inits": 20,
                 "gf_evaluate": 20, "fg_stage_tables": 20,
                 "fg_build_circuit": 20, "pc_virtual_oracle": 20,
-                "fs_sponge": 20, "fs_sumcheck": 10}
+                "fs_sponge": 20, "fs_sumcheck": 10, "gkr_verify_fast": 20,
+                "gkr_verify_slow": 20}
 GF_MUL_INT32_OPS = 6         # an output word of a product: 12 32x32
                              # partials an element of two words
 GF_LIN_INT32_OPS = 6         # an output word of a sum: a 64-bit add,
@@ -374,6 +412,12 @@ EVAL_SUMS = 3
 STAGE_OPS = {1: (2, 2), 2: (4, 2)}
 # products and sums of an element of the virtual oracle (pc_virtual_oracle)
 ORACLE_OPS = (4, 2)
+# a verifier round's products and sums (p(0) + p(1), the last round's
+# p(r)); a gate's products and sums besides its beta lookups (bg bu, A cu,
+# B cv, cu cv, C (cu cv), the term; one product more with dads)
+# (gkr_verify_*)
+ROUND_OPS = (2, 5)
+GATE_OPS = (6, 4)
 # products and sums of a pair of an FS sumcheck round (fs_sumcheck): four
 # for the terms and three for the bind; three differences, three sums of
 # the terms, three accumulations and three binds
@@ -524,6 +568,8 @@ def max_abs_err(torch, xs, ys):
     for x, y in zip(xs, ys):
         if x.shape != y.shape:
             return float("inf")
+        if x.dtype == torch.bool:       # a verifier's ok
+            x, y = x.long(), y.long()
         d = (x != y)
         if bool(d.any()):
             a = x[d].cpu().numpy().view("uint64").astype(object)
@@ -868,6 +914,78 @@ def build_cost(lg):
             GF_PRODUCT_INT32_OPS * products + GF_SUM_INT32_OPS * sums)
 
 
+def verify_jobs(entry, ins):
+    """(kernel plan, jobs launched) of a verifier program's call (plan,
+    proof, challenges, output block or mids)."""
+    vp = ins[0]
+    if entry == "gkr_verify_fast":
+        return vp.fast, vp.fast.n_jobs + (ins[3] is not None)
+    return vp.slow, vp.slow.n_jobs
+
+
+def verify_segs(kp, jobs):
+    """The segment rows of a verifier plan's first `jobs` jobs."""
+    from virgo_plus_tpu_torch.gkr import vchecks as v
+    h = kp.host
+    return [g for j in h["jobs"][:jobs]
+            for st in h["stages"][j[v.J_STAGE0]:j[v.J_STAGE1]]
+            for g in h["segs"][st[v.S_SEG0]:st[v.S_SEG1]]]
+
+
+def verify_shape(entry, ins):
+    """(layers, terms summed, output block) of a verifier program's call."""
+    from virgo_plus_tpu_torch.gkr import vchecks as v
+    kp, jobs = verify_jobs(entry, ins)
+    return (kp.layers, sum(int(g[v.G_N]) for g in verify_segs(kp, jobs)),
+            entry == "gkr_verify_fast" and ins[3] is not None)
+
+
+def verify_cost(entry, ins):
+    """(bytes, 32-bit integer operations) of a verifier program's call:
+    c0's columns, the round polynomials, the plan's tables and (the
+    sweep) the gate arrays it reads, each read once, mids and ok written
+    once; each round's products and sums, each beta part entry's product
+    (once, not once a block; its init's on a first part), each term's
+    lookups (a product between parts), its products and its sum, each Liu
+    term's product and sum, each job's check."""
+    from virgo_plus_tpu_torch.gkr import vchecks as v
+    kp, jobs = verify_jobs(entry, ins)
+    h = kp.host
+    segs = verify_segs(kp, jobs)
+    tabs = {t for g in segs for t in g[v.G_TA:v.G_TC + 1] if t >= 0}
+    lookup = lambda t: len(v.part_widths(int(h["tables"][t][v.T_BITS]))) - 1
+    products = sums = 0
+    for g in segs:
+        n, kind = int(g[v.G_N]), g[v.G_KIND]
+        looks = sum(lookup(t) for t in g[v.G_TA:v.G_TC + 1] if t >= 0)
+        extra, added = (GATE_OPS if kind == v.SEG_GATE else (1, 1))
+        extra += kind == v.SEG_GATE and g[v.G_TC] >= 0
+        products += n * (looks + extra)
+        sums += n * added
+    # each part entry's product, and its init's on a first part
+    products += sum((1 << w) * (1 + (p == 0 and h["tables"][t][v.T_SCALE]
+                                     >= 0))
+                    for t in tabs for p, w in enumerate(v.part_widths(
+                        int(h["tables"][t][v.T_BITS]))))
+    rounds = sum(int(j[v.J_ROUND1] - j[v.J_ROUND0]) for j in h["jobs"][:jobs])
+    liu = sum(int(j[v.J_LIU1] - j[v.J_LIU0]) for j in h["jobs"][:jobs])
+    products += ROUND_OPS[0] * rounds + liu + jobs
+    sums += ROUND_OPS[1] * rounds + liu
+    words = 2 * sum(w for key, w in kp.cols.pieces
+                    if key != ("out",) or jobs > kp.n_jobs)
+    read = 8 * words + sum(a.nbytes for a in h.values())
+    if entry == "gkr_verify_fast":
+        read += 48 * kp.n_rows + 4 * int(kp.idx.numel())
+        out = 16 * kp.layers + 1
+    else:
+        gates = sum(int(g[v.G_N]) for g in segs)
+        dads = sum(int(g[v.G_N]) for g in segs if g[v.G_TC] >= 0)
+        read += 68 * gates + 8 * dads
+        out = 1
+    return (read + out, GF_PRODUCT_INT32_OPS * products
+            + GF_SUM_INT32_OPS * sums)
+
+
 def shape_of(entry, ins):
     """(bl, K) of a K1 call; (N,) of a SHA3 call; (steps, leaves) of a
     chain call; the tree sizes of a forest call; (rows, slots) of a GKR
@@ -876,7 +994,10 @@ def shape_of(entry, ins):
     stage tables call; (lg,) of an fft_gkr circuit; (instances, columns) of
     a virtual oracle; (elements, challenges) of an FS sponge call; (rounds,
     bit lengths, a given, trailing absorb) of an FS sumcheck (a field op's
-    is its gf_bucket)."""
+    is its gf_bucket); (layers, terms summed, output block) of a verifier
+    program."""
+    if entry in VERIFY_ENTRIES:
+        return verify_shape(entry, ins)
     if entry == "fs_sponge":
         return (0 if ins[1] is None else ins[1].shape[1], ins[2])
     if entry == "fs_sumcheck":
@@ -940,6 +1061,8 @@ def cost(entry, shp, ins):
         return init_cost(entry, ins)
     if entry in FUSED_ENTRIES:
         return fused_cost(entry, ins)
+    if entry in VERIFY_ENTRIES:
+        return verify_cost(entry, ins)
     if entry == "sumcheck_fold":
         bl, k = shp
         n = 1 << bl
@@ -972,12 +1095,20 @@ def cost(entry, shp, ins):
             KECCAK_INT32_OPS * (leaves - len(shp)))
 
 
+# the verifier programs' arguments that graphs.py's static buffers hold
+KEPT_DATACLASSES = ("Proof", "LayerProof", "Challenges", "LayerChallenges")
+
+
 def kept(a):
     """A copy of one wrapper argument: a tensor copied with its sizes and
     strides (a strided or expanded view stays such a view, over a copy of
-    the storage it reads), a list copied, an op code or None as it is."""
+    the storage it reads), a list and a proof's or challenges' dataclass
+    copied field by field, an op code, a plan or None as it is."""
     if isinstance(a, (list, tuple)):
         return type(a)(kept(x) for x in a)
+    if type(a).__name__ in KEPT_DATACLASSES:
+        return dataclasses.replace(a, **{f.name: kept(getattr(a, f.name))
+                                         for f in dataclasses.fields(a)})
     if not hasattr(a, "clone"):
         return a
     if a.numel() == 0 or a.is_contiguous():
@@ -985,6 +1116,27 @@ def kept(a):
     span = 1 + sum((n - 1) * st for n, st in zip(a.shape, a.stride()))
     base = a.as_strided((span,), (1,)).clone()
     return base.as_strided(a.shape, a.stride())
+
+
+class Walks:
+    """A verifier (``protocol.make_verifier``'s run) whose every call
+    records the launches it made, by entry: a driver verify's GKR walk
+    counted alone.  Anything else is the verifier's own (its graphs,
+    ``last_split``)."""
+
+    def __init__(self, kernels, run):
+        self.kernels, self.run, self.calls = kernels, run, []
+
+    def __call__(self, *args):
+        before = dict(self.kernels.LAUNCHES)
+        out = self.run(*args)
+        self.calls.append({e: n - before[e]
+                           for e, n in self.kernels.LAUNCHES.items()
+                           if n != before[e]})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.run, name)
 
 
 class Recorder:
@@ -1063,7 +1215,7 @@ def kernel_tables():
     from virgo_plus_tpu_torch import kernels
     from virgo_plus_tpu_torch.circuits import compile as circuit
     from virgo_plus_tpu_torch.field import chains, gf
-    from virgo_plus_tpu_torch.gkr import fs, inits, sumcheck
+    from virgo_plus_tpu_torch.gkr import fs, inits, sumcheck, vchecks
     from virgo_plus_tpu_torch.pc import fft, fft_gkr, keccak, merkle, virgo_pc
 
     wrappers = {"sumcheck_fold": (sumcheck, "fold_cuda"),
@@ -1083,7 +1235,9 @@ def kernel_tables():
                 "fg_build_circuit": (fft_gkr, "build_circuit_cuda"),
                 "pc_virtual_oracle": (virgo_pc, "virtual_oracle_cuda"),
                 "fs_sponge": (fs, "fs_sponge_cuda"),
-                "fs_sumcheck": (fs, "fs_sumcheck_cuda")}
+                "fs_sumcheck": (fs, "fs_sumcheck_cuda"),
+                "gkr_verify_fast": (vchecks, "verify_fast_cuda"),
+                "gkr_verify_slow": (vchecks, "verify_slow_cuda")}
     twin = {"sumcheck_fold": sumcheck.fold_plain,
             "sha3_256_x64": keccak.sha3_256_x64_plain,
             "sha3_chain_x64": keccak.sha3_chain_x64_plain,
@@ -1101,7 +1255,9 @@ def kernel_tables():
             "fg_build_circuit": fft_gkr.build_circuit_plain,
             "pc_virtual_oracle": virgo_pc.virtual_oracle_plain,
             "fs_sponge": fs.fs_sponge_plain,
-            "fs_sumcheck": fs.fs_sumcheck_plain}
+            "fs_sumcheck": fs.fs_sumcheck_plain,
+            "gkr_verify_fast": vchecks.verify_fast_plain,
+            "gkr_verify_slow": vchecks.verify_slow_plain}
 
     def expected_launches(entry, ins):
         if entry == "sumcheck_fold":
@@ -1122,7 +1278,7 @@ def kernel_tables():
             return 1 if ins[0].numel() else 0
         if entry == "fs_sponge":
             return 1 if shape_of(entry, ins) != (0, 0) else 0
-        if entry == "fs_sumcheck":
+        if entry in ("fs_sumcheck",) + VERIFY_ENTRIES:
             return 1
         n = ins[0].shape[-1]
         return 1 if n else 0
@@ -1224,7 +1380,7 @@ def random_inputs(torch, np, gf, entry, shp, dev, rng):
     """Random inputs of one kernel call at shape `shp` (shape_of's); a GKR
     init call's inputs are a circuit's, so every path's shapes are
     profiled on a recorded call."""
-    if entry in INIT_ENTRIES:
+    if entry in INIT_ENTRIES + VERIFY_ENTRIES:
         raise ValueError(f"{entry}: no random inputs of a circuit's plan")
     M = gf.MOD
     canon = lambda *s: gf.tensor(rng.integers(0, M, size=s, dtype=np.uint64),
@@ -1314,6 +1470,69 @@ def fs_tables(canon, bls, has_a):
     return tables
 
 
+def verify_circuits(randomize, subset_init):
+    """The verifier entries' phase-3 circuits: randomize(4, 3, seed=7);
+    randomize(4, 5, seed=7) with zero-valued assert gates on layer 2 (Sub
+    gates of a node of layer 1 and itself) and layer 1 without dads (Copy
+    gates); randomize(3, 11, seed=2), a cluster of 4 blocks a job."""
+    out = []
+    for label, (n, b, seed) in (("randomize(4, 3, seed=7)", (4, 3, 7)),
+                                ("asserts, no dads", (4, 5, 7)),
+                                ("randomize(3, 11, seed=2)", (3, 11, 2))):
+        c = randomize(n, b, seed=seed)
+        if label.startswith("asserts"):
+            L, g = c.layers[2], [1, 5, 9, 12]
+            L.is_assert[g] = True
+            L.ty[g], L.l[g], L.v[g] = 2, 1, L.u[g]
+            c.layers[1].l[:], c.layers[1].ty[:] = -1, 11
+        subset_init(c)
+        out.append((label, c))
+    return out
+
+
+def tampered(cc, proof, out_block):
+    """{case: (proof, output block)}: the honest proof without and with its
+    output block, then one word changed (plus one, mod p) in each of the
+    top layer's p1_polys, a middle layer's p2_polys, claims_v, claim_u and
+    liu_claim, layer 1's liu_polys, vres and the output block."""
+    import numpy as np
+    from virgo_plus_tpu_torch.field import gf
+    from virgo_plus_tpu_torch.gkr import protocol
+
+    def bump(t, idx):
+        a = gf.to_numpy(t).copy()
+        a[idx] = np.uint64((int(a[idx]) + 1) % gf.MOD)
+        return gf.tensor(a, t.device)
+
+    def with_layer(i, **kw):
+        layers = list(proof.layers)
+        layers[i] = dataclasses.replace(proof.layers[i], **kw)
+        return protocol.Proof(vres=proof.vres, layers=layers)
+
+    top, mid = cc.depth - 1, max(1, cc.depth // 2)
+    lm = proof.layers[mid]
+    if lm.p2_polys is None:
+        mid = next(i for i in range(1, cc.depth)
+                   if proof.layers[i].p2_polys is not None)
+        lm = proof.layers[mid]
+    return {"good": (proof, None), "good, output block": (proof, out_block),
+            "p1_polys": (with_layer(top, p1_polys=bump(
+                proof.layers[top].p1_polys, (0, 0, 1))), None),
+            "p2_polys": (with_layer(mid, p2_polys=bump(lm.p2_polys,
+                                                       (0, 1, 2))), None),
+            "claims_v": (with_layer(mid, claims_v=bump(lm.claims_v,
+                                                       (0, 0))), None),
+            "claim_u": (with_layer(mid, claim_u=bump(lm.claim_u, (1,))),
+                        None),
+            "liu_claim": (with_layer(mid, liu_claim=bump(lm.liu_claim,
+                                                         (0,))), None),
+            "liu_polys": (with_layer(1, liu_polys=bump(
+                proof.layers[1].liu_polys, (0, 0, 0))), None),
+            "vres": (protocol.Proof(vres=bump(proof.vres, (0,)),
+                                    layers=proof.layers), None),
+            "output block": (proof, bump(out_block, (0, 0)))}
+
+
 def sharded_rank(mesh, circuit, transcripts, runs):
     """Phase 9 on one rank: per transcript, compile, then one prove with
     the launch counts reset just before and read just after (rank 0
@@ -1386,7 +1605,7 @@ def main():
                                                        input_buffer)
     from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
     from virgo_plus_tpu_torch.field import chains, gf
-    from virgo_plus_tpu_torch.gkr import fs, protocol
+    from virgo_plus_tpu_torch.gkr import fs, protocol, vchecks
     from virgo_plus_tpu_torch.gkr import sumcheck
     from virgo_plus_tpu_torch.parallel import mesh as pmesh
     from virgo_plus_tpu_torch.parallel.sharded import make_batched_full_prover
@@ -2011,6 +2230,36 @@ def main():
         f"serial floors (permutations x that latency, us): "
         + "; ".join(f"{k} {v:.2f}" for k, v in floors.items()))
 
+    # ---- phase 3, the verifier entries: gkr_verify_fast and _slow --------
+    # each entry, with and without an output block, against its twin on a
+    # card proof of three small circuits and on tampered proofs: every
+    # verdict the twin's, and the honest proof accepted, each tamper
+    # rejected
+    verify_ok = {}
+    for label, cv in verify_circuits(randomize, subset_init):
+        cpv = driver.compile_prover(cv, graphed=False)
+        ccv = cpv.cc
+        vals = cpv.evaluator(input_buffer(ccv, None, dev))
+        chv = protocol.make_challenges(ccv, GlibcRandom(3396), dev)
+        vp = vchecks.plan(ccv, protocol.verifier_arrays(ccv, dev), dev)
+        outb = vals[:, int(ccv.value_off[ccv.depth - 1]):]
+        for case, (pf, ob) in tampered(ccv, cpv.prover(vals, chv),
+                                       outb).items():
+            what = f"{label}, {case}"
+            got = held("gkr_verify_fast", (vp, pf, chv, ob), what)
+            mids = list(got[1:1 + vp.fast.layers])
+            slow_ok = held("gkr_verify_slow", (vp, pf, chv, mids), what)[0]
+            verdict = bool(got[0]) and bool(slow_ok)
+            if verdict != case.startswith("good"):
+                fail(f"the verifier entries {'reject' if case.startswith('good') else 'accept'} "
+                     f"{what}")
+            verify_ok[what] = verdict
+    say(f"phase 3 verifier entries ok: gkr_verify_fast (with and without "
+        f"an output block) and gkr_verify_slow == their plain twins bit for "
+        f"bit (ok, mids, final claim and point), one launch a call, on card "
+        f"proofs and tampers of {[lb for lb, _ in verify_circuits(randomize, subset_init)]}: "
+        f"{verify_ok}")
+
     # ---- phase 4: small1200 pins on the card; card proof == CPU proof -----
     # first the native frontend, which driver.load_circuit uses from here on
     t0 = time.perf_counter()
@@ -2096,6 +2345,19 @@ def main():
     # the eager twin of cp: phases 5-7 time the eager walls through it
     eager_cp = driver.compile_prover(c, graphed=False)
     cc = cp.cc
+    # every GKR walk of a driver verify counted alone: the verifiers'
+    # calls' launches
+    cp.verifier = Walks(kernels, cp.verifier)
+    eager_cp.verifier = Walks(kernels, eager_cp.verifier)
+    walks = {}
+
+    def check_walk(what, walk):
+        """A GKR walk's launches: one of each verifier entry, no other
+        port entry (no gf_mul, gf_lin, gf_table or gf_segsum)."""
+        walks[what] = walk
+        if walk != {e: 1 for e in VERIFY_ENTRIES}:
+            fail(f"the GKR walk of {what} launched {walk}, not one of each "
+                 f"of {VERIFY_ENTRIES} and none of {WALK_NONE}")
     # the first prove and verify of a compiled circuit build their graphs
     # (an eager warm-up call, the capture, a replay): the warm-up's kernel
     # calls are the ones recorded and held against the twins
@@ -2131,7 +2393,9 @@ def main():
     verify_launches = {e: launches[e] - prove_launches[e] for e in launches}
     if not rep.ok:
         fail(f"full-width proof rejected: {rep}")
-    check_path("the main path", launches, plain)
+    check_path("the main path", launches, plain,
+               PATH_ENTRIES + VERIFY_ENTRIES)
+    check_walk("driver.verify, graphed", cp.verifier.calls[-1])
     a, b = (proof_arrays(proof_io, np, f) for f in (full, full_main))
     if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k]) for k in a):
         fail("the main path's prove differs from the first prove")
@@ -2149,14 +2413,26 @@ def main():
         f"the same inputs, launches as the rule says; calls per shape: "
         f"{listing(driver_shapes)}")
 
+    # an eager driver.verify (the CLI's and a one-shot call's) and a
+    # tampered proof, eagerly and through the graphs, every kernel call
+    # held against its twin
     lp = full.layers[cc.depth - 1]
     saved = lp["p1_polys"].copy()
-    lp["p1_polys"][0, 0, 1] = np.uint64((int(saved[0, 0, 1]) + 1) % M)
-    if driver.verify(c, full, cp).ok:
-        fail("the tampered full-width proof was accepted")
-    lp["p1_polys"] = saved
-    say("phase 5 tamper ok: a proof with one p1_polys coefficient changed "
-        "is rejected")
+    with Recorder(kernels, wrappers, twin) as rec:
+        if not driver.verify(c, full, eager_cp).ok:
+            fail("the eager driver.verify rejects the full-width proof")
+        check_walk("driver.verify, eager", eager_cp.verifier.calls[-1])
+        lp["p1_polys"][0, 0, 1] = np.uint64((int(saved[0, 0, 1]) + 1) % M)
+        if driver.verify(c, full, cp).ok:
+            fail("the tampered full-width proof was accepted")
+        if driver.verify(c, full, eager_cp).ok:
+            fail("the tampered full-width proof was accepted eagerly")
+        lp["p1_polys"] = saved
+    eager_verify_shapes, _ = check_calls(rec, "eager and tampered verify")
+    say(f"phase 5 tamper ok: a proof with one p1_polys coefficient changed "
+        f"is rejected, through the graphs and eagerly; every kernel call of "
+        f"the eager verifies == its plain twin: "
+        f"{listing(eager_verify_shapes)}")
 
     # the timed prove: fused.prove_e2e + the fft_gkr tape
     bl0 = cc.layers[0].bit_length
@@ -2297,7 +2573,10 @@ def main():
     fs_path_plain = dict(kernels.PLAIN_CALLS)
     if not rep_fs.ok:
         fail(f"the full-width FS proof is rejected: {rep_fs}")
-    missing = [e for e in FS_ENTRIES if fs_launches[e] == 0]
+    check_walk("verify_fs, graphed", cp.verifier.calls[-1])
+    missing = [e for e in FS_ENTRIES if fs_launches[e] == 0] + [
+        e for e in VERIFY_ENTRIES
+        if fs_path_launches[e] - fs_launches[e] == 0]
     if missing or any(fs_path_plain.values()):
         fail(f"the FS prove did not run through every kernel: launches "
              f"{fs_launches}, plain twin calls {fs_path_plain}")
@@ -2324,15 +2603,28 @@ def main():
     layers = list(full_fs.layers)
     layers[-1] = dict(layers[-1],
                       p1_polys=bumped(layers[-1]["p1_polys"], (0, 0, 1)))
-    for what, bad in (
-            ("p1_polys coefficient", dataclasses.replace(full_fs,
-                                                         layers=layers)),
-            ("all_sum entry", dataclasses.replace(
-                full_fs, all_sum=bumped(full_fs.all_sum, (0, 0))))):
-        if driver.verify_fs(c, bad, cp).ok:
-            fail(f"an FS proof with one {what} changed was accepted")
-    say("phase 7 tamper ok: FS proofs with one p1_polys coefficient or one "
-        "all_sum entry changed are rejected")
+    # an eager verify_fs and the tampered proofs, eagerly and through the
+    # graphs, every kernel call held against its twin
+    with Recorder(kernels, wrappers, twin) as rec:
+        if not driver.verify_fs(c, full_fs, eager_cp).ok:
+            fail("the eager verify_fs rejects the full-width FS proof")
+        check_walk("verify_fs, eager", eager_cp.verifier.calls[-1])
+        for what, bad in (
+                ("p1_polys coefficient", dataclasses.replace(full_fs,
+                                                             layers=layers)),
+                ("all_sum entry", dataclasses.replace(
+                    full_fs, all_sum=bumped(full_fs.all_sum, (0, 0))))):
+            for form, comp in (("through the graphs", cp),
+                               ("eagerly", eager_cp)):
+                if driver.verify_fs(c, bad, comp).ok:
+                    fail(f"an FS proof with one {what} changed was "
+                         f"accepted {form}")
+    eager_fs_verify_shapes, _ = check_calls(rec, "eager and tampered "
+                                                 "verify_fs")
+    say(f"phase 7 tamper ok: FS proofs with one p1_polys coefficient or one "
+        f"all_sum entry changed are rejected, through the graphs and "
+        f"eagerly; every kernel call of the eager verify_fs calls == its "
+        f"plain twin: {listing(eager_fs_verify_shapes)}")
 
     fs_prove_spans, fs_verify_spans = [], []
     t_fs_prove = wall_ms(torch, lambda: fs_prove_spans.append(
@@ -2549,6 +2841,13 @@ def main():
     # ---- phase 10: the compiled programs as CUDA graphs -------------------
     t10 = time.perf_counter()
     held_graphs = {}          # holder name -> its record
+
+    def walk_of(fn):
+        """The launches of one call of fn, by entry."""
+        before = dict(kernels.LAUNCHES)
+        fn()
+        return {e: n - before[e] for e, n in kernels.LAUNCHES.items()
+                if n != before[e]}
 
     def eager_call(eager):
         """(result, launches) of one eager call."""
@@ -2839,34 +3138,56 @@ def main():
         same_arrays holds it too."""
         return (torch.tensor(r[0]),) + tuple(r[1:])
 
-    v_ref = {out is None: eager_call(
-        lambda: with_ok(eager_v(vproof, vch, out)))
-        for out in (None, out_block)}
-    for staged in (True, False):
-        ours = staged      # compile_prover's verifier is the staged one
-        v = cp.verifier if ours else protocol.make_verifier(cc, dev, False)
-        mine = " (driver's)" if ours else ""
-        label = f"make_verifier {'staged' if staged else 'unstaged'}{mine}"
-        if not ours:
-            graphed11[label] = v
+    # every kernel call of the eager verifier's and of the graphs'
+    # warm-ups held against its twin; each form's GKR walk (one replay or
+    # eager call) counted alone
+    with Recorder(kernels, wrappers, twin) as rec:
+        v_ref = {out is None: eager_call(
+            lambda: with_ok(eager_v(vproof, vch, out)))
+            for out in (None, out_block)}
+        for staged in (True, False):
+            ours = staged      # compile_prover's verifier is the staged one
+            v = (cp.verifier if ours
+                 else protocol.make_verifier(cc, dev, False))
+            mine = " (driver's)" if ours else ""
+            label = (f"make_verifier {'staged' if staged else 'unstaged'}"
+                     f"{mine}")
+            if not ours:
+                graphed11[label] = v
+            for out in (None, out_block):
+                which = (f"{label}, {'no' if out is None else 'with'} "
+                         f"output block")
+                got = graph_check(which, (v,),
+                                  lambda: with_ok(v(vproof, vch, out)),
+                                  v_ref[out is None], p11)
+                if not bool(got[0]):
+                    fail(f"{p11} {which}: the proof is rejected")
+                check_walk(which, walk_of(lambda: v(vproof, vch, out)))
+            n_holders = len(graphs.holders(v))
+            tampers = (("p1_polys coefficient", bad_proof, None),
+                       ("p1_polys coefficient, with the block", bad_proof,
+                        out_block),
+                       ("wrong output block", vproof, wrong_block))
+            rejects = {what: v(pf, vch, out)[0] for what, pf, out in tampers}
+            if any(rejects.values()) or len(graphs.holders(v)) != n_holders:
+                fail(f"{p11} {label}: accepted a tampered proof {rejects}, "
+                     f"or built a holder for it")
+            say(f"{p11} ok: {label} rejects a proof with one p1_polys "
+                f"coefficient changed (with and without the output block) "
+                f"and a wrong output block, by replaying its {n_holders} "
+                f"graphs")
         for out in (None, out_block):
-            which = f"{label}, {'no' if out is None else 'with'} output block"
-            got = graph_check(which, (v,),
-                              lambda: with_ok(v(vproof, vch, out)),
-                              v_ref[out is None], p11)
-            if not bool(got[0]):
-                fail(f"{p11} {which}: the proof is rejected")
-        n_holders = len(graphs.holders(v))
-        rejects = {"p1_polys coefficient": v(bad_proof, vch, None)[0],
-                   "p1_polys coefficient, with the block":
-                       v(bad_proof, vch, out_block)[0],
-                   "wrong output block": v(vproof, vch, wrong_block)[0]}
-        if any(rejects.values()) or len(graphs.holders(v)) != n_holders:
-            fail(f"{p11} {label}: accepted a tampered proof {rejects}, or "
-                 f"built a holder for it")
-        say(f"{p11} ok: {label} rejects a proof with one p1_polys "
-            f"coefficient changed (with and without the output block) and a "
-            f"wrong output block, by replaying its {n_holders} graphs")
+            check_walk(f"make_verifier eager, "
+                       f"{'no' if out is None else 'with'} output block",
+                       walk_of(lambda: eager_v(vproof, vch, out)))
+        rejects = {what: eager_v(pf, vch, out)[0] for what, pf, out in tampers}
+        if any(rejects.values()):
+            fail(f"{p11}: the eager verifier accepted a tampered proof "
+                 f"{rejects}")
+    v11_shapes, _ = check_calls(rec, "phase 11 verifier programs")
+    say(f"{p11} ok: the eager verifier rejects the same tampered proofs; "
+        f"every kernel call of the eager verifier and of the verifier "
+        f"graphs' warm-ups == its plain twin: {listing(v11_shapes)}")
     del fs_in
 
     # verify_fs through the graphs rejects a tampered FS proof
@@ -2940,6 +3261,9 @@ def main():
         say(f"launches of {entry} by path (main paths through the graphs, "
             f"counted alone; plain twin calls 0 on each): "
             + ", ".join(f"{k} {v[entry]}" for k, v in paths.items()))
+    say(f"launches of each GKR walk (a verifier call, counted alone; none of "
+        f"{WALK_NONE} on any): " + "; ".join(f"{k} {v}"
+                                            for k, v in walks.items()))
 
     # ---- each kernel entry at every shape the paths gave it, profiled -----
     rows = {}
@@ -3128,7 +3452,14 @@ def main():
             ("driver.prove through the graphs",
              lambda: driver.prove(c, cp), t_driver_graphs),
             ("driver.prove_fs through the graphs",
-             lambda: driver.prove_fs(c, cp), t_fs_graphs)):
+             lambda: driver.prove_fs(c, cp), t_fs_graphs),
+            ("driver.verify through the graphs",
+             lambda: driver.verify(c, full, cp), t_verify_graphs),
+            ("eager driver.verify", lambda: driver.verify(c, full, eager_cp),
+             t_verify),
+            ("eager verify_fs", lambda: driver.verify_fs(c, full_fs,
+                                                         eager_cp),
+             t_fs_verify)):
         fn()
         torch.cuda.synchronize()
         for r_try in range(1, 6):
@@ -3277,6 +3608,7 @@ def main():
               "fs_verify_graphs_ms": t_fs_verify_graphs,
               "fs_verify_graphs_splits": fs_verify_splits,
               "fs_program_replay_ms": replay_ms,
+              "verify_walk_launches": walks,
               "phase11_released_bytes": released11,
               "sharded": {f"{tr} S={S}": {
                   "backend": r[0]["backend"],

@@ -5,7 +5,9 @@ Usage: ``python3 scripts/pair_summary.py DIR``, where DIR holds the four
 chip_smoke.py logs ``pair_{parent,change}{1,2}.log`` and, optionally, the
 change's ``gf_fft.sass`` (``cuobjdump -sass`` of its gf_fft library).
 For each log it prints one JSON line of the end-to-end numbers that
-chip_smoke.py's report line carries: walls (median, min, max, in ms),
+chip_smoke.py's report line carries: walls (median, min, max, in ms; the
+graphed verifies' ``last_split`` by run; device busy ms and kernels of
+the verifies that its closing profiles hold, where the log has them),
 device busy ms and kernels of the profiled calls (an eager ``prove_fs``'s
 kernels where the log has them), the port's launches of a ``prove_fs``,
 proofs per second of the batched replays, sharded walls per rank and the
@@ -47,6 +49,12 @@ def summary(log: Path) -> dict:
         driver_prove_eager=spread(rep["driver_prove_eager_ms"]),
         verify_graphs=spread(rep["verify_graphs_ms"]),
         verify_eager=spread(rep["verify_ms"]),
+        verify_graphs_last_split=rep["verify_graphs_splits"],
+        verify_fs_graphs=spread(rep["fs_verify_graphs_ms"]),
+        verify_fs_eager=spread(rep["fs_verify_ms"]),
+        verify_fs_graphs_last_split=rep["fs_verify_graphs_splits"],
+        verify_profiles={k: [round(v["busy_ms"], 4), v["kernels"]]
+                         for k, v in prof.items() if "verify" in k},
         prove_fs_eager=spread(rep["fs_prove_ms"]),
         prove_fs_eager_busy=rep["fs_device_busy_ms"],
         prove_fs_eager_kernels=rep.get("fs_kernels"),

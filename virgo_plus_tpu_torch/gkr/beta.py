@@ -19,6 +19,13 @@ def beta_table(r, bit_length: int, init):
                         1 << bit_length, init.device)
 
 
+def beta_table_plain(r, bit_length: int, init):
+    """beta_table by the plain twin (``chains.table_plain``) on any
+    device: the verifier entries' twins."""
+    return chains.table_plain(chains.BETA, init, r[:, :bit_length],
+                              1 << bit_length, init.device)
+
+
 def beta_tables_batched(rs, bit_length: int, inits):
     """K same-size tables in one call.  rs: (2, K, >=bit_length);
     inits: (2, K) -> (2, K, 2^bit_length), bit-identical to beta_table."""

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -840,11 +841,21 @@ def derive_challenges(cc, proof: protocol.Proof, root_l, device):
     return protocol.Challenges(r_out=r_out, layers=layers), sp
 
 
+# (id of a compiled circuit, device) -> fs_verify's eager verifier, dropped
+# with the circuit
+_VERIFIERS: dict = {}
+
+
 def fs_verify(cc, proof: protocol.Proof, root_l, output_values=None):
     """Non-interactive GKR verification: re-derive the challenges, then run
-    the standard checks on the proof's device.  proof: port tensors.
-    Returns (ok, final_claim, final_point)."""
+    the standard checks on the proof's device (an eager ``make_verifier``,
+    made once per circuit and device, as ``driver.verify_fs`` keeps
+    ``cp.verifier``).  proof: port tensors.  Returns (ok, final_claim,
+    final_point)."""
     dev = proof.vres.device
     ch, _sp = derive_challenges(cc, proof, root_l, dev)
-    return protocol.make_verifier(cc, dev, graphed=False)(proof, ch,
-                                                          output_values)
+    key = (id(cc), str(dev))
+    if key not in _VERIFIERS:
+        _VERIFIERS[key] = protocol.make_verifier(cc, dev, graphed=False)
+        weakref.finalize(cc, _VERIFIERS.pop, key, None)
+    return _VERIFIERS[key](proof, ch, output_values)

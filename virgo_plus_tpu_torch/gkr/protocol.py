@@ -32,10 +32,9 @@ from ..field import chains, gf
 from ..utils.glibc_rand import GlibcRandom
 from ..circuits.compile import (G0, CompiledCircuit, coeffs, eval_arrays,
                                 evaluate, index)
-from . import inits
-from .beta import beta_table
-from .sumcheck import (ScatterPlan, eval_quad, mle_fold, quad_at_0_plus_1,
-                       scan_sumcheck_batched, tree_sum)
+from . import inits, vchecks
+from .beta import beta_table_plain
+from .sumcheck import ScatterPlan, scan_sumcheck_batched, tree_sum
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +204,11 @@ def _values_block(cc, values, i):
     return values[..., off:off + cc.layers[i].padded]
 
 
-def _scale_beta_asserts(cc, i, bg, assert_r, mask):
+def _scale_beta_asserts(cc, i, bg, assert_r, mask, mul=gf.mul):
     """Multiply the assert gates' beta entries by assert_r."""
     if not cc.layers[i].has_assert:
         return bg
-    return torch.where(mask[None, :], gf.mul(bg, assert_r[:, None]), bg)
+    return torch.where(mask[None, :], mul(bg, assert_r[:, None]), bg)
 
 
 def _lead_first(t, axis: int, n_lead: int):
@@ -574,13 +573,23 @@ def _p2_combine(ch, groups, lead, plan):
 # Verifier
 # ---------------------------------------------------------------------------
 
+# The layer walk below is the verifier entries' plain twin (``vchecks``):
+# on a card every verifier program is one entry launch, so the walk runs
+# ``gf``'s plain ops (and the plain beta tables and tree sums) on any
+# device, launching no kernel of its own.
+_add, _mul = gf.add_plain, gf.mul_plain
+
+
 def _check_round_chain(polys, rs, previous_sum):
-    """Check p_j(0)+p_j(1) == prev and chain prev = p_j(r_j).
-    Returns (ok (bool tensor), final previous_sum)."""
+    """Check p_j(0)+p_j(1) == prev and chain prev = p_j(r_j): p(0) + p(1)
+    = a + b + 2c (``sumcheck.quad_at_0_plus_1``), p(r) by Horner
+    (``eval_quad``).  Returns (ok (bool tensor), final previous_sum)."""
     ok = torch.ones((), dtype=torch.bool, device=previous_sum.device)
     for j in range(polys.shape[0]):
-        ok = ok & torch.all(quad_at_0_plus_1(polys[j]) == previous_sum)
-        previous_sum = eval_quad(polys[j], rs[:, j])
+        a, b, c = polys[j, :, 0], polys[j, :, 1], polys[j, :, 2]
+        ok = ok & torch.all(_add(_add(a, b), _add(c, c)) == previous_sum)
+        r = rs[:, j]
+        previous_sum = _add(_mul(_add(_mul(a, r), b), r), c)
     return ok, previous_sum
 
 
@@ -617,25 +626,26 @@ def predicate_check(cc: CompiledCircuit, i: int, lp: LayerProof,
     bl_prev = cc.layers[i - 1].bit_length
     dev = r_cur.device
     one = gf.ones((), dev)
+    mul, add = _mul, _add
 
-    bg = beta_table(r_cur, L.bit_length, one)
+    bg = beta_table_plain(r_cur, L.bit_length, one)
     bg = _scale_beta_asserts(cc, i, bg, ch.assert_r,
-                             varrs.get(f"via{i}"))[:, :L.size]
-    bu = beta_table(ch.r_u[:, :bl_prev], bl_prev, one)
-    w = gf.mul(bg, bu[:, varrs[f"vx{i}"]])
+                             varrs.get(f"via{i}"), mul)[:, :L.size]
+    bu = beta_table_plain(ch.r_u[:, :bl_prev], bl_prev, one)
+    w = mul(bg, bu[:, varrs[f"vx{i}"]])
     if L.max_dad_bit_length >= 0:
-        bv = beta_table(ch.r_v[:, :L.max_dad_bit_length],
-                        L.max_dad_bit_length, one)
-        w = gf.mul(w, bv[:, varrs[f"vlv{i}"]])
+        bv = beta_table_plain(ch.r_v[:, :L.max_dad_bit_length],
+                              L.max_dad_bit_length, one)
+        w = mul(w, bv[:, varrs[f"vlv{i}"]])
     cu = lp.claim_u[:, None]
     if lp.claims_v is not None and lp.claims_v.shape[0] > 0:
         cv = lp.claims_v.t()[:, varrs[f"vsl{i}"]]
     else:
         cv = gf.zeros((L.size,), dev)
     A, B, C, D = varrs[f"vco{i}"]
-    gate_val = gf.add(gf.add(gf.mul(A, cu), gf.mul(B, cv)),
-                      gf.add(gf.mul(C, gf.mul(cu, cv)), D))
-    test_value = tree_sum(gf.mul(w, gate_val))
+    gate_val = add(add(mul(A, cu), mul(B, cv)),
+                   add(mul(C, mul(cu, cv)), D))
+    test_value = chains.tree_sum_plain(mul(w, gate_val))
     return torch.all(test_value == previous_sum_mid)
 
 
@@ -650,6 +660,7 @@ def verify_layer_fast(cc: CompiledCircuit, i: int, lp: LayerProof,
     bl_prev = cc.layers[i - 1].bit_length
     dev = r_cur.device
     one = gf.ones((), dev)
+    mul, add = _mul, _add
 
     # phase 1 round checks
     ok1, previous_sum = _check_round_chain(lp.p1_polys,
@@ -663,31 +674,32 @@ def verify_layer_fast(cc: CompiledCircuit, i: int, lp: LayerProof,
 
     # Liu phase (verifier.cpp:272-337)
     sig = ch.sig
-    liu_sum = gf.mul(sig[:, 0], lp.claim_u)
+    liu_sum = mul(sig[:, 0], lp.claim_u)
     for j in range(i, cc.depth):
         # claims about layer i-1 pending from higher layers (incl. this one)
         lp_j = proof.layers[j]
         if lp_j.claims_v is not None and lp_j.claims_v.shape[0] > i - 1:
-            liu_sum = gf.add(liu_sum, gf.mul(sig[:, j - i + 1],
-                                             lp_j.claims_v[i - 1]))
+            liu_sum = add(liu_sum, mul(sig[:, j - i + 1],
+                                       lp_j.claims_v[i - 1]))
     ok4, previous_sum = _check_round_chain(lp.liu_polys,
                                            ch.r_liu[:, :bl_prev], liu_sum)
     # gr computation
-    bu_liu = beta_table(ch.r_liu[:, :bl_prev], bl_prev, one)
-    bsig = beta_table(ch.r_u[:, :bl_prev], bl_prev, sig[:, 0])
+    bu_liu = beta_table_plain(ch.r_liu[:, :bl_prev], bl_prev, one)
+    bsig = beta_table_plain(ch.r_u[:, :bl_prev], bl_prev, sig[:, 0])
     pre_size = cc.layers[i - 1].size
-    gr = tree_sum(gf.mul(bsig[:, :pre_size], bu_liu[:, :pre_size]))
+    gr = chains.tree_sum_plain(mul(bsig[:, :pre_size],
+                                   bu_liu[:, :pre_size]))
     for j in range(i, cc.depth):
         Lj = src.layers[j]
         ds = Lj.dad_size[i - 1] if i - 1 < len(Lj.dad_size) else 0
         if ds == 0:
             continue
         bl_jl = Lj.dad_bit_length[i - 1]
-        bt = beta_table(ch_all.layers[j].r_v[:, :bl_jl], bl_jl,
-                        sig[:, j - i + 1])
+        bt = beta_table_plain(ch_all.layers[j].r_v[:, :bl_jl], bl_jl,
+                              sig[:, j - i + 1])
         gathered = bu_liu[:, varrs[f"vdad{j}_{i - 1}"]]
-        gr = gf.add(gr, tree_sum(gf.mul(bt[:, :ds], gathered)))
-    ok5 = torch.all(gf.mul(lp.liu_claim, gr) == previous_sum)
+        gr = add(gr, chains.tree_sum_plain(mul(bt[:, :ds], gathered)))
+    ok5 = torch.all(mul(lp.liu_claim, gr) == previous_sum)
     return ok1 & ok2 & ok4 & ok5, previous_sum_mid, lp.liu_claim
 
 
@@ -704,63 +716,53 @@ def verify_layer(cc: CompiledCircuit, i: int, lp: LayerProof, r_cur,
 
 
 def _output_ok(proof, ch, output_values):
-    """vres against the claimed output block's MLE, when one is given."""
-    ok = torch.ones((), dtype=torch.bool, device=proof.vres.device)
+    """vres against the claimed output block's MLE (``mle_fold``'s table,
+    product and sum), when one is given."""
+    dev = proof.vres.device
+    ok = torch.ones((), dtype=torch.bool, device=dev)
     if output_values is not None:
-        ok = ok & torch.all(mle_fold(output_values, ch.r_out) == proof.vres)
+        k = ch.r_out.shape[1]
+        beta = beta_table_plain(ch.r_out, k, gf.ones((), dev))
+        folded = chains.tree_sum_plain(_mul(output_values[..., :1 << k],
+                                            beta))
+        ok = ok & torch.all(folded == proof.vres)
     return ok
 
 
 def verify(cc: CompiledCircuit, proof: Proof, ch: Challenges,
            output_values=None, varrs: Optional[dict] = None):
-    """Full GKR verification (without the polynomial commitment), every
-    layer's checks in one walk.  output_values: optional (2, 2^bl_last)
-    claimed output block to check vres against; varrs: verifier_arrays
-    (made here on the proof's device when None).  Returns (ok (bool
-    tensor), final_claim, final_point): the surviving claim
-    V_input(final_point) == final_claim for the PC opening."""
+    """Full GKR verification (without the polynomial commitment): every
+    layer's succinct checks, then every layer's predicate sweep on their
+    mids (``_verify_fast_all``, ``_verify_slow_all``: on a CUDA proof one
+    verifier entry each), the same checks as ``verify_layer`` layer by
+    layer.  output_values: optional (2, 2^bl_last) claimed output block to
+    check vres against; varrs: verifier_arrays (made here on the proof's
+    device when None).  Returns (ok (bool tensor), final_claim,
+    final_point): the surviving claim V_input(final_point) == final_claim
+    for the PC opening."""
     if varrs is None:
         varrs = verifier_arrays(cc, proof.vres.device)
-    previous_sum = proof.vres
-    ok = _output_ok(proof, ch, output_values)
-    r_cur = ch.r_out
-    for i in range(cc.depth - 1, 0, -1):
-        ok_i, previous_sum = verify_layer(cc, i, proof.layers[i], r_cur,
-                                          ch.layers[i], previous_sum, proof,
-                                          ch, varrs)
-        ok = ok & ok_i
-        r_cur = ch.layers[i].r_liu[:, :cc.layers[i - 1].bit_length]
-    return ok, previous_sum, r_cur
+    ok, mids, previous_sum, r_cur = _verify_fast_all(cc, proof, ch,
+                                                     output_values, varrs)
+    return (ok & _verify_slow_all(cc, proof, ch, mids, varrs), previous_sum,
+            r_cur)
 
 
 def _verify_fast_all(cc, proof, ch, output_values, varrs):
     """All layers' succinct checks.  The previousSum entering layer i is
-    the upper layer's Liu claim (proof data), so no layer waits on another.
-    Returns (ok, mids, final_claim, final_point)."""
-    previous_sum = proof.vres
-    ok = _output_ok(proof, ch, output_values)
-    r_cur = ch.r_out
-    mids = []
-    for i in range(cc.depth - 1, 0, -1):
-        ok_i, mid, previous_sum = verify_layer_fast(
-            cc, i, proof.layers[i], r_cur, ch.layers[i], previous_sum,
-            proof, ch, varrs)
-        ok = ok & ok_i
-        mids.append(mid)
-        r_cur = ch.layers[i].r_liu[:, :cc.layers[i - 1].bit_length]
-    return ok, mids, previous_sum, r_cur
+    the upper layer's Liu claim (proof data), so no layer waits on another:
+    on a CUDA proof one gkr_verify_fast launch, on a CPU proof its plain
+    twin (``vchecks``).  Returns (ok, mids, final_claim, final_point)."""
+    return vchecks.verify_fast(vchecks.plan(cc, varrs, proof.vres.device),
+                               proof, ch, output_values)
 
 
 def _verify_slow_all(cc, proof, ch, mids, varrs):
     """All layers' O(#gates) wiring-predicate sweeps (the reference's
-    verify_slow_timer half)."""
-    ok = torch.ones((), dtype=torch.bool, device=proof.vres.device)
-    r_cur = ch.r_out
-    for k, i in enumerate(range(cc.depth - 1, 0, -1)):
-        ok = ok & predicate_check(cc, i, proof.layers[i], r_cur,
-                                  ch.layers[i], mids[k], varrs)
-        r_cur = ch.layers[i].r_liu[:, :cc.layers[i - 1].bit_length]
-    return ok
+    verify_slow_timer half): on a CUDA proof one gkr_verify_slow launch,
+    on a CPU proof its plain twin."""
+    return vchecks.verify_slow(vchecks.plan(cc, varrs, proof.vres.device),
+                               proof, ch, mids)
 
 
 def make_verifier(cc: CompiledCircuit, device=None, staged=True,
@@ -774,11 +776,14 @@ def make_verifier(cc: CompiledCircuit, device=None, staged=True,
     (``fast_all_out`` with an output block) and ``slow_all``.
     staged=False: one program of ``verify``.  Each program is a graph per
     argument shape (graphs.py; a proof's None fields are part of its
-    shape), or eager for graphed=False.  After each call
+    shape), or eager for graphed=False.  On a card a program's field work
+    is one verifier entry a program (two for ``verify``), over the
+    circuit's ``vchecks`` plan, made here.  After each call
     ``run.last_split`` holds (fast_seconds, slow_seconds); unstaged, all
     of it counts as fast."""
     dev = _device.resolve(device)
     varrs = verifier_arrays(cc, dev)
+    vchecks.plan(cc, varrs, dev)
     if not staged:
         whole = graphs.program(
             lambda proof, ch, out: verify(cc, proof, ch, out, varrs), dev,

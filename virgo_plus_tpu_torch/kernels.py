@@ -18,7 +18,8 @@ init stage, each phase of the fft_gkr stage tables
 and each virtual oracle: one, none for an empty output; the fft_gkr
 circuit: ``fft_gkr.circuit_launches(lg)``; a circuit evaluation: one per
 launch of ``compile.eval_launches``; an FS sponge stream and an FS
-sumcheck: one, none for a sponge call with nothing to absorb or squeeze),
+sumcheck: one, none for a sponge call with nothing to absorb or squeeze;
+each GKR verifier program: one),
 and its
 plain PyTorch twin adds one to ``PLAIN_CALLS[entry]`` when it runs instead
 (CPU tensors only).  ``reset_counts`` zeroes both.
@@ -131,6 +132,15 @@ SOURCES = {
         "fs_sumcheck": ("vpt_fs_sumcheck", [_P] * 3 + [_L] * 3
                         + [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P]),
     },
+    # c0, its columns; the round polynomials; the plan's jobs, stages,
+    # parts, tables, segments, rounds, Liu terms, dad ids, gate x, lv, sl
+    # and coefficients, the gates; the jobs launched, the blocks of a
+    # cluster, a stage's table words; mids out, ok out, the arrival word;
+    # the stream
+    "gkr_verify": {
+        entry: (f"vpt_{entry}", [_P, _L] + [_P] * 13 + [_L] + [_I] * 3
+                + [_P] * 4)
+        for entry in ("gkr_verify_fast", "gkr_verify_slow")},
 }
 ENTRIES = {entry: src for src, entries in SOURCES.items() for entry in entries}
 
