@@ -71,13 +71,18 @@ package.  Phases, one line each, any failure exits non-zero:
    rank's columns (rank 1 of 2, rank 3 of 4, its own tables); then the
    FS scans (``fs_sumcheck`` and ``fs_sponge`` of ``csrc/fs_rounds.cu``)
    against their plain twins: a sumcheck of one table at bl = 0, 1, 7 and
-   13 (with the claim's absorb; Liu's a = 0 at 13) and a joint phase 2 of
-   bit lengths {13, 9, 3, 0} with up to 12 tables a length (past a
-   cluster's shared memory), the sponge at (k, n) = (0, 1), (3, 0),
-   (26, 14) and (0, 257); each call also captured in a CUDA graph and
-   replayed on other inputs; a latency probe (one squeeze, a Keccak-f on
-   two lane pairs side by side, from 1 and 1,025 squeezes) and each fixed
-   shape's serial floor (its permutations times that latency); then the
+   13 (with the claim's absorb; Liu's a = 0 at 13), a joint phase 2 of
+   bit lengths {13, 9, 3, 0} with up to 12 tables a length (its stores
+   past a block's shared memory: the global route), and
+   ``FS_ROUTE_SHAPES`` (a prove-like joint phase 2 on the shared-memory
+   route, 2^14-entry tables on the global one; both routes must be
+   taken); the sponge at (k, n) = (0, 1), (3, 0), (26, 14) and (0, 257);
+   each call also captured in a CUDA graph and replayed on other inputs;
+   a latency probe (one squeeze, a Keccak-f on two lane pairs side by
+   side, from 257 and 1,025 squeezes) and each fixed shape's serial floor
+   (its permutations times that latency), and after the per-shape
+   profiles each FS sumcheck shape's time above that floor a round; then
+   the
    GKR verifier's programs (``gkr_verify_fast``, with and without an
    output block, and ``gkr_verify_slow`` of ``csrc/gkr_verify.cu``)
    against their plain twins on card proofs of randomize(4, 3, seed=7), a
@@ -444,18 +449,25 @@ SHARDED_RUNS = 1             # timed proves per rank after the recorded one
 # at 2^12 columns (no batch axis, B = 4, 64) and a sharded rank's columns
 # (rank 1 of 2, rank 3 of 4)
 ORACLE_RANKS = ((2, 1), (4, 3))
+# fs_sumcheck's two routes (gkr/fs.py sumcheck_route) beyond the fixed
+# shapes: a joint phase 2 like a prove's (tables ending in rounds 0, 5 and
+# 8) whose stores fit shared memory, and one of 2^14-entry tables whose
+# stores take the global buffer
+FS_ROUTE_SHAPES = [(10, (10,) * 9 + (8,) * 2 + (5,) + (0,), True, False),
+                   (14, (14,) * 8 + (12,) * 4 + (6,) + (1,), True, False)]
 FIXED_SHAPES = {"fg_build_circuit": [(lg,) for lg in (0, 1, 7, 8, 9, 10, 11,
                                                        12, 13, 18)],
                 "pc_virtual_oracle": [(1, 4096), (4, 4096), (64, 4096)]
                 + [(1, 4096 // S) for S, _ in ORACLE_RANKS],
                 # (rounds, bit lengths, a given, trailing absorb): one table
                 # at bl = 0, 1, 7 and 13 and Liu's (a = 0) at 13; a joint
-                # phase 2 of up to 12 tables a bit length
+                # phase 2 of up to 12 tables a bit length (its stores past
+                # a block's shared memory); and FS_ROUTE_SHAPES
                 "fs_sumcheck": [(bl, (bl,), True, True) for bl in
                                 (0, 1, 7, 13)] + [(13, (13,), False, True),
                                                   (13, (13,) * 12 + (9,) * 3
                                                    + (3,) * 2 + (0,), True,
-                                                   False)],
+                                                   False)] + FS_ROUTE_SHAPES,
                 # (elements absorbed, challenges squeezed)
                 "fs_sponge": [(0, 1), (3, 0), (26, 14), (0, 257)]}
 # K1 at the sharded provers' shapes: the local folds of randomize(14, 13)'s
@@ -2204,9 +2216,18 @@ def main():
                  f"plain twin when replayed on other inputs")
         del graph
 
+    # each fs_sumcheck shape's route (the wrapper's, from the C entry's plan)
+    routes = {}
     for entry in SPONGE_ENTRIES:
         for shp in FIXED_SHAPES[entry]:
             fs_captured(entry, shp)
+            if entry == "fs_sumcheck":
+                mdb, bls = shp[:2]
+                cluster = fs.sumcheck_cluster([(None,) * 3 + (b,)
+                                               for b in bls])
+                routes[shp] = fs.sumcheck_route(bls, mdb, cluster)[1]
+    if {routes[s] for s in FS_ROUTE_SHAPES} != {"smem", "global"}:
+        fail(f"FS_ROUTE_SHAPES take the routes {routes}, not both")
     # one squeeze's latency (a Keccak-f on two lane pairs side by side and
     # the state's hand-over): 1,025 squeezes against 257 in one launch
     d0 = gf.tensor(rng.integers(0, 2 ** 64, size=4, dtype=np.uint64), dev)
@@ -2223,6 +2244,9 @@ def main():
         f"{FIXED_SHAPES['fs_sumcheck']}, fs_sponge at (k, n) "
         f"{FIXED_SHAPES['fs_sponge']}, each eager and replayed from a CUDA "
         f"graph on other inputs; one launch a call")
+    say(f"phase 3 FS scans, routes of fs_sumcheck's fixed shapes "
+        f"(gkr/fs.py sumcheck_route): "
+        + "; ".join(f"{(s[0], len(s[1]))} {r}" for s, r in routes.items()))
     say(f"phase 3 FS scans, latency probe ({card}; CUDA events over 20 "
         f"calls): fs_sponge (0, 257) {t_sq[0] * 1e3:.2f} us, (0, 1025) "
         f"{t_sq[1] * 1e3:.2f} us: one squeeze {squeeze_us:.4f} us "
@@ -3530,6 +3554,16 @@ def main():
         rows[entry]["plain_ms"] = event_ms(torch, lambda: twin[entry](*ins),
                                            3)
         kernel_line(entry)
+    # each FS sumcheck shape's time above its serial floor (three
+    # permutations a round and the claim's, at the squeeze latency of phase
+    # 3), over its rounds: what a round costs besides the sponge
+    say(f"fs_sumcheck above its serial floor, us a round ((rounds, tables): "
+        f"device us, floor us at {squeeze_us:.4f} us a permutation): "
+        + "; ".join(
+            f"{(s[0], len(s[1]))}: {r['ms'] * 1e3:.2f}, "
+            f"{(3 * s[0] + int(s[3])) * squeeze_us:.2f}, "
+            f"{(r['ms'] * 1e3 - (3 * s[0] + int(s[3])) * squeeze_us) / s[0]:.3f}"
+            for s, r in sorted(rows["fs_sumcheck"]["per"].items()) if s[0]))
     example.clear()
 
     main_prof = replay_prof["driver.prove through the graphs"]["port_kernels"]

@@ -9,7 +9,8 @@ chip_smoke.py's report line carries: walls (median, min, max, in ms; the
 graphed verifies' ``last_split`` by run; device busy ms and kernels of
 the verifies that its closing profiles hold, where the log has them),
 device busy ms and kernels of the profiled calls (an eager ``prove_fs``'s
-kernels where the log has them), the port's launches of a ``prove_fs``,
+kernels where the log has them, and the FS scans' device ms and launches
+in it), the port's launches of a ``prove_fs``,
 proofs per second of the batched replays, sharded walls per rank and the
 run's length, and the GKR init stages' profiled device ms and bound ms by
 rows.  For the SASS it prints the static instruction count of
@@ -19,6 +20,7 @@ radix branches), of the loops nested in it, and the loop's most frequent
 opcodes.
 """
 
+import ast
 import collections
 import json
 import re
@@ -71,7 +73,19 @@ def summary(log: Path) -> dict:
         sharded_rank_ms={k: [round(w[0], 1) for w in v["wall_ms"]]
                          for k, v in rep["sharded"].items()},
         run_s=float(re.match(r"\[\s*([0-9.]+) s\]", stamped[-1]).group(1)),
-        init_kernels_ms=init_kernels(lines))
+        init_kernels_ms=init_kernels(lines),
+        prove_fs_eager_scans=fs_scans(lines))
+
+
+def fs_scans(lines):
+    """{entry: [device ms, launches]} of the FS scans in the profile of one
+    eager ``prove_fs`` (chip_smoke.py phase 7)."""
+    line = next((ln for ln in lines
+                 if "] phase 7 profile of one eager prove_fs" in ln), "")
+    m = re.search(r"\(device ms, launches\): (\{.*?\})", line)
+    got = ast.literal_eval(m.group(1)) if m else {}
+    return {e: [round(got[e][0], 4), got[e][1]]
+            for e in ("fs_sumcheck", "fs_sponge") if e in got}
 
 
 def init_kernels(lines):

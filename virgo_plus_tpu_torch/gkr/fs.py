@@ -28,9 +28,10 @@ squeezed (batch FS would be unsound for sumcheck).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import weakref
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,10 +49,12 @@ from .sumcheck import apply_scatter_arrays, concat_scatter_plans, mle_fold, \
 DOMAIN_TAG = b"virgo_plus_tpu.fs.v1\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00\x00"
 
 # csrc/fs_rounds.cu: fs_sumcheck's block (THREADS), its most blocks a
-# cluster (MAX_CLUSTER) and tables a call (MAX_TABLES)
+# cluster (MAX_CLUSTER) and tables a call (MAX_TABLES), and a block's shared
+# memory (SMEM_MAX bytes)
 SUMCHECK_THREADS = 256
 SUMCHECK_CLUSTER = 16
 SUMCHECK_TABLES = 128
+SUMCHECK_SMEM = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -314,11 +317,45 @@ def sumcheck_cluster(tables) -> int:
     return c
 
 
-def sumcheck_scratch(tables, cluster: int) -> int:
-    """fs_sumcheck's scratch words: 6 * 2^bl for each table of bl >=
-    log2(cluster) + 2 (its ping-pong buffers)."""
-    c = cluster.bit_length() - 1
-    return sum(6 << bl for *_, bl in tables if bl >= c + 2)
+class SumcheckPlan(NamedTuple):
+    """fs_sumcheck's plan of one call, as the C entry makes it: rounds 0 ..
+    J - 2 on the whole cluster, the rest in block 0; a block's store words
+    (the global route's scratch a block); a block's shared memory bytes on
+    the shared-memory route (the store in it) and on the global route."""
+    J: int
+    store_words: int
+    smem: int
+    smem_global: int
+
+
+@functools.lru_cache(maxsize=None)
+def sumcheck_plan(bls: tuple, mdb: int, cluster: int) -> SumcheckPlan:
+    """fs_sumcheck's plan for tables of bit lengths `bls`, mdb rounds and a
+    cluster of `cluster` blocks: the C entry's own (vpt_fs_sumcheck_plan,
+    a query that launches nothing), so the scratch the wrapper sizes is
+    the one the kernel writes."""
+    query = kernels.helper("fs_rounds", "vpt_fs_sumcheck_plan",
+                           [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_longlong * (6 + len(bls)))()
+    if query((ctypes.c_int * len(bls))(*bls), len(bls), mdb, cluster, out):
+        raise ValueError(f"fs_sumcheck: no plan takes bit lengths {bls}, "
+                         f"{mdb} rounds on {cluster} blocks")
+    return SumcheckPlan(out[0], out[2], out[4], out[5])
+
+
+def sumcheck_route(bls, mdb: int, cluster: int):
+    """(plan, route): "smem" where a block's store fits its shared memory,
+    else "global" (the stores in one scratch buffer).  A route by shape:
+    the kernel takes either; ValueError where neither fits a block."""
+    plan = sumcheck_plan(tuple(bls), mdb, cluster)
+    if plan.smem <= SUMCHECK_SMEM:
+        return plan, "smem"
+    if plan.smem_global <= SUMCHECK_SMEM:
+        return plan, "global"
+    raise ValueError(f"fs_sumcheck: bit lengths {tuple(bls)}, {mdb} rounds "
+                     f"on {cluster} blocks need {plan.smem_global} bytes of "
+                     f"shared memory a block, past {SUMCHECK_SMEM}")
 
 
 def _bases(tables):
@@ -379,7 +416,8 @@ def fs_sumcheck_cuda(tables, mdb: int, D, absorb: bool = False):
                                  f"(2, {1 << bl}) int64 on {D.device}")
     (v, a, m), offs = _bases(tables)
     cluster = sumcheck_cluster(tables)
-    words = sumcheck_scratch(tables, cluster)
+    plan, route = sumcheck_route([bl for *_, bl in tables], mdb, cluster)
+    words = cluster * plan.store_words if route == "global" else 0
     scratch = torch.empty(words, dtype=torch.int64, device=D.device)
     out = torch.empty(8 * mdb + 6 * n + 4, dtype=torch.int64, device=D.device)
     kernels.launch(
