@@ -87,9 +87,11 @@ package.  Phases, one line each, any failure exits non-zero:
    output block, and ``gkr_verify_slow`` of ``csrc/gkr_verify.cu``)
    against their plain twins on card proofs of randomize(4, 3, seed=7), a
    circuit with assert gates and a layer without dads, and randomize(3,
-   11, seed=2) (a cluster of 4 blocks a job), honest and with one word
+   11, seed=2) (several items, blocks, a job), honest and with one word
    changed in each proof field and the output block: each verdict the
-   twin's, the honest proofs accepted, every tamper rejected;
+   twin's, the honest proofs accepted, every tamper by one rejected; and
+   with a claim or output word put out of the canonical range (NONCANONICAL:
+   the twins accept some, the entries must agree);
 4. prove ``tests/data/small1200.pws`` on the card: pinned transcript hash,
    Merkle roots and proof sizes; the port's verify accepts.  A card proof
    of ``randomize(3, 7, seed=21)`` equals the CPU proof in every field;
@@ -190,7 +192,19 @@ package.  Phases, one line each, any failure exits non-zero:
    tampered FS proof; walls of each FS program's replays and of 5 ``driver.prove_fs``,
    ``driver.verify`` (with ``last_split``) and ``driver.verify_fs`` through
    the graphed ``compile_prover``, beside phases 5 and 7's eager walls; the
-   memory ``graphs.release`` gives back.
+   memory ``graphs.release`` gives back;
+12. BASELINE scenario 4's circuit, ``randomize(5, 22, seed=4)`` (2^24
+   gates, unlayered), through the GKR half of ``benches/large.py``:
+   ``build_plans``, ``make_evaluator``, ``make_prover`` and the challenges
+   of ``GlibcRandom(3396)``, one GKR prove on the card, then the eager
+   ``protocol.make_verifier`` on its proof (accepted, one launch of each
+   verifier entry and none of another) and on proofs with one
+   ``p1_polys`` or ``claim_u`` word changed (rejected), with that
+   ``claim_u`` word plus p and a ``claims_v`` word 2^63 (the twins'
+   verdict); every kernel call of the prove and the walks held against
+   its plain twin; each verifier entry's device time a call (CUDA events
+   queued behind a sleep, ``queued_ms``) beside its bound, the host
+   set-up time and the peak device memory.
 
 ``driver.prove``, ``prove_fs``, ``verify`` and ``verify_fs`` run through
 the graphs of ``driver.compile_prover``, so phases 4-7 check them too: the
@@ -629,6 +643,76 @@ def profiled_ms(torch, fn, reps, names, launches, tries=10, seen=None):
     return None
 
 
+def queued_ms(torch, fn, reps, sleep_cycles=10 ** 7):
+    """Device times (ms) of `reps` single calls of fn after one warm-up,
+    each between two CUDA events queued behind a device sleep of
+    `sleep_cycles` (~5 ms), so that the host issues the call while the
+    card sleeps and the interval holds only the call's launches: a
+    device time where a profile of many calls misses launches."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def scenario4_setup(dev):
+    """BASELINE scenario 4's GKR half as benches/large.py:23-56 sets it up:
+    randomize(5, 22, seed=4), subset_init, compile_circuit, build_plans,
+    make_evaluator, make_prover and make_challenges(GlibcRandom(3396)), on
+    `dev`, eager.  Returns (cc, evaluator, prover, challenges, inputs,
+    seconds of randomize + subset_init, seconds of the whole)."""
+    from virgo_plus_tpu_torch.circuits.compile import (compile_circuit,
+                                                       input_buffer)
+    from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
+    from virgo_plus_tpu_torch.gkr import protocol
+    from virgo_plus_tpu_torch.utils.glibc_rand import GlibcRandom
+    t0 = time.perf_counter()
+    c = randomize(5, 22, seed=4)
+    subset_init(c)
+    t_rand = time.perf_counter() - t0
+    cc = compile_circuit(c)
+    plans = protocol.build_plans(cc)
+    ev = protocol.make_evaluator(cc, dev, graphed=False)
+    prover = protocol.make_prover(cc, plans, dev, graphed=False)
+    ch = protocol.make_challenges(cc, GlibcRandom(3396), dev)
+    inputs = input_buffer(cc, None, dev)
+    return cc, ev, prover, ch, inputs, t_rand, time.perf_counter() - t0
+
+
+def scenario4_tampers(torch, cc, proof):
+    """{case: proof} of phase 12: one word of the top layer's p1_polys or
+    of the middle layer's claim_u plus one mod p (rejected), that claim_u
+    word plus p and a claims_v word 2^63 (NONCANONICAL: the twins'
+    verdict)."""
+    from virgo_plus_tpu_torch.field import gf
+    from virgo_plus_tpu_torch.gkr import protocol
+
+    def bumped(i, what, idx, f=lambda x: (x + 1) % gf.MOD):
+        lp = proof.layers[i]
+        a = getattr(lp, what).clone()
+        a[idx] = f(a[idx])
+        layers = list(proof.layers)
+        layers[i] = dataclasses.replace(lp, **{what: a})
+        return protocol.Proof(vres=proof.vres, layers=layers)
+
+    mid = cc.depth // 2
+    return {"p1_polys": bumped(cc.depth - 1, "p1_polys", (0, 0, 1)),
+            "claim_u": bumped(mid, "claim_u", (1,)),
+            "claim_u + p": bumped(mid, "claim_u", (1,),
+                                  lambda x: x + gf.MOD),
+            "claims_v = 2^63": bumped(mid, "claims_v", (0, 1),
+                                      lambda x: torch.full_like(
+                                          x, -(1 << 63)))}
+
+
 def flatten(x):
     """A wrapper's output (tensor, tuple or list of them) as a tuple."""
     if isinstance(x, (tuple, list)):
@@ -957,35 +1041,43 @@ def verify_cost(entry, ins):
     c0's columns, the round polynomials, the plan's tables and (the
     sweep) the gate arrays it reads, each read once, mids and ok written
     once; each round's products and sums, each beta part entry's product
-    (once, not once a block; its init's on a first part), each term's
-    lookups (a product between parts), its products and its sum, each Liu
-    term's product and sum, each job's check."""
+    (once, not once a block; its init's on a first part's low half, and
+    with a second column (bsig bliu, one table) that column's product a
+    half entry), each term's lookups, its products and its sum, each Liu
+    term's product and sum, each job's check.  A table read at the term's
+    own index (TA) costs one product a term, its low part times the higher
+    parts' product, which changes once every 2^w terms; a gathered one (TB,
+    TC) a product between parts."""
     from virgo_plus_tpu_torch.gkr import vchecks as v
     kp, jobs = verify_jobs(entry, ins)
     h = kp.host
     segs = verify_segs(kp, jobs)
-    tabs = {t for g in segs for t in g[v.G_TA:v.G_TC + 1] if t >= 0}
-    lookup = lambda t: len(v.part_widths(int(h["tables"][t][v.T_BITS]))) - 1
+    tabs = {tuple(int(x) for x in h["tables"][t][[v.T_COL, v.T_BITS,
+                                                   v.T_SCALE, v.T_COL2]])
+            for g in segs for t in g[v.G_TA:v.G_TC + 1] if t >= 0}
+    np_ = lambda t: len(v.part_widths(int(h["tables"][t][v.T_BITS])))
     products = sums = 0
     for g in segs:
         n, kind = int(g[v.G_N]), g[v.G_KIND]
-        looks = sum(lookup(t) for t in g[v.G_TA:v.G_TC + 1] if t >= 0)
+        looks = sum(min(1, np_(t) - 1) if c == 0 else np_(t) - 1
+                    for c, t in enumerate(g[v.G_TA:v.G_TC + 1]) if t >= 0)
         extra, added = (GATE_OPS if kind == v.SEG_GATE else (1, 1))
         extra += kind == v.SEG_GATE and g[v.G_TC] >= 0
         products += n * (looks + extra)
         sums += n * added
-    # each part entry's product, and its init's on a first part
-    products += sum((1 << w) * (1 + (p == 0 and h["tables"][t][v.T_SCALE]
-                                     >= 0))
-                    for t in tabs for p, w in enumerate(v.part_widths(
-                        int(h["tables"][t][v.T_BITS]))))
+    # each part entry's product, its init's on a first part's low half,
+    # and a second column's product a half entry
+    products += sum((1 << w) + (p == 0 and init >= 0) * (1 << v.half_widths(w)[0])
+                    + (col2 >= 0) * v.half_entries(w)
+                    for _, k, init, col2 in tabs
+                    for p, w in enumerate(v.part_widths(k)))
     rounds = sum(int(j[v.J_ROUND1] - j[v.J_ROUND0]) for j in h["jobs"][:jobs])
     liu = sum(int(j[v.J_LIU1] - j[v.J_LIU0]) for j in h["jobs"][:jobs])
     products += ROUND_OPS[0] * rounds + liu + jobs
     sums += ROUND_OPS[1] * rounds + liu
     words = 2 * sum(w for key, w in kp.cols.pieces
                     if key != ("out",) or jobs > kp.n_jobs)
-    read = 8 * words + sum(a.nbytes for a in h.values())
+    read = 8 * words + sum(h[k].nbytes for k in v.KERNEL_TABLES)
     if entry == "gkr_verify_fast":
         read += 48 * kp.n_rows + 4 * int(kp.idx.numel())
         out = 16 * kp.layers + 1
@@ -1486,7 +1578,7 @@ def verify_circuits(randomize, subset_init):
     """The verifier entries' phase-3 circuits: randomize(4, 3, seed=7);
     randomize(4, 5, seed=7) with zero-valued assert gates on layer 2 (Sub
     gates of a node of layer 1 and itself) and layer 1 without dads (Copy
-    gates); randomize(3, 11, seed=2), a cluster of 4 blocks a job."""
+    gates); randomize(3, 11, seed=2), several items (blocks) a job."""
     out = []
     for label, (n, b, seed) in (("randomize(4, 3, seed=7)", (4, 3, 7)),
                                 ("asserts, no dads", (4, 5, 7)),
@@ -1502,18 +1594,26 @@ def verify_circuits(randomize, subset_init):
     return out
 
 
+# tampers that put a word out of the canonical range: the twins accept
+# some (claim_u + p) and reject others, and the entries must agree
+NONCANONICAL = ("claim_u + p", "claims_v + 2p", "claims_v = 2^63",
+                "output block = 2^63")
+
+
 def tampered(cc, proof, out_block):
     """{case: (proof, output block)}: the honest proof without and with its
     output block, then one word changed (plus one, mod p) in each of the
     top layer's p1_polys, a middle layer's p2_polys, claims_v, claim_u and
-    liu_claim, layer 1's liu_polys, vres and the output block."""
+    liu_claim, layer 1's liu_polys, vres and the output block; then the
+    NONCANONICAL cases (claim_u plus p, a claims_v word plus 2p or 2^63, an
+    output word 2^63)."""
     import numpy as np
     from virgo_plus_tpu_torch.field import gf
     from virgo_plus_tpu_torch.gkr import protocol
 
-    def bump(t, idx):
+    def bump(t, idx, f=lambda x: (x + 1) % gf.MOD):
         a = gf.to_numpy(t).copy()
-        a[idx] = np.uint64((int(a[idx]) + 1) % gf.MOD)
+        a[idx] = np.uint64(f(int(a[idx])) % 2 ** 64)
         return gf.tensor(a, t.device)
 
     def with_layer(i, **kw):
@@ -1542,7 +1642,15 @@ def tampered(cc, proof, out_block):
                 proof.layers[1].liu_polys, (0, 0, 0))), None),
             "vres": (protocol.Proof(vres=bump(proof.vres, (0,)),
                                     layers=proof.layers), None),
-            "output block": (proof, bump(out_block, (0, 0)))}
+            "output block": (proof, bump(out_block, (0, 0))),
+            "claim_u + p": (with_layer(mid, claim_u=bump(
+                lm.claim_u, (1,), lambda x: x + gf.MOD)), None),
+            "claims_v + 2p": (with_layer(mid, claims_v=bump(
+                lm.claims_v, (0, 0), lambda x: x + 2 * gf.MOD)), None),
+            "claims_v = 2^63": (with_layer(mid, claims_v=bump(
+                lm.claims_v, (0, 1), lambda x: 1 << 63)), None),
+            "output block = 2^63": (proof, bump(out_block, (1, 0),
+                                                lambda x: 1 << 63))}
 
 
 def sharded_rank(mesh, circuit, transcripts, runs):
@@ -2257,8 +2365,8 @@ def main():
     # ---- phase 3, the verifier entries: gkr_verify_fast and _slow --------
     # each entry, with and without an output block, against its twin on a
     # card proof of three small circuits and on tampered proofs: every
-    # verdict the twin's, and the honest proof accepted, each tamper
-    # rejected
+    # verdict the twin's, and the honest proof accepted, each tamper by one
+    # rejected (a NONCANONICAL one has the twin's verdict, held above)
     verify_ok = {}
     for label, cv in verify_circuits(randomize, subset_init):
         cpv = driver.compile_prover(cv, graphed=False)
@@ -2274,7 +2382,7 @@ def main():
             mids = list(got[1:1 + vp.fast.layers])
             slow_ok = held("gkr_verify_slow", (vp, pf, chv, mids), what)[0]
             verdict = bool(got[0]) and bool(slow_ok)
-            if verdict != case.startswith("good"):
+            if case not in NONCANONICAL and verdict != case.startswith("good"):
                 fail(f"the verifier entries {'reject' if case.startswith('good') else 'accept'} "
                      f"{what}")
             verify_ok[what] = verdict
@@ -3271,6 +3379,85 @@ def main():
         f"pools were {pools / 2 ** 20:.1f} MiB")
     del graphed11
     say(f"{p11} ok in {time.perf_counter() - t11:.1f} s ({card})")
+
+    # ---- phase 12: BASELINE scenario 4's GKR walk ------------------------
+    # randomize(5, 22, seed=4), the 2^24-gate unlayered circuit of
+    # benches/large.py: its GKR half as that bench runs it (build_plans,
+    # make_evaluator, make_prover, GlibcRandom(3396)'s challenges), one
+    # prove on the card, then the port's eager make_verifier on the proof
+    # and on four tampered ones (scenario4_tampers); every kernel call of
+    # the prove and of the walks recorded and held against its plain twin
+    t12 = time.perf_counter()
+    p12 = "phase 12"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cc4, ev4, prover4, ch4, inputs4, t_rand4, t_setup4 = scenario4_setup(dev)
+    torch.cuda.synchronize()
+    with Recorder(kernels, wrappers, twin) as rec:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        proof4 = prover4(ev4(inputs4), ch4)
+        torch.cuda.synchronize()
+        t_prove4 = time.perf_counter() - t0
+        prove4_launches = {e: n for e, n in kernels.LAUNCHES.items() if n}
+        if any(kernels.PLAIN_CALLS.values()):
+            fail(f"{p12}: the prove made plain twin calls "
+                 f"{kernels.PLAIN_CALLS}")
+        t0 = time.perf_counter()
+        verifier4 = protocol.make_verifier(cc4, dev, graphed=False)
+        t_vsetup4 = time.perf_counter() - t0
+        walk4, ok4 = {}, {}
+        t0 = time.perf_counter()
+        walk4["good"] = walk_of(lambda: ok4.setdefault(
+            "good", verifier4(proof4, ch4)[0]))
+        t_verify4 = time.perf_counter() - t0
+        check_walk("scenario 4, eager make_verifier", walk4["good"])
+        if not ok4["good"]:
+            fail(f"{p12}: the proof of randomize(5, 22, seed=4) is rejected")
+
+        for what, bad in scenario4_tampers(torch, cc4, proof4).items():
+            walk4[what] = walk_of(lambda: ok4.setdefault(
+                what, verifier4(bad, ch4)[0]))
+            if ok4[what] and what not in NONCANONICAL:
+                fail(f"{p12}: a proof with one {what} word changed is "
+                     f"accepted")
+    shapes4, _, _, _ = compare_calls(torch, rec, twin, expected_launches,
+                                     "scenario 4 prove and walks")
+    del rec
+    vp4 = vchecks.plan(cc4, None, dev)      # made by make_verifier
+    mids4 = list(vchecks.verify_fast_cuda(vp4, proof4, ch4)[1])
+    times4 = {}
+    for entry, ins in (("gkr_verify_fast", (vp4, proof4, ch4, None)),
+                       ("gkr_verify_slow", (vp4, proof4, ch4, mids4))):
+        # CUDA events around single calls queued behind a sleep (a
+        # profile of several misses launches at this size)
+        ms = statistics.median(queued_ms(torch, lambda: cuda_fn[entry](*ins),
+                                         5))
+        nbytes, ops = cost(entry, shape_of(entry, ins), ins)
+        t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / int32_rate * 1e3
+        times4[entry] = (shape_of(entry, ins), ms, max(t_b, t_o),
+                         "bytes" if t_b >= t_o else "operations")
+    peak4 = torch.cuda.max_memory_allocated() - mem0
+    say(f"{p12} ok ({card}): randomize(5, 22, seed=4) ({cc4.depth} layers, "
+        f"{sum(L.size for L in cc4.layers)} gates): host set-up "
+        f"{t_setup4:.1f} s (randomize + subset_init {t_rand4:.1f} s), the "
+        f"GKR prove on the card {t_prove4:.2f} s (launches {prove4_launches}"
+        f"), make_verifier {t_vsetup4:.1f} s, the eager walk "
+        f"{t_verify4 * 1e3:.1f} ms; the proof accepted, one p1_polys or "
+        f"claim_u word changed rejected, claim_u + p and claims_v = 2^63 "
+        f"the twins' verdict (verdicts {ok4}, launches {walk4}); every kernel call "
+        f"of the prove and the walks == its plain twin: {listing(shapes4)}; "
+        + "; ".join(f"{e} {list(shp)}: {ms * 1e3:.2f} us a call (queued "
+                    f"CUDA events, median of 5) against a "
+                    f"bound of {b * 1e3:.3f} us ({by})"
+                    for e, (shp, ms, b, by) in times4.items())
+        + f"; peak device memory {peak4 / 2 ** 30:.2f} GiB above the "
+        f"{mem0 / 2 ** 30:.2f} GiB held before; {time.perf_counter() - t12:.1f} s")
+    del (cc4, ev4, prover4, ch4, inputs4, proof4, verifier4, vp4, mids4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     # ---- the launches of every path, by entry -----------------------------
     fs_verify_launches = {e: fs_path_launches[e] - fs_launches[e]

@@ -11,25 +11,41 @@ and a model of the kernels' decomposition against the twins.
   JAX references each in a process of their own).
 * ``model``, a Python-int copy of ``csrc/gkr_verify.cu``'s schedule (its
   constants and field layouts read from the source): the flat plan's c0
-  pieces, tables, stages, parts and segments as the kernel reads them; each
-  stage's beta parts built entry by entry, every table's product of parts
-  == ``beta.beta_table``; a segment's terms cut over a cluster's threads,
-  scaled once after the sum (bsig's and each bt's init), the threads' and
-  the blocks' partial sums added in a shuffled order; every round checked
-  on its own against its reference; liu_sum in the twin's order; each
-  job's check and mid; the jobs' verdicts ANDed.  Its ok and mids == the
-  twins', on the two circuits above and randomize(3, 11, seed=2) (a
-  cluster of 4 or 8 blocks a job), also with stages forced small.
+  pieces, jobs, items, builds, tables, stages and segments as the kernel
+  reads them; each item builds the parts its segments read, each part's
+  halves then its entries (each written once, only those read), every
+  table's product of parts == ``beta.beta_table`` (bsig bliu the product
+  of two); an item's 32-term groups over its block's warps, the table
+  read in order its low part times its cached high parts; the lanes' and
+  the items' partial sums added in a shuffled order, the latter by the
+  job's last item; every term of a job in exactly one item; every round
+  checked on its own against its reference; liu_sum in the twin's order;
+  each job's check and mid; the jobs' verdicts ANDed.  A tree job (a slow
+  layer, the output block) is cut into aligned subtrees of the twin's tree
+  sum, folded in its order by the last item; where a claim or output word
+  is not canonical its items take the plain ops' path (terms in the twins'
+  order, a warp's groups through a binary counter).  Its ok and mids ==
+  the twins', on the two circuits above and randomize(3, 11, seed=2)
+  (several items a job), also with stages forced small and with items
+  forced small (3 and more a layer).
+* The plan of randomize(5, 16, seed=4) for a 132-SM card, on the host:
+  every term in exactly one item, more than 4 x 8 blocks, items of a
+  stage within 2x of each other's products.
 * Tampers: one word changed in p1_polys, p2_polys, liu_polys, claim_u,
   claims_v, liu_claim and vres, and a wrong output block, each rejected
-  by the twin and by the model, which agree on every output.
+  by the twin and by the model, which agree on every output.  And words
+  out of the canonical range (claim_u + p, claims_v + 2p or 2^63, an
+  output word + p or 2^63), which the twins accept or reject as their
+  plain ops fall: the model's verdict a program and mids == the twins'.
 * The CUDA wrappers refuse CPU tensors, and a CPU proof counts
   ``kernels.PLAIN_CALLS``.
 
-Inputs are canonical (the circuits' witnesses, one word bumped by one mod
-p); field arithmetic is exact, so the tolerance is 0.  The kernels run
+Inputs are the circuits' witnesses, one word bumped by one mod p or put
+out of the canonical range; field arithmetic is exact, so the tolerance
+is 0.  The kernels run
 only on a card: chip_smoke.py holds them against the twins there."""
 
+import collections
 import dataclasses
 import multiprocessing as mp
 import random
@@ -42,7 +58,7 @@ import pytest
 import torch
 
 from virgo_plus_tpu_torch import convert, driver, kernels
-from virgo_plus_tpu_torch.circuits.compile import input_buffer
+from virgo_plus_tpu_torch.circuits.compile import compile_circuit, input_buffer
 from virgo_plus_tpu_torch.circuits.layered import randomize, subset_init
 from virgo_plus_tpu_torch.field import chains, gf
 from virgo_plus_tpu_torch.gkr import protocol, vchecks as v
@@ -58,6 +74,11 @@ JAX_CIRCUITS = ("randomize(4, 3, seed=7)", "asserts, no dads")
 CIRCUITS = JAX_CIRCUITS + ("randomize(3, 11, seed=2)",)
 TAMPERS = ("p1_polys", "p2_polys", "liu_polys", "claim_u", "claims_v",
            "liu_claim", "vres", "output block")
+# one word put out of the canonical range: the plain ops are not the
+# field's there, and the twins accept some of these (claim_u + p) and
+# reject others (2^63)
+NONCANONICAL = ("claim_u + p", "claims_v + 2p", "claims_v = 2^63",
+                "output block + p", "output block = 2^63")
 
 
 def _constant(name):
@@ -104,18 +125,23 @@ def _jax_job(name, proof, block):
     return out
 
 
-def _bump(t, idx):
+def _bump(t, idx, f=lambda x: (x + 1) % M):
     a = gf.to_numpy(t).copy()
-    a[idx] = np.uint64((int(a[idx]) + 1) % M)
+    a[idx] = np.uint64(f(int(a[idx])) % 2 ** 64)
     return gf.tensor(a)
 
 
 def _tampered(cc, proof, what):
     """The proof with one word of `what` changed (a middle layer's claims
-    and phase-2 messages, the top layer's p1_polys, layer 1's liu_polys)."""
+    and phase-2 messages, the top layer's p1_polys, layer 1's liu_polys):
+    plus one mod p, or as NONCANONICAL names it."""
     top = cc.depth - 1
     mid = next(i for i in range(max(1, cc.depth // 2), cc.depth)
                if proof.layers[i].p2_polys is not None)
+    f = {"+ p": lambda x: x + M, "+ 2p": lambda x: x + 2 * M,
+         "= 2^63": lambda x: 1 << 63}.get(what.partition(" ")[2],
+                                          lambda x: (x + 1) % M)
+    what = what.partition(" ")[0]
     if what == "vres":
         return protocol.Proof(vres=_bump(proof.vres, (0,)),
                               layers=proof.layers)
@@ -124,8 +150,16 @@ def _tampered(cc, proof, what):
               "claim_u": (mid, (1,)), "liu_claim": (mid, (0,))}[what]
     layers = list(proof.layers)
     layers[i] = dataclasses.replace(
-        layers[i], **{what: _bump(getattr(layers[i], what), idx)})
+        layers[i], **{what: _bump(getattr(layers[i], what), idx, f)})
     return protocol.Proof(vres=proof.vres, layers=layers)
+
+
+def _tamper_block(out, what):
+    """The output block with word (0, 0) changed as `what` names it."""
+    f = {"output block + p": lambda x: x + M,
+         "output block = 2^63": lambda x: 1 << 63}.get(what,
+                                                       lambda x: (x + 1) % M)
+    return _bump(out, (0, 0), f)
 
 
 @pytest.fixture(scope="module")
@@ -167,16 +201,75 @@ def _el(a, i=None):
                                                       int(a[1, i]))
 
 
+# field.cuh's steps, which the kernel takes only on canonical words
+def _canon(*xs):
+    assert all(0 <= w < M for x in xs for w in x), xs
+    return True
+
+
 def _add(x, y):
+    assert _canon(x, y)
     return ((x[0] + y[0]) % M, (x[1] + y[1]) % M)
 
 
 def _mul(x, y):
+    assert _canon(x, y)
     return gf._py_mul(x, y)
 
 
 def _sub(x, y):
+    assert _canon(x, y)
     return ((x[0] - y[0]) % M, (x[1] - y[1]) % M)
+
+
+# gf_int64.cuh's steps: the plain ops on u64 words (gf.mul_plain, add_plain)
+W = (1 << 64) - 1
+
+
+def _sra(x, k):
+    return ((x - (1 << 64) if x >> 63 else x) >> k) & W
+
+
+def _csp(x):
+    return (x - M) & W if (x - (1 << 64) if x >> 63 else x) >= M else x
+
+
+def _mymult(x, y):
+    xl, xh, yl, yh = x & 0xffffffff, _sra(x, 32), y & 0xffffffff, _sra(y, 32)
+    bd, ac, ad_bc = xl * yl & W, xh * yh & W, (xh * yl + xl * yh) & W
+    hi = (ac + _sra((ad_bc + (bd >> 32)) & W, 32)) & W
+    lo = (bd + (ad_bc << 32)) & W
+    return ((hi << 3 & W | lo >> 61) + (lo & M)) & W
+
+
+def _mul64(x, y):
+    (a, b), (c, d) = x, y
+    ap, ac, bd = _mymult((a + b) & W, (c + d) & W), _mymult(a, c), _mymult(b, d)
+    nac, nbd = _csp(ac) ^ M, _csp(bd) ^ M
+    t = (ap + nac + nbd) & W
+    return _csp(_csp((ac + nbd) & W)), _csp((t >> 61) + (t & M))
+
+
+def _add64(x, y):
+    return _csp((x[0] + y[0]) & W), _csp((x[1] + y[1]) & W)
+
+
+def _lane_tree(xs, lv):
+    """The kernel's xor butterfly over lanes, levels 1 .. 2^(lv - 1):
+    lane 0's value."""
+    o = 1
+    while o < 1 << lv:
+        xs = [_add64(xs[i], xs[i ^ o]) for i in range(len(xs))]
+        o <<= 1
+    return xs[0]
+
+
+def _tree_push(stack, r, x):
+    """The kernel's binary counter: push the r-th subtree of a run."""
+    while r & 1:
+        x = _add64(stack.pop(), x)
+        r >>= 1
+    stack.append(x)
 
 
 ONE, ZERO = (1, 0), (0, 0)
@@ -184,8 +277,10 @@ ONE, ZERO = (1, 0), (0, 0)
 
 class Model:
     """csrc/gkr_verify.cu's schedule on Python ints: one program's launch
-    over `jobs` jobs of kp on c0 (numpy u64 (2, NC)) and polys ((R, 2, 3)).
-    ``tables`` keeps every table the stages built, by (col, bits)."""
+    over `jobs` jobs of kp on c0 (numpy u64 (2, NC)) and polys ((R, 2, 3)),
+    item by item.  ``tables`` keeps every table an item built, by its key
+    (col, bits, init, col2); ``sums`` each job's sum; ``items`` each job's
+    items."""
 
     def __init__(self, kp, c0, polys, jobs, seed=0):
         self.kp, self.c0, self.polys, self.h = kp, c0, polys, kp.host
@@ -197,6 +292,8 @@ class Model:
         self.tables = {}
         self.mids = {}
         self.sums = []
+        self.items = []
+        self.plain_items = 0
         self.ok = all([self.job(j) for j in range(jobs)])
 
     def col(self, c):
@@ -210,63 +307,145 @@ class Model:
         if kind == v.REF_EVAL:
             pa, pb, pc = self.poly(a)
             x = self.col(b)
-            return _add(_mul(_add(_mul(pa, x), pb), x), pc)
+            return _add64(_mul64(_add64(_mul64(pa, x), pb), x), pc)
         return liu if kind == v.REF_LIU else self.col(a)
 
-    def build(self, st):
-        """A stage's shared memory: each part's entries at its words."""
-        sm = [None] * (2 * self.kp.smem_words)
-        first = st[v.S_PART0]
-        for p in self.h["parts"][first:st[v.S_PART1]]:
-            for e in range(1 << p[v.P_W]):
-                f = ONE if p[v.P_SCALE] < 0 else self.col(p[v.P_SCALE])
-                for b in range(p[v.P_W]):
-                    r = self.col(p[v.P_COL] + b)
-                    f = _mul(f, r if e >> b & 1 else _sub(ONE, r))
-                assert sm[p[v.P_BASE] + 2 * e] is None   # written once
-                sm[p[v.P_BASE] + 2 * e:p[v.P_BASE] + 2 * e + 2] = f
-        entries = sum(1 << p[v.P_W]
-                      for p in self.h["parts"][first:st[v.S_PART1]])
-        assert entries == st[v.S_ENTRIES]
+    def bits(self, c, nb, i):
+        """The product over bits b < nb of (r_{c+b} if bit b of i else
+        1 - r_{c+b})."""
+        f = ONE
+        for b in range(nb):
+            r = self.col(c + b)
+            f = _mul(f, r if i >> b & 1 else _sub(ONE, r))
+        return f
+
+    def build(self, it):
+        """An item's shared memory, word pair by word pair: the halves of
+        the parts it builds, then each entry a low half times a high half;
+        each gate segment's cu cv table."""
+        sm, half = {}, {}
+        builds = self.h["builds"][it[v.I_BUILD0]:it[v.I_BUILD1]]
+        first = hfirst = 0
+        parts = [list(p) for p in self.h["parts"]]
+        for bp in builds:
+            p = bp[:v.B_FIRST]         # a part's fields
+            assert list(p) in parts
+            w, (wl, wh) = int(p[v.B_W]), v.half_widths(int(p[v.B_W]))
+            assert (bp[v.B_FIRST], bp[v.B_HFIRST]) == (first, hfirst)
+            for h in range(v.half_entries(w)):
+                lo = h < 1 << wl
+                b0, nb, e = (0, wl, h) if lo else (wl, wh, h - (1 << wl))
+                f = self.bits(p[v.B_COL] + b0, nb, e)
+                if p[v.B_COL2] >= 0:
+                    f = _mul(f, self.bits(p[v.B_COL2] + b0, nb, e))
+                if lo and p[v.B_SCALE] >= 0:
+                    f = _mul(self.col(p[v.B_SCALE]), f)
+                assert hfirst + h not in half
+                half[hfirst + h] = f
+            for i in range(1 << w):
+                x = half[hfirst + (i & (1 << wl) - 1)]
+                if w > wl:
+                    x = _mul(x, half[hfirst + (1 << wl) + (i >> wl)])
+                word = int(p[v.B_BASE]) + 2 * i
+                assert word not in sm and word + 2 <= self.kp.table_words
+                sm[word] = x
+            first += 1 << w
+            hfirst += v.half_entries(w)
+        assert (first, hfirst) == (it[v.I_ENTRIES], it[v.I_HALVES])
+        assert 2 * hfirst <= self.kp.half_words
+        for g in self.h["segs"][it[v.I_SEG0]:it[v.I_SEG1]]:
+            for k in range(g[v.G_NCV]):
+                sm[int(g[v.G_CUV]) + 2 * k] = _mul64(self.col(g[v.G_CU]),
+                                                     self.col(g[v.G_CV] + k))
         return sm
 
-    def beta(self, sm, t, g):
+    def parts_of(self, t):
         k, base = (int(x) for x in self.h["tables"][t][v.T_BITS:
                                                        v.T_SMEM + 1])
-        out, off = None, 0
+        # the segment rows carry each table's bits and words (G_KA, G_SA)
+        assert any((g[v.G_TA + c], g[v.G_KA + c], g[v.G_SA + c]) == (t, k, base)
+                   for g in self.h["segs"] for c in range(3))
+        out = []
         for w in v.part_widths(k):
-            e = g >> off & (1 << w) - 1
-            x = tuple(sm[base + 2 * e:base + 2 * e + 2])
-            out = x if out is None else _mul(out, x)
+            out.append((base, w))
             base += 2 << w
+        return out
+
+    def beta(self, sm, t, g):
+        out, off = None, 0
+        for base, w in self.parts_of(t):
+            x = sm[base + 2 * (g >> off & (1 << w) - 1)]
+            out = x if out is None else _mul(out, x)
             off += w
         return out
 
-    def term(self, sm, seg, t):
-        kind, off = seg[v.G_KIND], int(seg[v.G_OFF])
-        if kind == v.SEG_PRE:
-            return _mul(self.beta(sm, seg[v.G_TA], t),
-                        self.beta(sm, seg[v.G_TB], t))
-        if kind == v.SEG_DAD:
-            return _mul(self.beta(sm, seg[v.G_TA], t),
-                        self.beta(sm, seg[v.G_TB], int(self.idx[off + t])))
-        if kind == v.SEG_OUT:
-            return _mul(self.col(off + t), self.beta(sm, seg[v.G_TA], t))
+    def seq(self, sm, t, g, cache):
+        """A table read in order: part 0 at g times the higher parts'
+        product, kept in the lane's cache until g's high bits change."""
+        parts = self.parts_of(t)
+        if len(parts) == 1:
+            return sm[parts[0][0] + 2 * g]
+        (base0, w0), key = parts[0], g >> parts[0][1]
+        if cache.get("key") != key:
+            hi, off = None, 0
+            for base, w in parts[1:]:
+                x = sm[base + 2 * (key >> off & (1 << w) - 1)]
+                hi = x if hi is None else _mul(hi, x)
+                off += w
+            cache.update(key=key, hi=hi)
+        return _mul(sm[base0 + 2 * (g & (1 << w0) - 1)], cache["hi"])
+
+    def gate_beta(self, sm, seg, t, cache):
         coef, gx, glv, gsl = self.gates
-        g = off + t
+        g = int(seg[v.G_OFF]) + t
         x = int(gx[g])
-        w = self.beta(sm, seg[v.G_TA], t)
+        w = self.seq(sm, seg[v.G_TA], t, cache)
         if x & v.ASSERT_BIT:
             w = _mul(w, self.col(seg[v.G_ASSERT]))
         w = _mul(w, self.beta(sm, seg[v.G_TB], x & (v.ASSERT_BIT - 1)))
         if seg[v.G_TC] >= 0:
             w = _mul(w, self.beta(sm, seg[v.G_TC], int(glv[g])))
-        cu = self.col(seg[v.G_CU])
-        cv = self.col(seg[v.G_CV] + int(gsl[g])) if seg[v.G_CV] >= 0 else ZERO
+        return w
+
+    def term_exact(self, sm, seg, t, cache):
+        """An OUT or GATE term on the plain ops in the twins' order."""
+        off = int(seg[v.G_OFF])
+        if seg[v.G_KIND] == v.SEG_OUT:
+            return _mul64(self.col(off + t),
+                          self.seq(sm, seg[v.G_TA], t, cache))
+        coef, gx, glv, gsl = self.gates
+        g = off + t
         A, B, C, D = ((int(coef[2 * c, g]), int(coef[2 * c + 1, g]))
                       for c in range(4))
-        gate = _add(_add(_mul(A, cu), _mul(B, cv)),
-                    _add(_mul(C, _mul(cu, cv)), D))
+        cu, cv = self.col(seg[v.G_CU]), ZERO
+        cuv = _mul64(cu, ZERO)
+        if seg[v.G_CV] >= 0:
+            sl = int(gsl[g])
+            cv, cuv = self.col(seg[v.G_CV] + sl), sm[int(seg[v.G_CUV]) + 2 * sl]
+        gate = _add64(_add64(_mul64(A, cu), _mul64(B, cv)),
+                      _add64(_mul64(C, cuv), D))
+        return _mul64(self.gate_beta(sm, seg, t, cache), gate)
+
+    def term(self, sm, seg, t, cache):
+        kind, off = seg[v.G_KIND], int(seg[v.G_OFF])
+        assert kind != v.SEG_OUT       # the output block: term_exact
+        if kind == v.SEG_PRE:
+            return self.seq(sm, seg[v.G_TA], t, cache)
+        if kind == v.SEG_DAD:
+            return _mul(self.beta(sm, seg[v.G_TB], int(self.idx[off + t])),
+                        self.seq(sm, seg[v.G_TA], t, cache))
+        coef, gx, glv, gsl = self.gates
+        g = off + t
+        w = self.gate_beta(sm, seg, t, cache)
+        cu = self.col(seg[v.G_CU])
+        A, B, C, D = ((int(coef[2 * c, g]), int(coef[2 * c + 1, g]))
+                      for c in range(4))
+        if seg[v.G_CV] < 0:
+            gate = _add(_mul(A, cu), D)
+        else:
+            sl = int(gsl[g])
+            gate = _add(_add(_mul(A, cu), _mul(B, self.col(seg[v.G_CV] + sl))),
+                        _add(_mul(C, sm[int(seg[v.G_CUV]) + 2 * sl]), D))
         return _mul(w, gate)
 
     def shuffled_sum(self, xs):
@@ -277,42 +456,127 @@ class Model:
             out = _add(out, x)
         return out
 
+    def exact(self, J, seg):
+        """A tree job's item takes the plain ops' path: the output block,
+        or a gate segment with a cu or cv word not canonical."""
+        if J[v.J_TREE] < 0:
+            return False
+        if seg[v.G_KIND] == v.SEG_OUT:
+            return True
+        cols = [seg[v.G_CU]] + [seg[v.G_CV] + k for k in range(seg[v.G_NCV])]
+        return not all(0 <= w < M for c in cols for w in self.col(c))
+
+    def tree_item(self, it, sm, seg, h):
+        """The plain path: the twins' tree of the item's 2^h leaves, its
+        2^(h-5) groups (one for h <= 5) over the warps, each warp's run of
+        groups through a binary counter, the warps' values in pairs."""
+        t0, t1, G_ = int(it[v.I_T0]), int(it[v.I_T1]), v.GROUP
+        groups = 1 << (h - 5) if h > 5 else 1
+        wu = min(self.threads // 32, groups)
+        run = groups // wu
+        vals = []
+        for warp in range(wu):
+            stack, caches = [], [{} for _ in range(G_)]
+            for r in range(run):
+                base = t0 + (warp * run + r) * G_
+                xs = []
+                for lane in range(G_):
+                    u = base - int(seg[v.G_FIRST]) + lane
+                    if base < t1 and u < seg[v.G_N]:
+                        self.seen[(int(it[v.I_STAGE]), int(it[v.I_SEG0]),
+                                   u)] += 1
+                        xs.append(self.term_exact(sm, seg, u, caches[lane]))
+                    else:
+                        xs.append(ZERO)
+                _tree_push(stack, r, _lane_tree(xs, min(h, 5)))
+            assert len(stack) == 1
+            vals.append(stack[0])
+        return _lane_tree(vals + [ZERO] * (G_ - wu), wu.bit_length() - 1)
+
+    def item(self, it):
+        """One block: its build, then its 32-term groups, a run of them a
+        warp, each lane's terms summed; the block's sum."""
+        sm = self.build(it)
+        for g in self.h["segs"][it[v.I_SEG0]:it[v.I_SEG1]]:
+            for t in (g[v.G_TA], g[v.G_TB], g[v.G_TC]):
+                col, col2, k, _, init = (int(x) for x in self.h["tables"][t])
+                if t >= 0 and (col, k, init, col2) not in self.tables:
+                    self.tables[(col, k, init, col2)] = [
+                        self.beta(sm, t, e) for e in range(1 << k)]
+        segs = self.h["segs"][it[v.I_SEG0]:it[v.I_SEG1]]
+        J = self.h["jobs"][it[v.I_JOB]]
+        if self.exact(J, segs[0]):
+            self.plain_items += 1
+            return self.tree_item(it, sm, segs[0], int(J[v.J_TREE]))
+        t0, G, warps = int(it[v.I_T0]), v.GROUP, self.threads // 32
+        groups = (int(it[v.I_T1]) - t0) // G
+        lanes = []
+        for warp in range(warps):
+            acc = [ZERO] * G
+            caches = [{} for _ in range(G)]
+            s = 0
+            for gi in range(warp * groups // warps,
+                            (warp + 1) * groups // warps):
+                base = t0 + gi * G
+                while base >= segs[s][v.G_FIRST] + v._spans(segs[s][v.G_N]):
+                    s += 1
+                    caches = [{} for _ in range(G)]
+                seg = segs[s]
+                for lane in range(G):
+                    u = base - int(seg[v.G_FIRST]) + lane
+                    if u < seg[v.G_N]:
+                        self.seen[(int(it[v.I_STAGE]), s + it[v.I_SEG0],
+                                   u)] += 1
+                        acc[lane] = _add(acc[lane], self.term(
+                            sm, seg, u, caches[lane]))
+            lanes += acc
+        return self.shuffled_sum(lanes)
+
     def job(self, j):
         J = self.h["jobs"][j]
-        n_thr = self.kp.cluster * self.threads
-        acc = [ZERO] * n_thr           # each thread of the cluster
-        for st in self.h["stages"][J[v.J_STAGE0]:J[v.J_STAGE1]]:
-            sm = self.build(st)
-            segs = self.h["segs"][st[v.S_SEG0]:st[v.S_SEG1]]
-            for t in set(segs[:, v.G_TA:v.G_TC + 1].ravel()) - {-1}:
-                col, k, _, init = (int(x) for x in self.h["tables"][t])
-                self.tables[(col, k, init)] = [self.beta(sm, t, g)
-                                               for g in range(1 << k)]
-            # the stage's segments are one range of terms: term T of the
-            # stage goes to the cluster's thread T mod (C threads)
-            assert (segs[:, v.G_FIRST] == np.concatenate(
-                [[0], np.cumsum(segs[:-1, v.G_N])])).all()
-            assert segs[:, v.G_N].sum() == st[v.S_TERMS]
-            for seg in segs:
-                for t in range(int(seg[v.G_N])):
-                    T = int(seg[v.G_FIRST]) + t
-                    acc[T % n_thr] = _add(acc[T % n_thr],
-                                          self.term(sm, seg, t))
-        blocks = [self.shuffled_sum(acc[b * self.threads:
-                                        (b + 1) * self.threads])
-                  for b in range(self.kp.cluster)]
-        total = self.shuffled_sum(blocks)
+        items = self.h["items"][J[v.J_ITEM0]:J[v.J_ITEM1]]
+        assert (items[:, v.I_JOB] == j).all()
+        self.seen = collections.Counter()
+        # every term of the job's segments in exactly one item
+        partials = [self.item(it) for it in items]
+        want = {(int(st), i, u)
+                for st in range(J[v.J_STAGE0], J[v.J_STAGE1])
+                for i in range(*self.h["stages"][st][[v.S_SEG0, v.S_SEG1]])
+                for u in range(self.h["segs"][i][v.G_N])}
+        assert set(self.seen) == want and set(self.seen.values()) <= {1}
+        self.items.append(len(items))
+        if J[v.J_TREE] >= 0:
+            # a tree job's items: aligned subtrees of 2^h terms, folded by
+            # the last to arrive in the twins' tree over 2^(K-h) slots, lane
+            # l a run of `per` slots through a binary counter
+            h, L = int(J[v.J_TREE]), int(J[v.J_TREE_K] - J[v.J_TREE])
+            assert (items[:, v.I_T0] == np.arange(len(items)) << h).all()
+            assert len(items) <= 1 << L
+            lanes = 1 << L if L < 5 else 32
+            per = (1 << L) // lanes
+            xs = []
+            for lane in range(lanes):
+                stack = []
+                for r in range(per):
+                    k = lane * per + r
+                    _tree_push(stack, r, partials[k] if k < len(items)
+                               else ZERO)
+                xs.append(stack[0])
+            total = _lane_tree(xs + [ZERO] * (32 - lanes), min(L, 5))
+        else:
+            # the last item to arrive adds the items' sums, in any order
+            total = self.shuffled_sum(partials)
         self.sums.append(total)
         liu = None
         for pair in self.h["liu"][J[v.J_LIU0]:J[v.J_LIU1]]:
-            p = _mul(self.col(pair[v.L_SIG]), self.col(pair[v.L_CLAIM]))
-            liu = p if liu is None else _add(liu, p)
+            p = _mul64(self.col(pair[v.L_SIG]), self.col(pair[v.L_CLAIM]))
+            liu = p if liu is None else _add64(liu, p)
         good = True
         for r in self.h["rounds"][J[v.J_ROUND0]:J[v.J_ROUND1]]:
             a, b, c = self.poly(r[v.R_ROW])
-            s = _add(_add(a, b), _add(c, c))
+            s = _add64(_add64(a, b), _add64(c, c))
             good &= s == self.resolve(*r[v.R_KIND:v.R_B + 1], liu)
-        lhs = (_mul(self.col(J[v.J_MUL]), total) if J[v.J_MUL] >= 0
+        lhs = (_mul64(self.col(J[v.J_MUL]), total) if J[v.J_MUL] >= 0
                else total)
         good &= lhs == self.resolve(*J[v.J_EXP:v.J_EXP_B + 1], liu)
         if J[v.J_MID] >= 0:
@@ -365,27 +629,38 @@ def test_twins_match_jax(runs, name, form):
     assert bool(slow) and bool(slow) == bool(r["jax"]["slow"])
 
 
-@pytest.mark.parametrize("stages", ["plan", "forced"])
+@pytest.mark.parametrize("stages", ["plan", "forced", "small items"])
 @pytest.mark.parametrize("name", CIRCUITS)
 def test_model_matches_twins(runs, name, stages, monkeypatch):
     """The kernels' schedule == the twins on the honest proof, with and
-    without the output block, at the plan's stages and at stages forced
-    to the words of the largest segment's tables (a stage a segment)."""
+    without the output block, at the plan's stages and items, at stages
+    forced to the words of the largest segment's tables (a stage a
+    segment), and at items forced small (MIN_ITEM_COST 1 on a 64-SM
+    card: a layer of randomize(3, 11) over 3 items and more, its partial
+    sums added by the last in a shuffled order)."""
     r = runs[name]
     vp = r["vp"]
     if stages == "forced":
         monkeypatch.setattr(v, "STAGE_WORDS", max(
             sum(v.table_words(int(kp.host["tables"][t][v.T_BITS]))
                 for t in set(g[v.G_TA:v.G_TC + 1]) - {-1})
+            + 2 * int(g[v.G_NCV])
             for kp in (vp.fast, vp.slow) for g in kp.host["segs"]))
         vp = v.VerifierPlan(r["cc"], vp.varrs, "cpu")
         assert len(vp.fast.host["stages"]) > len(vp.fast.host["jobs"])
+    elif stages == "small items":
+        monkeypatch.setattr(v, "MIN_ITEM_COST", 1)
+        monkeypatch.setattr(v, "DEFAULT_SMS", 64)
+        vp = v.VerifierPlan(r["cc"], vp.varrs, "cpu")
     for out in (None, r["out"]):
-        ok, mids, _ = _model_verify(vp, r["proof"], r["ch"], out)
+        ok, mids, fast = _model_verify(vp, r["proof"], r["ch"], out)
         want = _twins(vp, r["proof"], r["ch"], out)
         assert ok and want[0]
         assert all(torch.equal(a, b) for a, b in zip(mids, want[1]))
-    assert (vp.slow.cluster > 1) == ("11" in name)
+        if stages == "small items" and "11" in name:
+            assert min(fast.items[:vp.fast.n_jobs]) >= 3
+    assert (len(vp.slow.host["items"]) > len(vp.slow.host["jobs"])) == (
+        "11" in name)
 
 
 @pytest.mark.parametrize("name", CIRCUITS)
@@ -399,10 +674,13 @@ def test_model_parts_and_sums(runs, name):
     _, _, fast = _model_verify(vp, proof, ch, r["out"], seed=5)
     c0 = v._c0(vp.fast, proof, ch, r["out"])
     assert fast.tables
-    for (col, k, init), entries in fast.tables.items():
-        want = gf.to_numpy(beta_table(
-            c0[:, col:col + k], k,
-            gf.ones(()) if init < 0 else c0[:, init]))
+    for (col, k, init, col2), entries in fast.tables.items():
+        want = beta_table(c0[:, col:col + k], k,
+                          gf.ones(()) if init < 0 else c0[:, init])
+        if col2 >= 0:     # bsig bliu: the product of two tables
+            want = gf.mul(want, beta_table(c0[:, col2:col2 + k], k,
+                                           gf.ones(())))
+        want = gf.to_numpy(want)
         assert [tuple(int(x) for x in want[:, g]) for g in range(1 << k)] \
             == entries
     src = cc.source
@@ -431,7 +709,7 @@ def test_tampers_rejected(runs, name, what):
     r = runs[name]
     proof, out = r["proof"], None
     if what == "output block":
-        out = _bump(r["out"], (0, 0))
+        out = _tamper_block(r["out"], what)
     else:
         proof = _tampered(r["cc"], proof, what)
     ok, mids, _claim, _point = _twins(r["vp"], proof, r["ch"], out)
@@ -440,16 +718,68 @@ def test_tampers_rejected(runs, name, what):
     assert all(torch.equal(a, b) for a, b in zip(got_mids, mids))
 
 
+@pytest.mark.parametrize("what", NONCANONICAL)
+@pytest.mark.parametrize("name", CIRCUITS)
+def test_noncanonical_words_match_twins(runs, name, what, monkeypatch):
+    """A claim or output word of p or more: each program's verdict and the
+    mids of the model == the twins', and each tree job's sum == the twin's
+    tree_sum_plain bits, with items forced small (MIN_ITEM_COST 1 on a
+    64-SM card, so a layer of randomize(3, 11) is several subtrees); the
+    plain path taken where a word is not canonical."""
+    r = runs[name]
+    monkeypatch.setattr(v, "MIN_ITEM_COST", 1)
+    monkeypatch.setattr(v, "DEFAULT_SMS", 64)
+    vp = v.VerifierPlan(r["cc"], r["vp"].varrs, "cpu")
+    proof, out = r["proof"], None
+    if what.startswith("output block"):
+        out = _tamper_block(r["out"], what)
+    else:
+        proof = _tampered(r["cc"], proof, what)
+    sums, tree_sum = [], chains.tree_sum_plain
+
+    def recorded(x):
+        sums.append(_el(gf.to_numpy(tree_sum(x))))
+        return gf.tensor(np.array(sums[-1], dtype=np.uint64))
+
+    monkeypatch.setattr(chains, "tree_sum_plain", recorded)
+    ok, mids, _claim, _point = v.verify_fast_plain(vp, proof, r["ch"], out)
+    out_sum, sums[:] = sums[:1] if out is not None else None, []
+    slow_ok = v.verify_slow_plain(vp, proof, r["ch"], mids)
+    monkeypatch.setattr(chains, "tree_sum_plain", tree_sum)
+    polys = gf.to_numpy(v._polys(vp.cc, proof))
+    c0 = gf.to_numpy(v._c0(vp.fast, proof, r["ch"], out))
+    fast = Model(vp.fast, c0, polys, vp.fast.n_jobs + (out is not None), 3)
+    got_mids = [gf.tensor(np.array(fast.mids[k], dtype=np.uint64))
+                for k in range(vp.fast.layers)]
+    assert all(torch.equal(a, b) for a, b in zip(got_mids, mids))
+    assert fast.ok == bool(ok)
+    slow = Model(vp.slow, gf.to_numpy(v._c0(vp.slow, proof, r["ch"],
+                                            mids=mids)),
+                 None, vp.slow.n_jobs, 4)
+    assert slow.ok == bool(slow_ok)
+    assert slow.sums == sums
+    if out is not None:
+        assert [fast.sums[-1]] == out_sum and fast.plain_items
+    else:
+        assert slow.plain_items
+    if "11" in name:
+        assert min(slow.items) > 1
+
+
 def test_plan_layout(runs):
     """The flat plan as the kernel reads it: c0's pieces side by side, the
     polynomial rows of the rounds inside the cat, each stage's parts
-    packed in its words, the segments' offsets contiguous; the source's
-    constants and field enums == vchecks'."""
-    for name in ("THREADS", "MAX_CLUSTER", "PART_BITS", "STAGE_WORDS"):
+    packed in its words, each item's builds packed in its entries and
+    halves, the segments' offsets contiguous and their first terms whole
+    groups; the source's constants and field enums == vchecks'."""
+    for name in ("THREADS", "PART_BITS", "STAGE_WORDS", "HALF_WORDS",
+                 "STAGE_SEGS", "STAGE_PARTS", "GROUP"):
         assert _constant(name) == getattr(v, name), name
-    for fields in (v.JOB_FIELDS, v.STAGE_FIELDS, v.PART_FIELDS,
-                   v.TABLE_FIELDS, v.SEG_FIELDS, v.ROUND_FIELDS,
-                   v.LIU_FIELDS):
+    assert _constant("MIN_BLOCKS") == v.ITEMS_PER_SM
+    assert v.BUILD_FIELDS[:len(v.PART_FIELDS)] == tuple(
+        "B_" + f[2:] for f in v.PART_FIELDS)
+    for fields in (v.JOB_FIELDS, v.ITEM_FIELDS, v.BUILD_FIELDS,
+                   v.SEG_FIELDS, v.ROUND_FIELDS, v.LIU_FIELDS):
         assert re.search(r"enum \{ " + r",\s+".join(fields) + r",\s+\w+_FIELDS",
                          SOURCE), fields
     for name in CIRCUITS:
@@ -464,10 +794,18 @@ def test_plan_layout(runs):
             h = kp.host
             for st in h["stages"]:
                 parts = h["parts"][st[v.S_PART0]:st[v.S_PART1]]
-                assert (np.diff(parts[:, v.P_FIRST]) == (1 << parts[:-1, v.P_W])
-                        ).all()
                 words = parts[:, v.P_BASE] + (2 << parts[:, v.P_W])
-                assert words.max(initial=0) <= kp.smem_words <= v.STAGE_WORDS
+                assert (parts[1:, v.P_BASE] == words[:-1]).all()
+                assert words.max(initial=0) <= kp.table_words <= v.STAGE_WORDS
+                segs = h["segs"][st[v.S_SEG0]:st[v.S_SEG1]]
+                assert (segs[:, v.G_FIRST] % v.GROUP == 0).all()
+            for it in h["items"]:
+                b = h["builds"][it[v.I_BUILD0]:it[v.I_BUILD1]]
+                w = b[:, v.B_W]
+                assert (np.diff(b[:, v.B_FIRST]) == (1 << w[:-1])).all()
+                assert sum(1 << w) == it[v.I_ENTRIES]
+                assert 2 * it[v.I_HALVES] <= kp.half_words <= v.HALF_WORDS
+                assert it[v.I_T0] % v.GROUP == it[v.I_T1] % v.GROUP == 0
             offs = {}
             for g in h["segs"]:
                 if g[v.G_KIND] in (v.SEG_DAD, v.SEG_GATE):
@@ -478,6 +816,50 @@ def test_plan_layout(runs):
                            zip(runs_, runs_[1:]))
         rows = v._polys(vp.cc, r["proof"]).shape[0]
         assert rows == vp.fast.n_rows == len(vp.fast.host["rounds"])
+
+
+@pytest.mark.parametrize("program", ["fast", "slow"])
+def test_plan_items_over_the_card(program):
+    """BASELINE scenario 4's circuit shape cut to randomize(5, 16, seed=4),
+    planned for a 132-SM card on the host: every term of every job lies in
+    exactly one item (the items of a stage cover its groups once, each
+    item's segments those its groups meet), the grid holds more than 4 x 8
+    blocks (the old design's four jobs of one 8-block cluster each), and
+    the items' costs are within 2x of each other where a stage holds more
+    than one."""
+    c = randomize(5, 16, seed=4)
+    subset_init(c)
+    cc = compile_circuit(c)
+    assert v.DEFAULT_SMS == 132
+    kp = getattr(v.VerifierPlan(cc, protocol.verifier_arrays(cc, "cpu"),
+                                "cpu"), program)
+    h = kp.host
+    assert len(h["items"]) > 4 * 8
+    for j, job in enumerate(h["jobs"]):
+        items = h["items"][job[v.J_ITEM0]:job[v.J_ITEM1]]
+        assert len(items) and (items[:, v.I_JOB] == j).all()
+        for s in range(job[v.J_STAGE0], job[v.J_STAGE1]):
+            st = h["stages"][s]
+            mine = items[items[:, v.I_STAGE] == s]
+            assert mine[0, v.I_T0] == 0 and mine[-1, v.I_T1] == st[v.S_TERMS]
+            assert (mine[1:, v.I_T0] == mine[:-1, v.I_T1]).all()
+            segs = h["segs"][st[v.S_SEG0]:st[v.S_SEG1]]
+            ends = segs[:, v.G_FIRST] + -(-segs[:, v.G_N] // v.GROUP) * v.GROUP
+            assert (segs[1:, v.G_FIRST] == ends[:-1]).all()
+            cost = []
+            for it in mine:
+                ss = np.arange(st[v.S_SEG0], st[v.S_SEG1])
+                meet = ss[(segs[:, v.G_FIRST] < it[v.I_T1])
+                          & (ends > it[v.I_T0])]
+                assert (it[v.I_SEG0], it[v.I_SEG1]) == (meet[0], meet[-1] + 1)
+                cost.append(sum(
+                    v.term_cost(h["segs"][i], h["tables"])
+                    * max(0, min(it[v.I_T1], h["segs"][i][v.G_FIRST]
+                                 + h["segs"][i][v.G_N])
+                          - max(it[v.I_T0], h["segs"][i][v.G_FIRST]))
+                    for i in meet))
+            if len(cost) > 1:
+                assert max(cost) <= 2 * min(cost)
 
 
 def test_entries_on_the_cpu(runs):

@@ -132,13 +132,13 @@ SOURCES = {
         "fs_sumcheck": ("vpt_fs_sumcheck", [_P] * 3 + [_L] * 3
                         + [_P, _P, _I, _I, _P, _I, _P, _P, _I, _P]),
     },
-    # c0, its columns; the round polynomials; the plan's jobs, stages,
-    # parts, tables, segments, rounds, Liu terms, dad ids, gate x, lv, sl
-    # and coefficients, the gates; the jobs launched, the blocks of a
-    # cluster, a stage's table words; mids out, ok out, the arrival word;
-    # the stream
+    # c0, its columns; the round polynomials; the plan's jobs, items,
+    # builds, segments, rounds, Liu terms, dad ids, gate x, lv, sl and
+    # coefficients, the gates; the jobs and items launched, the table and
+    # half words, the scratch's jobs and items; mids out, ok out, the
+    # scratch; the stream
     "gkr_verify": {
-        entry: (f"vpt_{entry}", [_P, _L] + [_P] * 13 + [_L] + [_I] * 3
+        entry: (f"vpt_{entry}", [_P, _L] + [_P] * 12 + [_L] + [_I] * 6
                 + [_P] * 4)
         for entry in ("gkr_verify_fast", "gkr_verify_slow")},
 }
